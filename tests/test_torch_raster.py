@@ -1,0 +1,224 @@
+"""The port's binning, coarse raster and untile against the JAX package.
+
+JAX side, run as the JAX package's own tests run it on the CPU (Pallas in
+interpret mode), in one subprocess for the module (tests/torch_parity.py
+says why): ``raster_tiled._build_bins``,
+``raster_pallas._pallas_call_sparse_jit(interpret=True)`` and
+``raster_sparse._untile_one_jit(interpret=True)``.  Both sides get the
+same inputs, made on the port side from one shared setup (and a seeded
+random running depth).  Tolerance: bitwise.
+
+Tests marked ``cuda`` compare the CUDA kernels with their plain versions
+and skip where no GPU is present."""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import assert_bits, run_jax, scene_pass
+from tinyrenderder_tpu_torch import convert
+from tinyrenderder_tpu_torch.ops import raster_coarse, raster_sparse, raster_tiled
+
+#: raster cases: (scene of torch_parity.SCENES, tile_h)
+CASES = {"head16": ("head_phong", 16), "soup32": ("soup_phong_ragged", 32)}
+UNTILE = {"i32": (torch.int32, 2, 3, 16), "f32": (torch.float32, 3, 2, 32)}
+
+
+def _prepare(scene, th, seed):
+    """Port-side pre-stage pieces at one shared setup, as NumPy."""
+    p, w, h = scene_pass(scene)
+    attrs, uniforms = convert.pass_to_torch(p.attrs, p.uniforms, "cpu")
+    setup, varyings = raster_tiled.vertex_stage(attrs, uniforms, p.shader, w, h)
+    ntx, nty = raster_tiled.cdiv(w, 128), raster_tiled.cdiv(h, th)
+    tx0, ty0, span_x, span_y, spans = raster_tiled.tile_spans(setup, 128, th)
+    per_tile = raster_tiled.tile_pair_counts(tx0, ty0, span_x, span_y, ntx, nty)
+    total = int(per_tile.sum())
+    sorted_tri, start, counts = raster_tiled.build_bins(tx0, ty0, span_x, spans,
+                                                        total, ntx, nty)
+    spec = tuple(p.shader.varying_spec.items())
+    vary_corners = raster_tiled.flatten_varyings(varyings, spec)
+    ids = torch.nonzero(counts > 0)[:, 0].to(torch.int32)
+    rng = np.random.default_rng(seed)
+    depth_tiles = rng.uniform(-0.2, 1.0, size=(ntx * nty, th, 128)).astype(np.float32)
+    depth_tiles[rng.random(depth_tiles.shape) < 0.5] = np.inf
+    n = lambda t: t.numpy()  # noqa: E731
+    return {
+        "setup": {k: n(v) for k, v in setup.items()},
+        "spans": {"tx0": n(tx0), "ty0": n(ty0), "span_x": n(span_x), "spans": n(spans)},
+        "per_tile": n(per_tile), "total": total, "ntx": ntx, "nty": nty, "th": th,
+        "bins": (n(sorted_tri), n(start), n(counts)),
+        "vary_corners": n(vary_corners), "n_vary": vary_corners.shape[-1],
+        "ids": n(ids), "depth_tiles": depth_tiles,
+    }
+
+
+@pytest.fixture(scope="module")
+def prepared():
+    return {name: _prepare(scene, th, seed)
+            for seed, (name, (scene, th)) in enumerate(CASES.items())}
+
+
+@pytest.fixture(scope="module")
+def untile_inputs():
+    rng = np.random.default_rng(11)
+    out = {}
+    for name, (dtype, ntx, nty, th) in UNTILE.items():
+        x = rng.integers(-2**31, 2**31 - 1, size=(ntx * nty, th, 128), dtype=np.int64)
+        x = x.astype(np.int32)
+        if dtype == torch.float32:
+            x = rng.normal(size=x.shape).astype(np.float32)
+            x[0, 0, :4] = [np.inf, -np.inf, -0.0, np.nan]
+        out[name] = (x, ntx, nty, th)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_side(prepared, untile_inputs, tmp_path_factory):
+    req = {}
+    for name, c in prepared.items():
+        req[f"{name}_bins"] = {"op": "bins", **c["spans"], "total": c["total"],
+                               "ntx": c["ntx"], "nty": c["nty"]}
+        sorted_tri, start, counts = c["bins"]
+        ids = c["ids"]
+        req[f"{name}_raster"] = {
+            "op": "raster", **c["setup"], "sorted_tri": sorted_tri,
+            "vary_corners": c["vary_corners"], "ids": ids, "start": start[:-1][ids],
+            "counts": counts[ids], "depth_tiles": c["depth_tiles"], "ntx": c["ntx"],
+            "nty": c["nty"], "th": c["th"], "tw": 128, "n_vary": c["n_vary"]}
+    for name, (x, ntx, nty, th) in untile_inputs.items():
+        req[f"{name}_untile"] = {"op": "untile", "x": x, "ntx": ntx, "nty": nty,
+                                 "th": th, "tw": 128}
+    return run_jax(req, tmp_path_factory.mktemp("jax_raster"))
+
+
+def _raster_plain(c):
+    sorted_tri, start, counts = (torch.from_numpy(a) for a in c["bins"])
+    ids = torch.from_numpy(c["ids"])
+    setup = {k: torch.from_numpy(v) for k, v in c["setup"].items()}
+    rec = raster_coarse.build_tri_records(setup, torch.from_numpy(c["vary_corners"]))
+    init = torch.from_numpy(c["depth_tiles"])[ids.long()].contiguous()
+    return raster_coarse.coarse_raster(rec, sorted_tri, ids, start[:-1][ids.long()],
+                                       counts[ids.long()], init, c["ntx"], c["th"],
+                                       128, c["n_vary"])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bins_match_jax(prepared, jax_side, case):
+    c = prepared[case]
+    want = jax_side[f"{case}_bins"]
+    assert c["total"] > 0
+    for name, got in zip(("sorted_tri", "start", "counts"), c["bins"]):
+        assert_bits(got, want[name], name)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_tile_pair_counts_equal_bin_counts(prepared, case):
+    c = prepared[case]
+    assert_bits(c["per_tile"], c["bins"][2], "per-tile pair counts")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_coarse_raster_plain_matches_pallas(prepared, jax_side, case):
+    """Depth, winner and every varying plane bitwise against the TPU
+    kernel in interpret mode, merged against a random running depth."""
+    c = prepared[case]
+    want = jax_side[f"{case}_raster"]
+    depth, winner, vary = _raster_plain(c)
+    assert_bits(depth.numpy(), want["depth"], "depth")
+    # the TPU kernel carries ids as exact f32 (< 2^24), -1 = background
+    assert_bits(winner.numpy(), want["winner"].astype(np.int32), "winner")
+    assert_bits(vary.numpy(), want["vary"], "varyings")
+    won = winner.numpy() >= 0
+    assert won.any() and (~won).any()
+    assert (depth.numpy()[~won] == c["depth_tiles"][c["ids"]][~won]).all()
+
+
+@pytest.mark.parametrize("name", list(UNTILE))
+def test_untile_plain_matches_pallas(untile_inputs, jax_side, name):
+    x, ntx, nty, th = untile_inputs[name]
+    got = raster_sparse.untile_one(torch.from_numpy(x), ntx, nty, th, 128)
+    assert_bits(got.numpy(), jax_side[f"{name}_untile"]["out"], "untile")
+
+
+def test_z_ties_go_to_the_first_drawn():
+    """Every triangle drawn twice: each covered pixel's depth ties, and the
+    first copy must win (the reference's strict-less z-test)."""
+    p, w, h = scene_pass("head_phong")
+    attrs = {k: np.concatenate([v, v]) for k, v in p.attrs.items()}
+    f = p.attrs["position"].shape[0]
+    attrs_t, uniforms_t = convert.pass_to_torch(attrs, p.uniforms, "cpu")
+    pre = raster_sparse.pre_sparse(attrs_t, uniforms_t, p.shader, w, h)
+    init = torch.full((pre.n_active, 16, 128), torch.inf)
+    _, winner, _ = raster_coarse.coarse_raster(
+        pre.tri_rec, pre.sorted_tri, pre.ids, pre.start, pre.counts, init,
+        raster_tiled.cdiv(w, 128), 16, 128, 8)
+    assert (winner >= 0).any()
+    assert int(winner.max()) < f
+
+
+def test_wrappers_validate_inputs(prepared):
+    c = prepared["head16"]
+    sorted_tri, start, counts = (torch.from_numpy(a) for a in c["bins"])
+    ids = torch.from_numpy(c["ids"])
+    rec = torch.zeros((c["setup"]["valid"].shape[0], 40))
+    init = torch.zeros((ids.shape[0], 16, 128))
+    good = (rec, sorted_tri, ids, start[:-1][ids.long()], counts[ids.long()], init,
+            c["ntx"], 16, 128, 8)
+    raster_coarse.coarse_raster(*good)
+    for i, bad in ((0, rec.double()), (2, ids.long()), (5, init[:, :8]),
+                   (0, rec.t())):
+        args = list(good)
+        args[i] = bad
+        with pytest.raises(ValueError):
+            raster_coarse.coarse_raster(*args)
+    with pytest.raises(ValueError, match="room"):
+        raster_coarse.coarse_raster(*good[:-1], 9)
+    tiles = torch.zeros((6, 16, 128), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        raster_sparse.untile_one(tiles, 2, 2, 16, 128)
+    with pytest.raises(ValueError):
+        raster_sparse.untile_one(tiles.to(torch.int16), 2, 3, 16, 128)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels against their plain versions (skipped without a GPU)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_coarse_raster_matches_plain(prepared, cuda_device, case):
+    c = prepared[case]
+    sorted_tri, start, counts = (torch.from_numpy(a) for a in c["bins"])
+    idl = torch.from_numpy(c["ids"]).long()
+    setup = {k: torch.from_numpy(v) for k, v in c["setup"].items()}
+    rec = raster_coarse.build_tri_records(setup, torch.from_numpy(c["vary_corners"]))
+    args = [rec, sorted_tri, idl.int(), start[:-1][idl], counts[idl],
+            torch.from_numpy(c["depth_tiles"])[idl].contiguous()]
+    want = raster_coarse.coarse_raster_plain(*args, c["ntx"], c["th"], 128, c["n_vary"])
+    before = raster_coarse.LAUNCHES
+    got = raster_coarse.coarse_raster(*(a.to(cuda_device) for a in args), c["ntx"],
+                                      c["th"], 128, c["n_vary"])
+    torch.cuda.synchronize()
+    assert raster_coarse.LAUNCHES == before + 1
+    for name, g, w in zip(("depth", "winner", "vary"), got, want):
+        assert_bits(g.cpu().numpy(), w.numpy(), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(UNTILE))
+def test_cuda_untile_matches_plain(untile_inputs, cuda_device, name):
+    x, ntx, nty, th = untile_inputs[name]
+    xt = torch.from_numpy(x)
+    before = raster_sparse.LAUNCHES
+    got = raster_sparse.untile_one(xt.to(cuda_device), ntx, nty, th, 128)
+    torch.cuda.synchronize()
+    assert raster_sparse.LAUNCHES == before + 1
+    assert_bits(got.cpu().numpy(),
+                raster_sparse.untile_one_plain(xt, ntx, nty, th, 128).numpy(), "untile")

@@ -1,0 +1,109 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+``csrc/*.cu`` expose a plain C interface (no PyTorch headers), so one
+nvcc call builds them in seconds.  The shared library goes to
+``build/tinyrenderder_tpu_torch/`` at the repository root, under a name
+that hashes the sources and flags: a changed source rebuilds, an
+unchanged one loads the existing library.
+
+Flags: ``sm_90a`` code only; ``-fmad=false`` so no multiply-add is
+contracted into an FMA (the reference rounds each product and sum
+separately); no ``--use_fast_math``, so ``/`` and ``sqrtf`` stay IEEE
+round-to-nearest, nvcc's default.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
+SOURCES = ("raster_coarse.cu", "untile.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry points: name -> argtypes (every function returns cudaError_t)
+SIGNATURES = {
+    # tri_rec, rec_stride, sorted_tri, tile_ids, start, count, n_active,
+    # origin_x, origin_y, n_tiles_x, tile_h, tile_w, n_vary,
+    # init_depth, depth, winner, vary, stream
+    "trt_coarse_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P],
+    # src, dst, n_tiles_x, n_tiles_y, tile_h, tile_w, stream
+    "trt_untile32": [_P, _P, _I, _I, _I, _I, _P],
+}
+
+_LIB: ctypes.CDLL | None = None
+#: seconds this process spent in nvcc (0.0 when the library existed)
+BUILD_SECONDS = 0.0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from csrc/ on first use")
+    return found
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libtrt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of the same sources exists.
+    nvcc's output (ptxas register and shared-memory report) is kept
+    beside the library as ``<name>.log``."""
+    global BUILD_SECONDS
+    lib = _library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)       # atomic: a concurrent loader never sees half a file
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.trt_error_string.argtypes = [_I]
+        lib.trt_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        msg = library().trt_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: cudaError_t {rc} ({msg})")

@@ -1,0 +1,193 @@
+// Coarse raster over compacted active tiles, for Hopper (sm_90a).
+//
+// Replaces: tinyrenderder_tpu/ops/raster_pallas.py::_tile_kernel, as
+// launched over active tiles by _pallas_call_sparse_jit.  Plain version
+// and contract: tinyrenderder_tpu_torch/ops/raster_coarse.py.
+//
+// What bounds it on this card: per-pixel arithmetic.  For every (pixel,
+// pair) inside the pair's bbox a thread evaluates the barycentric
+// coverage with three IEEE divisions and the affine depth; memory traffic
+// is small (16 floats per pair, read once per block into shared memory,
+// and the tile's outputs written once).  IEEE division without FMA
+// contraction is the price of bitwise parity with the reference.
+//
+// Design:
+//  * one block of 256 threads per active tile of TH x 128 pixels; thread
+//    t owns the pixels t, t + 256, ... (column t % 128), so every store is
+//    a coalesced 128-float row segment;
+//  * loop 1 streams the tile's bin IN BIN ORDER through shared memory in
+//    chunks of 64 pairs and keeps, per pixel in registers, the depth and
+//    winner of a sequential strict-less update.  That is the reference's
+//    first-drawn-wins z-test; the TPU kernel's first-minimum argmin over
+//    16-pair sub-blocks followed by a strict-less merge picks the same
+//    pair.  A pixel outside a pair's integer bbox skips the pair before
+//    any arithmetic: the bbox test is one factor of the coverage AND, so
+//    skipping changes nothing;
+//  * loop 2 needs no second pass over the bin (the TPU re-streamed it to
+//    avoid gathers): each pixel reads its winner's row from global memory
+//    and interpolates the varyings;
+//  * arithmetic follows tinyrenderder_tpu/ops/semantics.py operation for
+//    operation, built with -fmad=false and IEEE division; thresholds are
+//    float literals (the reference compares in float32).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileW = 128;
+constexpr int kChunk = 64;   // pairs staged in shared memory at a time
+constexpr int kGeom = 16;    // screen xy x3, ndc z x3, clip w x3, bbox x4
+
+// semantics.barycentric (our_gl.cpp:77-86)
+__device__ __forceinline__ void barycentric(const float* g, float px, float py,
+                                            float& b0, float& b1, float& b2) {
+  const float ax = g[0], ay = g[1], bx = g[2], by = g[3], cx = g[4], cy = g[5];
+  const float s0x = cx - ax;
+  const float s0y = bx - ax;
+  const float s0z = ax - px;
+  const float s1x = cy - ay;
+  const float s1y = by - ay;
+  const float s1z = ay - py;
+  const float ux = s0y * s1z - s0z * s1y;
+  const float uy = s0z * s1x - s0x * s1z;
+  const float uz = s0x * s1y - s0y * s1x;
+  if (fabsf(uz) < 1e-12f) {  // DEGEN_EPS, compared in float32
+    b0 = -1.0f;
+    b1 = 1.0f;
+    b2 = 1.0f;
+    return;
+  }
+  b0 = 1.0f - (ux + uy) / uz;
+  b1 = uy / uz;
+  b2 = ux / uz;
+}
+
+// semantics.perspective_correct_bary (our_gl.cpp:168-185)
+__device__ __forceinline__ float inv_w(float w) {
+  return fabsf(w) <= 1e-12f ? 0.0f : 1.0f / w;  // W_EPS
+}
+
+template <int TH>
+__global__ void __launch_bounds__(kThreads)
+coarse_raster_kernel(const float* __restrict__ tri_rec, int rec_stride,
+                     const int* __restrict__ sorted_tri,
+                     const int* __restrict__ tile_ids,
+                     const int* __restrict__ start,
+                     const int* __restrict__ count, int origin_x, int origin_y,
+                     int n_tiles_x, int n_vary,
+                     const float* __restrict__ init_depth,
+                     float* __restrict__ depth_out, int* __restrict__ winner_out,
+                     float* __restrict__ vary_out) {
+  constexpr int kPix = TH * kTileW / kThreads;  // pixels per thread
+  constexpr int kRowStep = kThreads / kTileW;   // rows between them
+  __shared__ float s_geom[kChunk][kGeom];
+  __shared__ int s_tri[kChunk];
+
+  const int a = blockIdx.x;
+  const int tile = tile_ids[a];
+  const int seg = start[a];
+  const int n = count[a];
+  const int tid = threadIdx.x;
+  const int col = tid % kTileW;
+  const int row0 = tid / kTileW;
+  const int xi = origin_x + (tile % n_tiles_x) * kTileW + col;
+  const int gy0 = origin_y + (tile / n_tiles_x) * TH + row0;
+  const float fx = static_cast<float>(xi);
+  const float px = fx + 0.5f;
+  const size_t plane = static_cast<size_t>(TH) * kTileW;
+  const size_t base = static_cast<size_t>(a) * plane + tid;
+
+  float depth[kPix];
+  int win[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    depth[k] = init_depth[base + k * kThreads];
+    win[k] = -1;
+  }
+
+  // ---- loop 1: depth resolve in bin order ----
+  for (int c0 = 0; c0 < n; c0 += kChunk) {
+    const int m = min(kChunk, n - c0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = tid; i < m * kGeom; i += kThreads) {
+      const int p = i / kGeom, c = i % kGeom;
+      const int tri = sorted_tri[seg + c0 + p];
+      s_geom[p][c] = tri_rec[static_cast<size_t>(tri) * rec_stride + c];
+      if (c == 0) s_tri[p] = tri;
+    }
+    __syncthreads();
+    for (int p = 0; p < m; ++p) {
+      const float* g = s_geom[p];
+      if (fx < g[12] || fx > g[13]) continue;  // column outside the bbox
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        const float fy = static_cast<float>(gy0 + k * kRowStep);
+        if (fy < g[14] || fy > g[15]) continue;
+        float b0, b1, b2;
+        barycentric(g, px, fy + 0.5f, b0, b1, b2);
+        if (b0 < 0.0f || b1 < 0.0f || b2 < 0.0f) continue;  // coverage_mask
+        const float z = b0 * g[6] + b1 * g[7] + b2 * g[8];  // affine_z
+        if (!isfinite(z)) continue;
+        if (z < depth[k]) {  // strict less: the first drawn wins a tie
+          depth[k] = z;
+          win[k] = s_tri[p];
+        }
+      }
+    }
+  }
+
+  // ---- loop 2: perspective-correct varyings of each pixel's winner ----
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const size_t o = base + k * kThreads;
+    depth_out[o] = depth[k];
+    winner_out[o] = win[k];
+    if (n_vary == 0) continue;
+    float* vo = vary_out + static_cast<size_t>(a) * n_vary * plane + tid + k * kThreads;
+    if (win[k] < 0) {
+      for (int c = 0; c < n_vary; ++c) vo[c * plane] = 0.0f;
+      continue;
+    }
+    const float* r = tri_rec + static_cast<size_t>(win[k]) * rec_stride;
+    float b0, b1, b2;
+    barycentric(r, px, static_cast<float>(gy0 + k * kRowStep) + 0.5f, b0, b1, b2);
+    const float iw0 = inv_w(r[9]), iw1 = inv_w(r[10]), iw2 = inv_w(r[11]);
+    const float denom = b0 * iw0 + b1 * iw1 + b2 * iw2;
+    float p0 = b0, p1 = b1, p2 = b2;
+    if (!(fabsf(denom) < 1e-15f)) {  // DENOM_EPS: else the affine fallback
+      p0 = (b0 * iw0) / denom;
+      p1 = (b1 * iw1) / denom;
+      p2 = (b2 * iw2) / denom;
+    }
+    for (int c = 0; c < n_vary; ++c) {
+      const float* v = r + kGeom + 3 * c;
+      // interp3; + 0.0f makes -0.0 +0.0 like the TPU kernel's select-by-sum
+      vo[c * plane] = (v[0] * p0 + v[1] * p1 + v[2] * p2) + 0.0f;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int trt_coarse_raster(const float* tri_rec, int rec_stride,
+                                 const int* sorted_tri, const int* tile_ids,
+                                 const int* start, const int* count, int n_active,
+                                 int origin_x, int origin_y, int n_tiles_x,
+                                 int tile_h, int tile_w, int n_vary,
+                                 const float* init_depth, float* depth,
+                                 int* winner, float* vary, void* stream) {
+  if (tile_w != kTileW || (tile_h != 16 && tile_h != 32) || n_active <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_h == 32) {
+    coarse_raster_kernel<32><<<n_active, kThreads, 0, s>>>(
+        tri_rec, rec_stride, sorted_tri, tile_ids, start, count, origin_x,
+        origin_y, n_tiles_x, n_vary, init_depth, depth, winner, vary);
+  } else {
+    coarse_raster_kernel<16><<<n_active, kThreads, 0, s>>>(
+        tri_rec, rec_stride, sorted_tri, tile_ids, start, count, origin_x,
+        origin_y, n_tiles_x, n_vary, init_depth, depth, winner, vary);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

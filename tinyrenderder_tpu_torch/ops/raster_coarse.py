@@ -1,0 +1,209 @@
+"""Coarse raster over compacted active tiles: the CUDA kernel
+``csrc/raster_coarse.cu`` and its plain PyTorch version.
+
+Counterpart of ``tinyrenderder_tpu/ops/raster_pallas.py``
+(``build_pair_records`` and ``_tile_kernel`` as launched by
+``_pallas_call_sparse_jit``).  One program per active tile of
+tile_h x 128 pixels:
+
+  loop 1 — walk the tile's bin in bin order (= submission order) and keep,
+           per pixel, the first pair with the smallest covered depth: the
+           reference's strict-less first-drawn-wins z-test (our_gl.cpp:165);
+  loop 2 — for each pixel's winner, perspective-correct barycentrics
+           (our_gl.cpp:168-185) and the interpolated varyings.
+
+Contract (shared by both versions, bitwise):
+  tri_rec     (F, 16 + 3V) f32 per-triangle rows: screen ax ay bx by cx cy,
+              ndc z0..z2, clip w0..w2, bbox min_x max_x min_y max_y (as
+              f32), then the varying corners channel-major
+  sorted_tri  (P,) i32 bin-ordered triangle ids
+  tile_ids, start, count  (A,) i32 active tiles and their CSR segments
+  origin      global pixel offset (x, y) of tile 0
+  init_depth  (A, th, tw) f32 running depth per active tile
+  -> depth (A, th, tw) f32, winner (A, th, tw) i32 (-1 = background),
+     vary (A, V, th, tw) f32 (0 where no winner)
+
+The TPU's 128-float pair records (one row per pair, lane-aligned for the
+DMA engine) and its triangle ids carried as f32 are not ported: a GPU
+reads the per-triangle row through ``sorted_tri`` and keeps ids int32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tinyrenderder_tpu_torch import _build
+from tinyrenderder_tpu_torch.ops import semantics
+
+__all__ = ["GEOM", "MAX_VARY", "SUB", "LAUNCHES", "build_tri_records",
+           "coarse_raster", "coarse_raster_plain"]
+
+GEOM = 16            # geometry columns before the varying corners
+MAX_VARY = 36        # the reference's record limit, (128 - 20) // 3
+SUB = 16             # pairs per vector step of the plain version
+TILE_CHUNK = 64      # tiles per step of the plain version (bounds memory)
+
+#: kernel launches since the last reset (the CPU path does not count)
+LAUNCHES = 0
+
+
+def build_tri_records(setup: dict, vary_corners=None) -> torch.Tensor:
+    """(F, 16 + 3V) f32 per-triangle rows (see the module docstring)."""
+    f = setup["valid"].shape[0]
+    cols = [setup["screen"].reshape(f, 6).to(torch.float32),
+            setup["ndc_z"].to(torch.float32),
+            setup["clip_w"].to(torch.float32),
+            setup["bbox"].to(torch.float32)]
+    if vary_corners is not None:
+        v = vary_corners.shape[-1]
+        if v > MAX_VARY:
+            raise ValueError(f"{v} varying channels > {MAX_VARY} max")
+        cols.append(vary_corners.to(torch.float32).transpose(1, 2).reshape(f, 3 * v))
+    return torch.cat(cols, dim=1).contiguous()
+
+
+def _check(tri_rec, sorted_tri, tile_ids, start, count, init_depth, tile_h,
+           tile_w, n_vary):
+    dev = tri_rec.device
+    a = tile_ids.shape[0]
+    for name, t, dtype, shape in (
+            ("tri_rec", tri_rec, torch.float32, None),
+            ("sorted_tri", sorted_tri, torch.int32, None),
+            ("tile_ids", tile_ids, torch.int32, (a,)),
+            ("start", start, torch.int32, (a,)),
+            ("count", count, torch.int32, (a,)),
+            ("init_depth", init_depth, torch.float32, (a, tile_h, tile_w))):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, tri_rec on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if tri_rec.dim() != 2 or tri_rec.shape[1] < GEOM + 3 * n_vary:
+        raise ValueError(f"tri_rec {tuple(tri_rec.shape)} has no room for "
+                         f"{n_vary} varying channels")
+    if sorted_tri.dim() != 1:
+        raise ValueError("sorted_tri must be 1-D")
+
+
+def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
+                  n_tiles_x: int, tile_h: int, tile_w: int, n_vary: int,
+                  origin=(0, 0)):
+    """Raster the active tiles (contract in the module docstring).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    global LAUNCHES
+    _check(tri_rec, sorted_tri, tile_ids, start, count, init_depth, tile_h,
+           tile_w, n_vary)
+    if tri_rec.device.type == "cpu":
+        return coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
+                                   init_depth, n_tiles_x, tile_h, tile_w,
+                                   n_vary, origin)
+    if tri_rec.device.type != "cuda":
+        raise ValueError(f"no coarse raster for device {tri_rec.device}")
+    if tile_w != 128 or tile_h not in (16, 32):
+        raise ValueError(f"the CUDA kernel takes 16x128 or 32x128 tiles, "
+                         f"not {tile_h}x{tile_w}")
+    a = tile_ids.shape[0]
+    depth = torch.empty((a, tile_h, tile_w), dtype=torch.float32, device=tri_rec.device)
+    winner = torch.empty((a, tile_h, tile_w), dtype=torch.int32, device=tri_rec.device)
+    vary = torch.empty((a, n_vary, tile_h, tile_w), dtype=torch.float32,
+                       device=tri_rec.device)
+    if a == 0:
+        return depth, winner, vary
+    lib = _build.library()
+    with torch.cuda.device(tri_rec.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.trt_coarse_raster(
+            tri_rec.data_ptr(), tri_rec.shape[1], sorted_tri.data_ptr(),
+            tile_ids.data_ptr(), start.data_ptr(), count.data_ptr(), a,
+            int(origin[0]), int(origin[1]), n_tiles_x, tile_h, tile_w, n_vary,
+            init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
+            vary.data_ptr() if n_vary else None, stream)
+    _build.check(rc, "trt_coarse_raster")
+    LAUNCHES += 1
+    return depth, winner, vary
+
+
+def _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, dtype):
+    """Global integer pixel coords of each tile as exact floats:
+    x (C, 1, 1, tw), y (C, 1, th, 1)."""
+    dev = tile_ids.device
+    gx0 = origin[0] + (tile_ids % n_tiles_x) * tile_w
+    gy0 = origin[1] + torch.div(tile_ids, n_tiles_x, rounding_mode="floor") * tile_h
+    xi = (gx0[:, None] + torch.arange(tile_w, device=dev)).to(dtype)
+    yi = (gy0[:, None] + torch.arange(tile_h, device=dev)).to(dtype)
+    return xi[:, None, None, :], yi[:, None, :, None]
+
+
+def coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
+                        init_depth, n_tiles_x: int, tile_h: int, tile_w: int,
+                        n_vary: int, origin=(0, 0)):
+    """Plain PyTorch version, vectorised over tiles and SUB-pair steps
+    and chunked over tiles.  Loop 1 is the TPU kernel's form: per step,
+    the first-minimum argmin over SUB pairs, then a strict-less merge.
+    That picks the earliest pair at the minimum, as the kernel's
+    sequential strict-less update does."""
+    dev = tri_rec.device
+    a = tile_ids.shape[0]
+    f32 = torch.float32
+    depth = torch.empty((a, tile_h, tile_w), dtype=f32, device=dev)
+    winner = torch.empty((a, tile_h, tile_w), dtype=torch.int32, device=dev)
+    vary = torch.empty((a, n_vary, tile_h, tile_w), dtype=f32, device=dev)
+    if a == 0:
+        return depth, winner, vary
+    n_sorted = sorted_tri.shape[0]
+    for c0 in range(0, a, TILE_CHUNK):
+        c1 = min(a, c0 + TILE_CHUNK)
+        st, cnt = start[c0:c1].long(), count[c0:c1].long()
+        x, y = _tile_pixels(tile_ids[c0:c1].long(), n_tiles_x, tile_h, tile_w,
+                            origin, f32)
+        px, py = x + 0.5, y + 0.5
+        zbuf = init_depth[c0:c1].clone()
+        wbuf = torch.full_like(zbuf, -1, dtype=torch.int32)
+        steps = int(cnt.max())
+        for s in range(0, steps, SUB):
+            j = s + torch.arange(SUB, device=dev)
+            live = j[None, :] < cnt[:, None]                          # (C, SUB)
+            idx = torch.clamp(st[:, None] + j[None, :], max=max(n_sorted - 1, 0))
+            tri = torch.where(live, sorted_tri[idx], 0)               # (C, SUB)
+            g = tri_rec[tri.long(), :GEOM][..., None, None]           # (C, SUB, 16, 1, 1)
+            b0, b1, b2, _ = semantics.barycentric(
+                g[:, :, 0], g[:, :, 1], g[:, :, 2], g[:, :, 3], g[:, :, 4],
+                g[:, :, 5], px, py)
+            covered = semantics.coverage_mask(b0, b1, b2)
+            z = semantics.affine_z(g[:, :, 6], g[:, :, 7], g[:, :, 8], b0, b1, b2)
+            covered &= torch.isfinite(z)
+            covered &= ((x >= g[:, :, 12]) & (x <= g[:, :, 13])
+                        & (y >= g[:, :, 14]) & (y <= g[:, :, 15]))
+            covered &= live[..., None, None]
+            zc = torch.where(covered, z, torch.inf)
+            zmin = torch.amin(zc, dim=1)
+            best = torch.argmin(zc, dim=1)             # first minimum on ties
+            win = torch.gather(tri, 1, best.flatten(1)).view_as(best)
+            better = zmin < zbuf
+            zbuf = torch.where(better, zmin, zbuf)
+            wbuf = torch.where(better, win, wbuf)
+        depth[c0:c1] = zbuf
+        winner[c0:c1] = wbuf
+        if n_vary:
+            vary[c0:c1] = _interpolate_winners(tri_rec, wbuf, px[:, 0], py[:, 0], n_vary)
+    return depth, winner, vary
+
+
+def _interpolate_winners(tri_rec, wbuf, px, py, n_vary):
+    """Loop 2: each pixel gathers its winner's row and interpolates.
+    ``+ 0.0`` turns -0.0 into +0.0 like the TPU kernel's select-by-sum."""
+    won = wbuf >= 0
+    r = tri_rec[torch.clamp(wbuf, min=0).long()]                      # (C, th, tw, R)
+    b0, b1, b2, _ = semantics.barycentric(
+        r[..., 0], r[..., 1], r[..., 2], r[..., 3], r[..., 4], r[..., 5], px, py)
+    p0, p1, p2 = semantics.perspective_correct_bary(
+        b0, b1, b2, r[..., 9], r[..., 10], r[..., 11])
+    out = []
+    for c in range(n_vary):
+        v0, v1, v2 = (r[..., GEOM + 3 * c + k] for k in range(3))
+        val = semantics.interp3(v0, v1, v2, p0, p1, p2) + 0.0
+        out.append(torch.where(won, val, torch.zeros_like(val)))
+    return torch.stack(out, dim=1)
