@@ -71,7 +71,7 @@ def test_tile_height_does_not_change_the_frame(port_frames, name):
 def test_scene_route_matches_oracle():
     scene = tscene.headline_scene(128, 64, "phong", n_lat=12, n_lon=16)
     image = tscene.render_scene_image(scene, "cpu")
-    assert_bits(image.numpy(), tscene.oracle_frame(scene).color, "image")
+    assert_bits(image.numpy(), tscene.oracle_render(scene).color, "image")
 
 
 def test_port_runs_without_jax():
@@ -82,7 +82,10 @@ def test_port_runs_without_jax():
         "s = scene.headline_scene(128, 64, 'gouraud', n_lat=12, n_lon=16)\n"
         "img = scene.render_scene_image(s, 'cpu')\n"
         "assert tuple(img.shape) == (64, 128, 3), img.shape\n"
-        "assert (img.numpy() == scene.oracle_frame(s).color).all()\n"
+        "assert (img.numpy() == scene.oracle_render(s).color).all()\n"
+        "r = scene.render_scene(scene.multimesh_scene(160, 96, 8, 8, 4, 6), 'cpu')\n"
+        "assert r.stats.fragments_drawn > 0\n"
+        "from tinyrenderder_tpu_torch import cli\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules "
         "if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -98,26 +101,26 @@ def _head_scene():
 
 
 def test_unported_scene_shapes_raise():
-    key = math3d.normalized(math3d.vec3(1.0, 1.4, 1.0))
-    two = _head_scene()
-    two.add(procedural.uv_sphere(6, 8), math3d.identity4(),
-            PhongShader(key, key, key), name="second")
-    with pytest.raises(NotImplementedError, match="2-pass"):
-        tscene.render_scene_image(two, "cpu")
+    """Only a shader without a device half still raises; the scene shapes
+    the single-pass route did not take (several passes, an excluded pass,
+    an empty frame) go through the tiled frame and equal the oracle."""
     depth_only = _head_scene()
     depth_only.passes[0].shader = DepthShader()
     with pytest.raises(NotImplementedError, match="depth-only"):
         tscene.render_scene_image(depth_only, "cpu")
+    key = math3d.normalized(math3d.vec3(1.0, 1.4, 1.0))
+    two = _head_scene()
+    two.add(procedural.uv_sphere(6, 8), math3d.identity4(),
+            PhongShader(key, key, key), name="second")
     excluded = _head_scene()
     excluded.passes[0].exclude_from_output_depth = True
-    with pytest.raises(NotImplementedError, match="excluded"):
-        tscene.render_scene_image(excluded, "cpu")
     culled = _head_scene()
     behind = np.eye(4)
     behind[2, 3] = 100.0                        # behind the camera: culled
     culled.passes[0].model_matrix = behind
-    with pytest.raises(NotImplementedError, match="empty frame"):
-        tscene.render_scene_image(culled, "cpu")
+    for sc in (two, excluded, culled):
+        assert_bits(tscene.render_scene_image(sc, "cpu").numpy(),
+                    tscene.oracle_render(sc).color, "image")
 
 
 def test_frame_function_validates_passes():

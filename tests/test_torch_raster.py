@@ -1,12 +1,13 @@
-"""The port's binning, coarse raster and untile against the JAX package.
+"""The port's binning, coarse raster and untiles against the JAX package.
 
 JAX side, run as the JAX package's own tests run it on the CPU (Pallas in
 interpret mode), in one subprocess for the module (tests/torch_parity.py
 says why): ``raster_tiled._build_bins``,
-``raster_pallas._pallas_call_sparse_jit(interpret=True)`` and
-``raster_sparse._untile_one_jit(interpret=True)``.  Both sides get the
-same inputs, made on the port side from one shared setup (and a seeded
-random running depth).  Tolerance: bitwise.
+``raster_pallas._pallas_call_sparse_jit(interpret=True)`` with and
+without ``collect_stats``, ``raster_sparse._untile_one_jit`` and
+``raster_sparse._untile_call_jit`` (both ``interpret=True``).  Both sides
+get the same inputs, made on the port side from one shared setup (and a
+seeded random running depth, half of it finite).  Tolerance: bitwise.
 
 Tests marked ``cuda`` compare the CUDA kernels with their plain versions
 and skip where no GPU is present."""
@@ -73,33 +74,59 @@ def untile_inputs():
 
 
 @pytest.fixture(scope="module")
-def jax_side(prepared, untile_inputs, tmp_path_factory):
+def untile3_inputs():
+    """Random packed-colour, depth (with inf, -0.0 and NaN) and winner
+    planes, ragged (3x2 tiles) and 32-row (2x3 tiles)."""
+    rng = np.random.default_rng(12)
+    out = {}
+    for name, (ntx, nty, th) in {"ragged16": (3, 2, 16), "th32": (2, 3, 32)}.items():
+        shape = (ntx * nty, th, 128)
+        color = rng.integers(0, 1 << 24, size=shape, dtype=np.int64).astype(np.int32)
+        depth = rng.normal(size=shape).astype(np.float32)
+        depth[0, 0, :4] = [np.inf, -np.inf, -0.0, np.nan]
+        winner = rng.integers(-1, 5000, size=shape, dtype=np.int64).astype(np.int32)
+        out[name] = ((color, depth, winner), ntx, nty, th)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_side(prepared, untile_inputs, untile3_inputs, tmp_path_factory):
     req = {}
     for name, c in prepared.items():
         req[f"{name}_bins"] = {"op": "bins", **c["spans"], "total": c["total"],
                                "ntx": c["ntx"], "nty": c["nty"]}
         sorted_tri, start, counts = c["bins"]
         ids = c["ids"]
-        req[f"{name}_raster"] = {
+        raster_req = {
             "op": "raster", **c["setup"], "sorted_tri": sorted_tri,
             "vary_corners": c["vary_corners"], "ids": ids, "start": start[:-1][ids],
             "counts": counts[ids], "depth_tiles": c["depth_tiles"], "ntx": c["ntx"],
             "nty": c["nty"], "th": c["th"], "tw": 128, "n_vary": c["n_vary"]}
+        req[f"{name}_raster"] = raster_req
+        req[f"{name}_raster_stats"] = {**raster_req, "stats": 1}
     for name, (x, ntx, nty, th) in untile_inputs.items():
         req[f"{name}_untile"] = {"op": "untile", "x": x, "ntx": ntx, "nty": nty,
                                  "th": th, "tw": 128}
+    for name, ((color, depth, winner), ntx, nty, th) in untile3_inputs.items():
+        req[f"{name}_untile3"] = {"op": "untile3", "color": color, "depth": depth,
+                                  "winner": winner, "ntx": ntx, "nty": nty, "th": th,
+                                  "tw": 128}
     return run_jax(req, tmp_path_factory.mktemp("jax_raster"))
 
 
-def _raster_plain(c):
+def _raster_args(c):
+    """coarse_raster's positional arguments for a prepared case."""
     sorted_tri, start, counts = (torch.from_numpy(a) for a in c["bins"])
     ids = torch.from_numpy(c["ids"])
     setup = {k: torch.from_numpy(v) for k, v in c["setup"].items()}
     rec = raster_coarse.build_tri_records(setup, torch.from_numpy(c["vary_corners"]))
     init = torch.from_numpy(c["depth_tiles"])[ids.long()].contiguous()
-    return raster_coarse.coarse_raster(rec, sorted_tri, ids, start[:-1][ids.long()],
-                                       counts[ids.long()], init, c["ntx"], c["th"],
-                                       128, c["n_vary"])
+    return (rec, sorted_tri, ids, start[:-1][ids.long()], counts[ids.long()], init,
+            c["ntx"], c["th"], 128, c["n_vary"])
+
+
+def _raster_plain(c, collect_stats=False):
+    return raster_coarse.coarse_raster(*_raster_args(c), collect_stats=collect_stats)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -131,6 +158,41 @@ def test_coarse_raster_plain_matches_pallas(prepared, jax_side, case):
     won = winner.numpy() >= 0
     assert won.any() and (~won).any()
     assert (depth.numpy()[~won] == c["depth_tiles"][c["ids"]][~won]).all()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_coarse_raster_event_planes_match_pallas(prepared, jax_side, case):
+    """The stats variant against the TPU kernel's collect_stats launch:
+    depth, winner and varyings as without stats, the event count (the
+    TPU's f32 plane cast to int32) and the largest event z bitwise."""
+    c = prepared[case]
+    want = jax_side[f"{case}_raster_stats"]
+    depth, winner, vary, (count, max_z) = _raster_plain(c, collect_stats=True)
+    assert_bits(depth.numpy(), want["depth"], "depth")
+    assert_bits(winner.numpy(), want["winner"].astype(np.int32), "winner")
+    assert_bits(vary.numpy(), want["vary"], "varyings")
+    assert_bits(count.numpy(), want["ev"][:, 0].astype(np.int32), "event count")
+    assert_bits(max_z.numpy(), want["ev"][:, 1], "event max z")
+    won = winner.numpy() >= 0
+    assert won.any() and (count.numpy()[won] >= 1).all()  # a win is an event
+    assert (count.numpy()[~won] == 0).all()               # no event, no winner
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_event_planes_leave_the_raster_unchanged(prepared, case):
+    plain = _raster_plain(prepared[case])
+    stats = _raster_plain(prepared[case], collect_stats=True)
+    for name, a, b in zip(("depth", "winner", "vary"), stats, plain):
+        assert_bits(a.numpy(), b.numpy(), name)
+
+
+@pytest.mark.parametrize("name", ["ragged16", "th32"])
+def test_untile3_plain_matches_pallas(untile3_inputs, jax_side, name):
+    planes, ntx, nty, th = untile3_inputs[name]
+    got = raster_sparse.untile3(*(torch.from_numpy(x) for x in planes), ntx, nty, th, 128)
+    want = jax_side[f"{name}_untile3"]
+    for k, g in zip(("color", "depth", "winner"), got):
+        assert_bits(g.numpy(), want[k], k)
 
 
 @pytest.mark.parametrize("name", list(UNTILE))
@@ -178,6 +240,12 @@ def test_wrappers_validate_inputs(prepared):
         raster_sparse.untile_one(tiles, 2, 2, 16, 128)
     with pytest.raises(ValueError):
         raster_sparse.untile_one(tiles.to(torch.int16), 2, 3, 16, 128)
+    depth = torch.zeros((6, 16, 128))
+    raster_sparse.untile3(tiles, depth, tiles, 2, 3, 16, 128)
+    for bad in ((tiles, tiles, tiles), (tiles, depth, depth), (tiles[:4], depth, tiles),
+                (tiles, depth.transpose(1, 2).contiguous(), tiles)):
+        with pytest.raises(ValueError):
+            raster_sparse.untile3(*bad, 2, 3, 16, 128)
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +277,38 @@ def test_cuda_coarse_raster_matches_plain(prepared, cuda_device, case):
     assert raster_coarse.LAUNCHES == before + 1
     for name, g, w in zip(("depth", "winner", "vary"), got, want):
         assert_bits(g.cpu().numpy(), w.numpy(), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_coarse_raster_event_planes_match_plain(prepared, cuda_device, case):
+    args = _raster_args(prepared[case])
+    want = raster_coarse.coarse_raster_plain(*args, collect_stats=True)
+    gpu = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
+    before = raster_coarse.STATS_LAUNCHES
+    got = raster_coarse.coarse_raster(*gpu, collect_stats=True)
+    without = raster_coarse.coarse_raster(*gpu)
+    torch.cuda.synchronize()
+    assert raster_coarse.STATS_LAUNCHES == before + 1
+    names = ("depth", "winner", "vary", "event count", "event max z")
+    for name, g, w in zip(names, (*got[:3], *got[3]), (*want[:3], *want[3])):
+        assert_bits(g.cpu().numpy(), w.numpy(), name)
+    for name, g, w in zip(names, got[:3], without):
+        assert_bits(g.cpu().numpy(), w.cpu().numpy(), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ragged16", "th32"])
+def test_cuda_untile3_matches_plain(untile3_inputs, cuda_device, name):
+    planes, ntx, nty, th = untile3_inputs[name]
+    cpu = [torch.from_numpy(x) for x in planes]
+    before = raster_sparse.UNTILE3_LAUNCHES
+    got = raster_sparse.untile3(*(x.to(cuda_device) for x in cpu), ntx, nty, th, 128)
+    torch.cuda.synchronize()
+    assert raster_sparse.UNTILE3_LAUNCHES == before + 1
+    for k, g, w in zip(("color", "depth", "winner"), got,
+                       raster_sparse.untile3_plain(*cpu, ntx, nty, th, 128)):
+        assert_bits(g.cpu().numpy(), w.numpy(), k)
 
 
 @pytest.mark.cuda

@@ -137,7 +137,8 @@ def meshes():
 
 
 @pytest.mark.parametrize("mesh,kind", [("head", "phong"), ("sphere", "gouraud"),
-                                       ("head", "textured"), ("soup", "phong")])
+                                       ("head", "textured"), ("soup", "phong"),
+                                       ("sphere", "eye")])
 def test_vertex_matches_numpy(meshes, mesh, kind):
     view, proj = default_view()
     p = make_pass(meshes[mesh], make_shader(kind), view, proj)
@@ -171,7 +172,8 @@ def _random_varyings(spec, n, seed):
 
 @pytest.mark.parametrize("mesh,kind,packed", [
     ("head", "phong", True), ("head", "phong", False), ("soup", "phong", False),
-    ("sphere", "gouraud", False), ("head", "textured", False)])
+    ("sphere", "gouraud", False), ("head", "textured", False),
+    ("head", "eye", True), ("sphere", "eye", True), ("soup", "eye", False)])
 def test_fragment_matches_numpy(meshes, mesh, kind, packed):
     view, proj = default_view()
     p = make_pass(meshes[mesh], make_shader(kind), view, proj)
@@ -194,9 +196,10 @@ def test_finalize_color_matches_numpy():
 
 
 def test_unported_shader_raises():
-    eye = ref_shaders.EyeShader((0, 0, 1), (0, 1, 0))
-    with pytest.raises(NotImplementedError, match="EyeShader"):
-        shaders.vertex(eye, {}, {})
+    flat = ref_shaders.FlatShader()
+    with pytest.raises(NotImplementedError, match="FlatShader"):
+        shaders.vertex(flat, {}, {})
+    assert shaders.supports(ref_shaders.EyeShader((0, 0, 1), (0, 1, 0)))
     shadow = ref_shaders.ShadowMappedShader((0, 0, 1), (0, 1, 0), (1, 0, 0),
                                             np.eye(4), np.zeros((4, 4), np.float32))
     assert not shaders.supports(shadow)     # a Phong subclass is not Phong

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-``csrc/*.cu`` expose a plain C interface (no PyTorch headers), so one
-nvcc call builds them in seconds.  The shared library goes to
+``csrc/*.cu`` expose a plain C interface (no PyTorch headers), so nvcc
+builds them in seconds: one nvcc process per source, all started
+together, then one link.  The shared library goes to
 ``build/tinyrenderder_tpu_torch/`` at the repository root, under a name
 that hashes the sources and flags: a changed source rebuilds, an
 unchanged one loads the existing library.
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
 SOURCES = ("raster_coarse.cu", "untile.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,11 +35,14 @@ _I = ctypes.c_int
 SIGNATURES = {
     # tri_rec, rec_stride, sorted_tri, tile_ids, start, count, n_active,
     # origin_x, origin_y, n_tiles_x, tile_h, tile_w, n_vary,
-    # init_depth, depth, winner, vary, stream
+    # init_depth, depth, winner, vary, ev_count, ev_maxz, stream
     "trt_coarse_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P, _P],
     # src, dst, n_tiles_x, n_tiles_y, tile_h, tile_w, stream
     "trt_untile32": [_P, _P, _I, _I, _I, _I, _P],
+    # color, depth, winner, color_out, depth_out, winner_out,
+    # n_tiles_x, n_tiles_y, tile_h, tile_w, stream
+    "trt_untile3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -76,13 +80,26 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+        if link.returncode != 0:
+            failed.append("link")
     BUILD_SECONDS = time.perf_counter() - t0
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(logs))
     os.replace(tmp, lib)       # atomic: a concurrent loader never sees half a file
     return lib
 

@@ -1,8 +1,9 @@
 // Coarse raster over compacted active tiles, for Hopper (sm_90a).
 //
 // Replaces: tinyrenderder_tpu/ops/raster_pallas.py::_tile_kernel, as
-// launched over active tiles by _pallas_call_sparse_jit.  Plain version
-// and contract: tinyrenderder_tpu_torch/ops/raster_coarse.py.
+// launched over active tiles by _pallas_call_sparse_jit, with and
+// without its collect_stats event planes.  Plain version and contract:
+// tinyrenderder_tpu_torch/ops/raster_coarse.py.
 //
 // What bounds it on this card: per-pixel arithmetic.  For every (pixel,
 // pair) inside the pair's bbox a thread evaluates the barycentric
@@ -23,6 +24,14 @@
 //    pair.  A pixel outside a pair's integer bbox skips the pair before
 //    any arithmetic: the bbox test is one factor of the coverage AND, so
 //    skipping changes nothing;
+//  * the stats variant (STATS = true, a separate instantiation, so the
+//    plain variant's code is untouched) counts z-pass events: every
+//    covered step with z < depth of the sequential strict-less update IS
+//    an event (our_gl.cpp:194), starting from the running init depth.
+//    So a per-pixel int count and fmaxf of the event z in registers are
+//    exact by construction; the TPU needed a prefix-min per 16-pair
+//    sub-block to recover the same sequence.  Depth, winner and
+//    varyings come out of the same update, bit for bit;
 //  * loop 2 needs no second pass over the bin (the TPU re-streamed it to
 //    avoid gathers): each pixel reads its winner's row from global memory
 //    and interpolates the varyings;
@@ -31,6 +40,7 @@
 //    float literals (the reference compares in float32).
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
@@ -68,7 +78,7 @@ __device__ __forceinline__ float inv_w(float w) {
   return fabsf(w) <= 1e-12f ? 0.0f : 1.0f / w;  // W_EPS
 }
 
-template <int TH>
+template <int TH, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 coarse_raster_kernel(const float* __restrict__ tri_rec, int rec_stride,
                      const int* __restrict__ sorted_tri,
@@ -78,7 +88,8 @@ coarse_raster_kernel(const float* __restrict__ tri_rec, int rec_stride,
                      int n_tiles_x, int n_vary,
                      const float* __restrict__ init_depth,
                      float* __restrict__ depth_out, int* __restrict__ winner_out,
-                     float* __restrict__ vary_out) {
+                     float* __restrict__ vary_out,
+                     int* __restrict__ ev_count, float* __restrict__ ev_maxz) {
   constexpr int kPix = TH * kTileW / kThreads;  // pixels per thread
   constexpr int kRowStep = kThreads / kTileW;   // rows between them
   __shared__ float s_geom[kChunk][kGeom];
@@ -100,10 +111,16 @@ coarse_raster_kernel(const float* __restrict__ tri_rec, int rec_stride,
 
   float depth[kPix];
   int win[kPix];
+  int events[STATS ? kPix : 1];   // z-pass events (our_gl.cpp:194)
+  float maxz[STATS ? kPix : 1];   // largest event z (our_gl.cpp:199)
 #pragma unroll
   for (int k = 0; k < kPix; ++k) {
     depth[k] = init_depth[base + k * kThreads];
     win[k] = -1;
+    if constexpr (STATS) {
+      events[k] = 0;
+      maxz[k] = -CUDART_INF_F;
+    }
   }
 
   // ---- loop 1: depth resolve in bin order ----
@@ -132,6 +149,10 @@ coarse_raster_kernel(const float* __restrict__ tri_rec, int rec_stride,
         if (z < depth[k]) {  // strict less: the first drawn wins a tie
           depth[k] = z;
           win[k] = s_tri[p];
+          if constexpr (STATS) {
+            events[k] += 1;
+            maxz[k] = fmaxf(maxz[k], z);
+          }
         }
       }
     }
@@ -143,6 +164,10 @@ coarse_raster_kernel(const float* __restrict__ tri_rec, int rec_stride,
     const size_t o = base + k * kThreads;
     depth_out[o] = depth[k];
     winner_out[o] = win[k];
+    if constexpr (STATS) {
+      ev_count[o] = events[k];
+      ev_maxz[o] = maxz[k];
+    }
     if (n_vary == 0) continue;
     float* vo = vary_out + static_cast<size_t>(a) * n_vary * plane + tid + k * kThreads;
     if (win[k] < 0) {
@@ -168,26 +193,39 @@ coarse_raster_kernel(const float* __restrict__ tri_rec, int rec_stride,
   }
 }
 
+template <int TH, bool STATS>
+void launch(int n_active, cudaStream_t s, const float* tri_rec,
+            int rec_stride, const int* sorted_tri, const int* tile_ids,
+            const int* start, const int* count, int origin_x, int origin_y,
+            int n_tiles_x, int n_vary, const float* init_depth, float* depth,
+            int* winner, float* vary, int* ev_count, float* ev_maxz) {
+  coarse_raster_kernel<TH, STATS><<<n_active, kThreads, 0, s>>>(
+      tri_rec, rec_stride, sorted_tri, tile_ids, start, count, origin_x,
+      origin_y, n_tiles_x, n_vary, init_depth, depth, winner, vary, ev_count,
+      ev_maxz);
+}
+
 }  // namespace
 
+// ev_count and ev_maxz: both null (no stats) or both (A, TH, 128)
 extern "C" int trt_coarse_raster(const float* tri_rec, int rec_stride,
                                  const int* sorted_tri, const int* tile_ids,
                                  const int* start, const int* count, int n_active,
                                  int origin_x, int origin_y, int n_tiles_x,
                                  int tile_h, int tile_w, int n_vary,
                                  const float* init_depth, float* depth,
-                                 int* winner, float* vary, void* stream) {
-  if (tile_w != kTileW || (tile_h != 16 && tile_h != 32) || n_active <= 0)
+                                 int* winner, float* vary, int* ev_count,
+                                 float* ev_maxz, void* stream) {
+  if (tile_w != kTileW || (tile_h != 16 && tile_h != 32) || n_active <= 0 ||
+      (ev_count == nullptr) != (ev_maxz == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_h == 32) {
-    coarse_raster_kernel<32><<<n_active, kThreads, 0, s>>>(
-        tri_rec, rec_stride, sorted_tri, tile_ids, start, count, origin_x,
-        origin_y, n_tiles_x, n_vary, init_depth, depth, winner, vary);
-  } else {
-    coarse_raster_kernel<16><<<n_active, kThreads, 0, s>>>(
-        tri_rec, rec_stride, sorted_tri, tile_ids, start, count, origin_x,
-        origin_y, n_tiles_x, n_vary, init_depth, depth, winner, vary);
-  }
+  const bool stats = ev_count != nullptr;
+  using Launch = decltype(&launch<16, false>);
+  const Launch fn = tile_h == 32 ? (stats ? &launch<32, true> : &launch<32, false>)
+                                 : (stats ? &launch<16, true> : &launch<16, false>);
+  fn(n_active, s, tri_rec, rec_stride, sorted_tri, tile_ids, start, count,
+     origin_x, origin_y, n_tiles_x, n_vary, init_depth, depth, winner, vary,
+     ev_count, ev_maxz);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,8 @@
 
 Counterpart of ``tinyrenderder_tpu/ops/raster_pallas.py``
 (``build_pair_records`` and ``_tile_kernel`` as launched by
-``_pallas_call_sparse_jit``).  One program per active tile of
-tile_h x 128 pixels:
+``_pallas_call_sparse_jit``, with and without ``collect_stats``).  One
+program per active tile of tile_h x 128 pixels:
 
   loop 1 — walk the tile's bin in bin order (= submission order) and keep,
            per pixel, the first pair with the smallest covered depth: the
@@ -22,6 +22,12 @@ Contract (shared by both versions, bitwise):
   init_depth  (A, th, tw) f32 running depth per active tile
   -> depth (A, th, tw) f32, winner (A, th, tw) i32 (-1 = background),
      vary (A, V, th, tw) f32 (0 where no winner)
+  with collect_stats, also the event planes ev = (count, max_z), each
+     (A, th, tw): per pixel the number of z-pass events (every strict-less
+     depth update of loop 1, overdraw included, our_gl.cpp:194) as int32,
+     and the largest event z as f32 (-inf where there was none).  These
+     are the TPU's (A, 2, th, tw) f32 planes; its f32 count is an
+     artefact of its vector unit.
 
 The TPU's 128-float pair records (one row per pair, lane-aligned for the
 DMA engine) and its triangle ids carried as f32 are not ported: a GPU
@@ -35,16 +41,18 @@ import torch
 from tinyrenderder_tpu_torch import _build
 from tinyrenderder_tpu_torch.ops import semantics
 
-__all__ = ["GEOM", "MAX_VARY", "SUB", "LAUNCHES", "build_tri_records",
-           "coarse_raster", "coarse_raster_plain"]
+__all__ = ["GEOM", "MAX_VARY", "SUB", "LAUNCHES", "STATS_LAUNCHES",
+           "build_tri_records", "coarse_raster", "coarse_raster_plain"]
 
 GEOM = 16            # geometry columns before the varying corners
 MAX_VARY = 36        # the reference's record limit, (128 - 20) // 3
 SUB = 16             # pairs per vector step of the plain version
 TILE_CHUNK = 64      # tiles per step of the plain version (bounds memory)
 
-#: kernel launches since the last reset (the CPU path does not count)
+#: kernel launches since the last reset (the CPU path does not count),
+#: without and with the event planes
 LAUNCHES = 0
+STATS_LAUNCHES = 0
 
 
 def build_tri_records(setup: dict, vary_corners=None) -> torch.Tensor:
@@ -90,16 +98,18 @@ def _check(tri_rec, sorted_tri, tile_ids, start, count, init_depth, tile_h,
 
 def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
                   n_tiles_x: int, tile_h: int, tile_w: int, n_vary: int,
-                  origin=(0, 0)):
-    """Raster the active tiles (contract in the module docstring).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    global LAUNCHES
+                  origin=(0, 0), collect_stats: bool = False):
+    """Raster the active tiles (contract in the module docstring).
+    Returns (depth, winner, vary), and ev as a fourth item with
+    ``collect_stats``.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    global LAUNCHES, STATS_LAUNCHES
     _check(tri_rec, sorted_tri, tile_ids, start, count, init_depth, tile_h,
            tile_w, n_vary)
     if tri_rec.device.type == "cpu":
         return coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
                                    init_depth, n_tiles_x, tile_h, tile_w,
-                                   n_vary, origin)
+                                   n_vary, origin, collect_stats)
     if tri_rec.device.type != "cuda":
         raise ValueError(f"no coarse raster for device {tri_rec.device}")
     if tile_w != 128 or tile_h not in (16, 32):
@@ -110,8 +120,11 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
     winner = torch.empty((a, tile_h, tile_w), dtype=torch.int32, device=tri_rec.device)
     vary = torch.empty((a, n_vary, tile_h, tile_w), dtype=torch.float32,
                        device=tri_rec.device)
+    ev = ((torch.empty_like(winner), torch.empty_like(depth))
+          if collect_stats else None)
+    out = (depth, winner, vary) + ((ev,) if collect_stats else ())
     if a == 0:
-        return depth, winner, vary
+        return out
     lib = _build.library()
     with torch.cuda.device(tri_rec.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -120,10 +133,15 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
             tile_ids.data_ptr(), start.data_ptr(), count.data_ptr(), a,
             int(origin[0]), int(origin[1]), n_tiles_x, tile_h, tile_w, n_vary,
             init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
-            vary.data_ptr() if n_vary else None, stream)
+            vary.data_ptr() if n_vary else None,
+            ev[0].data_ptr() if ev else None, ev[1].data_ptr() if ev else None,
+            stream)
     _build.check(rc, "trt_coarse_raster")
-    LAUNCHES += 1
-    return depth, winner, vary
+    if collect_stats:
+        STATS_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return out
 
 
 def _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, dtype):
@@ -139,20 +157,26 @@ def _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, dtype):
 
 def coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
                         init_depth, n_tiles_x: int, tile_h: int, tile_w: int,
-                        n_vary: int, origin=(0, 0)):
+                        n_vary: int, origin=(0, 0), collect_stats: bool = False):
     """Plain PyTorch version, vectorised over tiles and SUB-pair steps
     and chunked over tiles.  Loop 1 is the TPU kernel's form: per step,
     the first-minimum argmin over SUB pairs, then a strict-less merge.
     That picks the earliest pair at the minimum, as the kernel's
-    sequential strict-less update does."""
+    sequential strict-less update does.  The event planes keep the TPU
+    form too: pair k of a step is an event iff its z is below the
+    exclusive cummin of the step's earlier pairs and the running depth
+    (raster_pallas.py:214-236)."""
     dev = tri_rec.device
     a = tile_ids.shape[0]
     f32 = torch.float32
     depth = torch.empty((a, tile_h, tile_w), dtype=f32, device=dev)
     winner = torch.empty((a, tile_h, tile_w), dtype=torch.int32, device=dev)
     vary = torch.empty((a, n_vary, tile_h, tile_w), dtype=f32, device=dev)
+    ev = ((torch.zeros_like(winner), torch.full_like(depth, -torch.inf))
+          if collect_stats else None)
+    out = (depth, winner, vary) + ((ev,) if collect_stats else ())
     if a == 0:
-        return depth, winner, vary
+        return out
     n_sorted = sorted_tri.shape[0]
     for c0 in range(0, a, TILE_CHUNK):
         c1 = min(a, c0 + TILE_CHUNK)
@@ -179,6 +203,13 @@ def coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
                         & (y >= g[:, :, 14]) & (y <= g[:, :, 15]))
             covered &= live[..., None, None]
             zc = torch.where(covered, z, torch.inf)
+            if collect_stats:
+                excl = torch.cat([torch.full_like(zc[:, :1], torch.inf),
+                                  torch.cummin(zc, dim=1).values[:, :-1]], dim=1)
+                events = zc < torch.minimum(excl, zbuf[:, None])
+                ev[0][c0:c1] += events.sum(dim=1, dtype=torch.int32)
+                ev[1][c0:c1] = torch.maximum(
+                    ev[1][c0:c1], torch.where(events, zc, -torch.inf).amax(dim=1))
             zmin = torch.amin(zc, dim=1)
             best = torch.argmin(zc, dim=1)             # first minimum on ties
             win = torch.gather(tri, 1, best.flatten(1)).view_as(best)
@@ -189,7 +220,7 @@ def coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
         winner[c0:c1] = wbuf
         if n_vary:
             vary[c0:c1] = _interpolate_winners(tri_rec, wbuf, px[:, 0], py[:, 0], n_vary)
-    return depth, winner, vary
+    return out
 
 
 def _interpolate_winners(tri_rec, wbuf, px, py, n_vary):

@@ -1,17 +1,25 @@
-"""Single-pass direct-to-image route in PyTorch: pre-stage, coarse
-raster over the active tiles, compact shading, placement.  Also the
-single-plane untile: the CUDA kernel ``csrc/untile.cu`` and its plain
-PyTorch version.
+"""Active-tile sparse pipeline in PyTorch: the single-pass
+direct-to-image route and the multi-pass tiled frame.  Also the untile
+kernels (``csrc/untile.cu``: one plane, and the frame's three planes in
+one launch) with their plain PyTorch versions.
 
-Counterpart of the coarse branch of
-``tinyrenderder_tpu/ops/raster_sparse.py::render_frame_fused_image``
-with ``direct=False`` (``_pre_sparse_jit``, ``_shade_compact_fresh``,
-``_compact_to_image``, ``_untile_one_jit``).
+Counterpart of the coarse branches of
+``tinyrenderder_tpu/ops/raster_sparse.py``:
 
-The frame reads back two integers, once: the exact (tile, triangle) pair
+  * ``render_frame_fused_image`` with ``direct=False``
+    (``_pre_sparse_jit``, ``_shade_compact_fresh``, ``_compact_to_image``,
+    ``_untile_one_jit``);
+  * ``render_frame_fused`` and ``render_pass_tiles`` (``FrameTiles``,
+    ``_post_sparse_jit``, ``_reduce_events_jit``, ``tiles_to_buffers``,
+    ``_untile_call_jit``).  The JAX package has a fused XLA program and a
+    per-pass loop because of XLA's dispatch cost; eager PyTorch has one
+    loop with a ``collect_stats`` flag.
+
+Each pass reads back two integers, once: the exact (tile, triangle) pair
 total and the active-tile count.  Every buffer is sized from them, so
-the TPU path's capacity cache, its quantized capacities and its
-overflow re-render have no counterpart here: nothing can overflow.
+the TPU path's capacity cache, its quantized capacities, its won-tile
+capacity and its overflow re-render have no counterpart here: nothing
+can overflow.
 """
 
 from __future__ import annotations
@@ -21,18 +29,23 @@ from typing import NamedTuple
 import torch
 
 from tinyrenderder_tpu_torch import _build, shaders
+from tinyrenderder_tpu_torch.ops.raster import BACKGROUND, FrameBuffers
 from tinyrenderder_tpu_torch.ops.raster_coarse import build_tri_records, coarse_raster
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, build_bins, cdiv,
                                                       flatten_varyings, tile_pair_counts,
                                                       tile_spans, vertex_stage)
 
 __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
-           "untile_one_plain", "PreSparse", "pre_sparse",
-           "shade_compact_fresh", "compact_to_image",
-           "render_frame_fused_image", "LAUNCHES"]
+           "untile_one_plain", "untile3", "untile3_plain", "FrameTiles",
+           "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
+           "shade_compact_fresh", "compact_to_image", "post_sparse",
+           "PassEvents", "reduce_events", "render_frame_fused",
+           "render_frame_fused_image", "LAUNCHES", "UNTILE3_LAUNCHES"]
 
-#: untile kernel launches since the last reset (the CPU path does not count)
+#: untile kernel launches since the last reset (the CPU path does not
+#: count): the single-plane kernel and the three-plane kernel
 LAUNCHES = 0
+UNTILE3_LAUNCHES = 0
 
 #: frames at or above this pixel count use 32-row tiles (the reference's
 #: TPU-tuned threshold; the frame does not depend on the tiling)
@@ -65,17 +78,20 @@ def untile_one_plain(x, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int
              .reshape(n_tiles_y * tile_h, n_tiles_x * tile_w))
 
 
+def _check_tiles(x, shape):
+    if tuple(x.shape) != shape:
+        raise ValueError(f"tiles must have shape {shape}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("tiles must be contiguous")
+
+
 def untile_one(x, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int):
     """One 32-bit tile plane -> image layout.  CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     global LAUNCHES
-    shape = (n_tiles_x * n_tiles_y, tile_h, tile_w)
-    if tuple(x.shape) != shape:
-        raise ValueError(f"tiles must have shape {shape}, got {tuple(x.shape)}")
+    _check_tiles(x, (n_tiles_x * n_tiles_y, tile_h, tile_w))
     if x.dtype not in (torch.int32, torch.float32):
         raise ValueError(f"untile moves 32-bit words, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("tiles must be contiguous")
     if x.device.type == "cpu":
         return untile_one_plain(x, n_tiles_x, n_tiles_y, tile_h, tile_w)
     if x.device.type != "cuda":
@@ -94,6 +110,82 @@ def untile_one(x, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int):
     return out
 
 
+def untile3_plain(color, depth, winner, n_tiles_x: int, n_tiles_y: int,
+                  tile_h: int, tile_w: int):
+    return tuple(untile_one_plain(x, n_tiles_x, n_tiles_y, tile_h, tile_w).contiguous()
+                 for x in (color, depth, winner))
+
+
+def untile3(color, depth, winner, n_tiles_x: int, n_tiles_y: int, tile_h: int,
+            tile_w: int):
+    """The frame's packed colour (int32), depth (float32) and winner
+    (int32) tile planes -> three image-layout planes, in one launch.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    global UNTILE3_LAUNCHES
+    shape = (n_tiles_x * n_tiles_y, tile_h, tile_w)
+    for x, dtype in ((color, torch.int32), (depth, torch.float32),
+                     (winner, torch.int32)):
+        _check_tiles(x, shape)
+        if x.dtype != dtype:
+            raise ValueError(f"untile3 planes are int32, float32, int32; got {x.dtype}")
+        if x.device != color.device:
+            raise ValueError("untile3 planes must share a device")
+    if color.device.type == "cpu":
+        return untile3_plain(color, depth, winner, n_tiles_x, n_tiles_y, tile_h, tile_w)
+    if color.device.type != "cuda":
+        raise ValueError(f"no untile for device {color.device}")
+    if tile_w % 4 or any(x.data_ptr() % 16 for x in (color, depth, winner)):
+        raise ValueError("the CUDA untile moves 16-byte vectors: tile_w must be "
+                         "a multiple of 4 and the tiles 16-byte aligned")
+    outs = tuple(torch.empty((n_tiles_y * tile_h, n_tiles_x * tile_w), dtype=x.dtype,
+                             device=x.device) for x in (color, depth, winner))
+    lib = _build.library()
+    with torch.cuda.device(color.device):
+        rc = lib.trt_untile3(color.data_ptr(), depth.data_ptr(), winner.data_ptr(),
+                             *(o.data_ptr() for o in outs), n_tiles_x, n_tiles_y,
+                             tile_h, tile_w, torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "trt_untile3")
+    UNTILE3_LAUNCHES += 1
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# the frame in tiled layout
+# ---------------------------------------------------------------------------
+
+class FrameTiles(NamedTuple):
+    """Framebuffers resident in tiled layout across every pass of a
+    frame: tile t covers pixel rows (t // ntx)*th .. +th and columns
+    (t % ntx)*tw .. +tw.  Ragged-edge padding pixels are never covered
+    (the bbox test is in global pixel coordinates), so they stay
+    background and cropping after the untile is exact.  Colour is packed
+    0x00BBGGRR int32, so all three planes are 32-bit (T, th, tw)."""
+
+    color: torch.Tensor    # (T, th, tw) int32, packed 0x00BBGGRR
+    depth: torch.Tensor    # (T, th, tw) float32
+    winner: torch.Tensor   # (T, th, tw) int32
+
+
+def new_frame_tiles(width: int, height: int, device, tile_h: int = TILE_H,
+                    tile_w: int = TILE_W) -> FrameTiles:
+    n = cdiv(width, tile_w) * cdiv(height, tile_h)
+    shape = (n, tile_h, tile_w)
+    return FrameTiles(
+        color=torch.zeros(shape, dtype=torch.int32, device=device),
+        depth=torch.full(shape, torch.inf, dtype=torch.float32, device=device),
+        winner=torch.full(shape, BACKGROUND, dtype=torch.int32, device=device))
+
+
+def tiles_to_buffers(ft: FrameTiles, width: int, height: int,
+                     tile_h: int = TILE_H, tile_w: int = TILE_W) -> FrameBuffers:
+    """Untile the frame's three planes, crop the ragged edge and unpack
+    the colour."""
+    color, depth, winner = untile3(ft.color, ft.depth, ft.winner, cdiv(width, tile_w),
+                                   cdiv(height, tile_h), tile_h, tile_w)
+    return FrameBuffers(color=unpack_rgb(color[:height, :width]),
+                        depth=depth[:height, :width], winner=winner[:height, :width])
+
+
 # ---------------------------------------------------------------------------
 # pre-stage
 # ---------------------------------------------------------------------------
@@ -109,6 +201,7 @@ class PreSparse(NamedTuple):
     counts: torch.Tensor       # (n_active,) i32
     total: int
     n_active: int
+    setup: dict                # the triangle setup (valid, screen, ..., bbox)
 
 
 def pre_sparse(attrs: dict, uniforms: dict, shader, width: int, height: int,
@@ -138,25 +231,71 @@ def pre_sparse(attrs: dict, uniforms: dict, shader, width: int, height: int,
     ids = ids[:n_active]
     idl = ids.long()
     return PreSparse(tri_rec, sorted_tri, ids, start[idl], counts[idl],
-                     total, n_active)
+                     total, n_active, setup)
 
 
 # ---------------------------------------------------------------------------
 # shading and placement
 # ---------------------------------------------------------------------------
 
-def shade_compact_fresh(winner_c, vary_c, uniforms: dict, shader):
-    """Fragment-shade the compact tiles of a single pass on a fresh frame:
-    a pixel's winner >= 0 is already the merge outcome.  Returns packed
-    colors (A, th, tw) int32, background 0."""
+def _shade_packed(vary_c, uniforms: dict, shader):
+    """Fragment-shade every pixel of the compact tiles -> packed colours
+    (A, th, tw) int32."""
     vary = {}
     i = 0
     for name, c in shader.varying_spec.items():
         vary[name] = vary_c[:, i:i + c].movedim(1, -1)
         i += c
-    rgb = shaders.fragment(shader, uniforms, vary)
-    out = pack_rgb(shaders.finalize_color(rgb))
+    return pack_rgb(shaders.finalize_color(shaders.fragment(shader, uniforms, vary)))
+
+
+def shade_compact_fresh(winner_c, vary_c, uniforms: dict, shader):
+    """Fragment-shade the compact tiles of a single pass on a fresh frame:
+    a pixel's winner >= 0 is already the merge outcome.  Returns packed
+    colors (A, th, tw) int32, background 0."""
+    out = _shade_packed(vary_c, uniforms, shader)
     return torch.where(winner_c >= 0, out, torch.zeros_like(out))
+
+
+def post_sparse(ft: FrameTiles, ids, depth_c, winner_c, vary_c, uniforms: dict,
+                shader, winner_offset: int) -> None:
+    """Merge one pass's compact tiles into the frame, in place: the
+    kernel already resolved depth against the running frame, so depth is
+    scattered back as is; where the pass won a pixel (winner >= 0) the
+    winner becomes ``winner_c + winner_offset`` and the colour its shaded
+    fragment, elsewhere both keep the frame's.  Every active tile is
+    shaded; the TPU's won-tile capacity only chose which tiles to shade,
+    never a pixel's value."""
+    idl = ids.long()
+    won = winner_c >= 0
+    ft.depth.index_copy_(0, idl, depth_c)
+    ft.winner.index_copy_(0, idl, torch.where(won, winner_c + winner_offset,
+                                              ft.winner[idl]))
+    out = _shade_packed(vary_c, uniforms, shader)
+    ft.color.index_copy_(0, idl, torch.where(won, out, ft.color[idl]))
+
+
+class PassEvents(NamedTuple):
+    """One pass's exact counters, on the device (our_gl.cpp:194-200)."""
+
+    setup: dict               # the pass's triangle setup (for raster.pass_stats)
+    fragments: torch.Tensor   # 0-d int64: z-pass events, overdraw included
+    min_z: torch.Tensor       # 0-d f32: least event z (+inf when none)
+    max_z: torch.Tensor       # 0-d f32: largest event z (-inf when none)
+
+
+def reduce_events(ev, depth_c, winner_c):
+    """Per-pass exact counters from the kernel's event planes -> 0-d
+    (fragments int64, min_z f32, max_z f32).  Events at a pixel strictly
+    decrease, so the least is the pixel's final depth in this pass, and
+    min_z is the least depth over the pixels the pass won."""
+    count, max_z = ev
+    dev = depth_c.device
+    if depth_c.numel() == 0:
+        return (torch.zeros((), dtype=torch.int64, device=dev),
+                torch.tensor(torch.inf, device=dev), torch.tensor(-torch.inf, device=dev))
+    min_z = torch.where(winner_c >= 0, depth_c, torch.inf).amin()
+    return count.sum(dtype=torch.int64), min_z, max_z.amax()
 
 
 def compact_to_image(c_tiles, ids, n_tiles_x: int, n_tiles_y: int, tile_h: int,
@@ -201,3 +340,53 @@ def render_frame_fused_image(passes, width: int, height: int,
     depth = compact_to_image(depth_c, pre.ids, n_tiles_x, n_tiles_y, tile_h,
                              tile_w, fill=torch.inf)
     return image, depth[:height, :width]
+
+
+def render_frame_fused(passes, width: int, height: int, device,
+                       tile_h: int = TILE_H, tile_w: int = TILE_W,
+                       collect_stats: bool = False):
+    """Render a multi-pass frame in tiled layout on ``device``.
+
+    ``passes``: [(attrs, shader, uniforms, exclude_from_output_depth)]
+    with tensor attrs/uniforms on ``device``.  Depth is snapshot before
+    the first pass of a run of excluded passes and restored before the
+    next pass that is not excluded (main.cpp:700,730).  A pass with no
+    faces renders nothing.  Returns (FrameTiles, out_depth_tiles, events):
+    the output depth is the snapshot when the frame ends inside an
+    excluded run; ``events`` is one ``PassEvents`` per pass with faces
+    when ``collect_stats``, else None.  Updates the frame's tiles in
+    place, so the snapshot is a copy."""
+    n_tiles_x = cdiv(width, tile_w)
+    ft = new_frame_tiles(width, height, device, tile_h, tile_w)
+    events = [] if collect_stats else None
+    snapshot = None
+    in_excluded = False
+    winner_offset = 0
+    for attrs, shader, uniforms, exclude in passes:
+        if exclude:
+            if not in_excluded:
+                snapshot = ft.depth.clone()            # main.cpp:700
+                in_excluded = True
+        elif in_excluded:
+            ft = ft._replace(depth=snapshot)           # main.cpp:730
+            in_excluded = False
+        f = attrs["position"].shape[0]
+        if f == 0:
+            continue
+        if attrs["position"].device != ft.depth.device:
+            raise ValueError(f"pass inputs are on {attrs['position'].device}, "
+                             f"the frame on {ft.depth.device}")
+        pre = pre_sparse(attrs, uniforms, shader, width, height, tile_h, tile_w)
+        init = ft.depth[pre.ids.long()]
+        out = coarse_raster(pre.tri_rec, pre.sorted_tri, pre.ids, pre.start,
+                            pre.counts, init, n_tiles_x, tile_h, tile_w,
+                            sum(shader.varying_spec.values()),
+                            collect_stats=collect_stats)
+        depth_c, winner_c, vary_c = out[:3]
+        post_sparse(ft, pre.ids, depth_c, winner_c, vary_c, uniforms, shader,
+                    winner_offset)
+        if collect_stats:
+            events.append(PassEvents(pre.setup, *reduce_events(out[3], depth_c,
+                                                               winner_c)))
+        winner_offset += f
+    return ft, (snapshot if in_excluded else ft.depth), events

@@ -3,8 +3,8 @@
 The shader objects stay the JAX package's (``tinyrenderder_tpu.shaders``):
 their ``build_uniforms`` runs host-side in NumPy and ``convert`` carries
 the result across.  This module supplies what ran on the device —
-``vertex`` and ``fragment`` — for the shaders of the single-pass image
-route, dispatched on the shader's exact class (a subclass such as
+``vertex`` and ``fragment`` — for the ported shaders (Phong, Eye,
+Gouraud, Textured), dispatched on the shader's exact class (a subclass such as
 ``ShadowMappedShader`` changes the fragment, so it is not taken for its
 base).  Formulas and operation order follow the reference's
 ``xp=numpy`` path; divisors are tensors on the operand's device (see
@@ -198,6 +198,33 @@ def _phong_fragment(shader, u, vary):
             + 255.0 * (shader.SPECULAR_SCALE * key_specular)[..., None])
 
 
+def _eye_fragment(shader, u, vary):
+    """EyeShader.fragment (main.cpp:176-262): normalized interpolated
+    normal, key and rim diffuse, the ^8 specular as three squarings (the
+    exponent is always 8, see the reference), no normal map."""
+    pos_eye = vary["position_eye"]
+    normal = normalized3(vary["normal_eye"])
+    uu, vv = vary["uv"][..., 0], vary["uv"][..., 1]
+    if u["tex_packed"] is not None:
+        base = sample_packed(u["tex_packed"], uu, vv)[0]
+    else:
+        base = sample_diffuse(u["tex_diffuse"], uu, vv)
+    view_dir = normalized3(-pos_eye)
+    key = u["key_light_eye"]
+
+    key_diffuse = torch.clamp(dot3(normal, key), min=0.0) * shader.KEY_DIFFUSE_INTENSITY
+    rim_diffuse = (torch.clamp(dot3(normal, u["rim_light_eye"]), min=0.0)
+                   * shader.RIM_DIFFUSE_INTENSITY)
+    total_diffuse = key_diffuse + rim_diffuse
+    reflect_dir = normalized3(normal * (2.0 * dot3(normal, key))[..., None] - key)
+    reflect_view = torch.clamp(dot3(reflect_dir, view_dir), min=0.0)
+    x2 = reflect_view * reflect_view
+    x4 = x2 * x2
+    specular = x4 * x4
+    return (base * (shader.AMBIENT + total_diffuse)[..., None]
+            + 255.0 * (shader.SPECULAR_SCALE * specular)[..., None])
+
+
 def _gouraud_vertex(shader, u, attrs):
     """GouraudShader.vertex: per-vertex Lambert intensity."""
     clip, vary = _base_vertex(shader, u, attrs)
@@ -225,6 +252,7 @@ def _textured_fragment(shader, u, vary):
 #: exact shader class -> (vertex, fragment)
 _STAGES = {
     ref.PhongShader: (_base_vertex, _phong_fragment),
+    ref.EyeShader: (_base_vertex, _eye_fragment),
     ref.GouraudShader: (_gouraud_vertex, _gouraud_fragment),
     ref.TexturedShader: (_textured_vertex, _textured_fragment),
 }
