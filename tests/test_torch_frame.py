@@ -13,7 +13,9 @@ excluded in the MIDDLE: depth is restored before the room pass).
     ``tiles_to_buffers`` (coarse mode, Pallas in interpret mode, one
     subprocess for the module): bitwise;
 plus the image route on multi-pass scenes, the tile height, empty and
-unported frames, and (``cuda``) the GPU frame against the CPU frame."""
+unported frames, and (``cuda``) the GPU frame against the CPU frame.
+The port side runs on the port's own scenes and shaders (``frame_scene``
+builds them), the JAX side on the JAX package's."""
 
 import dataclasses
 
@@ -23,12 +25,23 @@ import torch
 
 from torch_parity import (FRAMES, assert_bits, frame_scene, run_jax, scene_pass,
                           stats_vector)
-from tinyrenderder_tpu.shaders import DepthShader, FlatShader
-from tinyrenderder_tpu_torch import convert
+from tinyrenderder_tpu_torch import convert, shaders
 from tinyrenderder_tpu_torch import scene as tscene
-from tinyrenderder_tpu_torch.ops import raster, raster_coarse, raster_sparse
+from tinyrenderder_tpu_torch.ops import raster, raster_coarse, raster_fine, raster_sparse
 
 PLANES = ("color", "depth", "full_depth")
+
+
+class FlatShader(shaders.Shader):
+    """A colour shader the port has no device half for."""
+    name = "flat"
+
+
+class DepthShader(shaders.Shader):
+    """A depth-only shader: not ported yet (ROADMAP item 10)."""
+    name = "depth"
+    varying_spec: dict = {}
+    writes_color = False
 
 
 def _np(result):
@@ -179,12 +192,16 @@ def test_unported_shaders_raise():
         tscene.render_scene_image(sc, "cpu")
 
 
-def test_cpu_frame_launches_no_kernel():
+def test_cpu_frame_launches_no_kernel(monkeypatch):
     raster_coarse.LAUNCHES = raster_coarse.STATS_LAUNCHES = 0
+    raster_fine.LAUNCHES = raster_fine.STATS_LAUNCHES = 0
     raster_sparse.LAUNCHES = raster_sparse.UNTILE3_LAUNCHES = 0
     tscene.render_scene(frame_scene("cli_default"), "cpu")
-    assert (raster_coarse.LAUNCHES, raster_coarse.STATS_LAUNCHES, raster_sparse.LAUNCHES,
-            raster_sparse.UNTILE3_LAUNCHES) == (0, 0, 0, 0)
+    monkeypatch.setattr(raster_sparse, "FINE_MODE", "fine")
+    tscene.render_scene(frame_scene("cli_default"), "cpu")
+    assert (raster_coarse.LAUNCHES, raster_coarse.STATS_LAUNCHES, raster_fine.LAUNCHES,
+            raster_fine.STATS_LAUNCHES, raster_sparse.LAUNCHES,
+            raster_sparse.UNTILE3_LAUNCHES) == (0, 0, 0, 0, 0, 0)
 
 
 @pytest.fixture
@@ -197,10 +214,12 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(FRAMES))
 def test_cuda_frame_matches_cpu_frame(port_frames, cuda_device, name):
-    raster_coarse.STATS_LAUNCHES = raster_sparse.UNTILE3_LAUNCHES = 0
+    raster_coarse.STATS_LAUNCHES = raster_fine.STATS_LAUNCHES = 0
+    raster_sparse.UNTILE3_LAUNCHES = 0
     r = tscene.render_scene(frame_scene(name), cuda_device)
     torch.cuda.synchronize()
-    assert raster_coarse.STATS_LAUNCHES == 3 and raster_sparse.UNTILE3_LAUNCHES == 1
+    assert raster_coarse.STATS_LAUNCHES + raster_fine.STATS_LAUNCHES == 3
+    assert raster_sparse.UNTILE3_LAUNCHES == 1
     got, stats, _ = port_frames[name]
     for k in PLANES:
         assert_bits(_np(r)[k], got[k], k)

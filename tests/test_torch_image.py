@@ -7,7 +7,8 @@
     subprocess for the module, see tests/torch_parity.py): image, bitwise;
 (c) the port imports and renders with jax unimportable;
 plus the scene entry point's refusals, and (``cuda``) the GPU route against
-the CPU route."""
+the CPU route.  The port side runs on the port's own meshes, shaders and
+scenes, the oracle and JAX sides on the JAX package's."""
 
 import os
 import subprocess
@@ -18,12 +19,18 @@ import pytest
 import torch
 
 from torch_parity import ROOT, SCENES, assert_bits, run_jax, scene_pass
-from tinyrenderder_tpu import math3d, oracle
-from tinyrenderder_tpu.models import procedural
-from tinyrenderder_tpu.shaders import DepthShader, PhongShader
-from tinyrenderder_tpu_torch import convert
+from tinyrenderder_tpu import oracle
+from tinyrenderder_tpu_torch import convert, math3d, shaders
 from tinyrenderder_tpu_torch import scene as tscene
-from tinyrenderder_tpu_torch.ops import raster_coarse, raster_sparse
+from tinyrenderder_tpu_torch.models import procedural
+from tinyrenderder_tpu_torch.ops import raster_coarse, raster_fine, raster_sparse
+
+
+class DepthShader(shaders.Shader):
+    """A depth-only shader: the port has no device half for it yet."""
+    name = "depth"
+    varying_spec: dict = {}
+    writes_color = False
 
 
 def _port_frame(name, device="cpu", tile_h=16):
@@ -47,7 +54,7 @@ def jax_images(tmp_path_factory):
 
 @pytest.mark.parametrize("name", list(SCENES))
 def test_image_and_depth_match_f32_oracle(port_frames, name):
-    p, w, h = scene_pass(name)
+    p, w, h = scene_pass(name, "jax")
     want = oracle.render_passes([p], w, h, dtype=np.float32)
     image, depth = port_frames[name]
     assert image.shape == (h, w, 3) and image.dtype == np.uint8
@@ -111,7 +118,7 @@ def test_unported_scene_shapes_raise():
     key = math3d.normalized(math3d.vec3(1.0, 1.4, 1.0))
     two = _head_scene()
     two.add(procedural.uv_sphere(6, 8), math3d.identity4(),
-            PhongShader(key, key, key), name="second")
+            shaders.PhongShader(key, key, key), name="second")
     excluded = _head_scene()
     excluded.passes[0].exclude_from_output_depth = True
     culled = _head_scene()
@@ -146,15 +153,18 @@ def test_frame_with_no_covered_tile_is_background():
     image, depth = raster_sparse.render_frame_fused_image(
         [(attrs, p.shader, uniforms, False)], w, h, return_depth=True)
     assert not image.any() and torch.isinf(depth).all()
-    want = oracle.render_passes([oracle.OraclePass(flat, p.shader, p.uniforms)],
+    pj = scene_pass("head_phong", "jax")[0]
+    want = oracle.render_passes([oracle.OraclePass(flat, pj.shader, pj.uniforms)],
                                 w, h, dtype=np.float32)
     assert_bits(image.numpy(), want.color, "image")
 
 
-def test_cpu_route_launches_no_kernel():
-    raster_coarse.LAUNCHES = raster_sparse.LAUNCHES = 0
+def test_cpu_route_launches_no_kernel(monkeypatch):
+    raster_coarse.LAUNCHES = raster_sparse.LAUNCHES = raster_fine.LAUNCHES = 0
     _port_frame("head_textured")
-    assert raster_coarse.LAUNCHES == raster_sparse.LAUNCHES == 0
+    monkeypatch.setattr(raster_sparse, "FINE_MODE", "fine")
+    _port_frame("head_textured")
+    assert raster_coarse.LAUNCHES == raster_sparse.LAUNCHES == raster_fine.LAUNCHES == 0
 
 
 @pytest.fixture

@@ -5,15 +5,15 @@
 (b) ``postprocess`` against the JAX package's ``postprocess_device``
     (one subprocess for the module, see tests/torch_parity.py), bitwise;
 (c) the port's CLI on the CPU: its TGA files equal, byte for byte, those
-    written from the float32 oracle's colour and depth through the NumPy
-    post, as the JAX CLI writes them; refused modes exit non-zero."""
+    written from the float32 oracle's colour and depth through the JAX
+    package's NumPy post and TGA writer, as the JAX CLI writes them;
+    refused modes exit non-zero.  The scenes are the port's own."""
 
 import numpy as np
 import pytest
 import torch
 
 from torch_parity import assert_bits, frame_scene, run_jax
-from tinyrenderder_tpu.cli import build_default_scene
 from tinyrenderder_tpu.ops import post as ref
 from tinyrenderder_tpu.utils import tga
 from tinyrenderder_tpu_torch import cli
@@ -104,7 +104,7 @@ W, H = 64, 48
 def oracle_files(tmp_path_factory):
     """The four files written the JAX CLI's way from the f32 oracle."""
     out = tmp_path_factory.mktemp("oracle_cli")
-    r = tscene.oracle_render(build_default_scene(width=W, height=H))
+    r = tscene.oracle_render(cli.build_default_scene(width=W, height=H))
     zimg = ref.zbuffer_to_image(r.depth, np)
     ao_u8 = ref.ssao_image(ref.ssao_map(r.depth, np), np)
     final = ref.composite(r.color, ao_u8, np)

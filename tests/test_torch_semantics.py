@@ -1,6 +1,7 @@
 """The port's exact math (tinyrenderder_tpu_torch.ops.semantics and the
 device halves of .shaders) against the JAX package's NumPy path
-(``xp=numpy``), bitwise, on CPU tensors.
+(``xp=numpy``), bitwise, on CPU tensors.  The JAX side runs on the JAX
+package's meshes and shaders, the port side on the port's own.
 
 NumPy is the bitwise anchor: torch's CPU kernels run the same IEEE ops
 as NumPy, while XLA:CPU may contract multiply-adds and divides by
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity as tp
 from helpers import default_view, make_pass, standard_meshes
 from torch_parity import assert_bits, make_shader
 from tinyrenderder_tpu import math3d
@@ -17,6 +19,7 @@ from tinyrenderder_tpu import shaders as ref_shaders
 from tinyrenderder_tpu.models.mesh import Mesh
 from tinyrenderder_tpu.ops import semantics as ref
 from tinyrenderder_tpu_torch import convert, shaders
+from tinyrenderder_tpu_torch.models.mesh import Mesh as PortMesh
 from tinyrenderder_tpu_torch.ops import semantics
 
 
@@ -113,14 +116,15 @@ def test_setup_of_the_edge_case_meshes_matches_numpy():
         [[-50, -50, -1], [50, -50, -1], [0, 80, -1]],
     ], dtype=np.float64)
     n = tris.shape[0]
-    mesh = Mesh(positions=tris.reshape(-1, 3),
-                faces=np.arange(n * 3, dtype=np.int32).reshape(n, 3),
-                normals=np.tile([0.0, 0.0, 1.0], (n * 3, 1)), uvs=np.zeros((n * 3, 2)))
+    parts = dict(positions=tris.reshape(-1, 3),
+                 faces=np.arange(n * 3, dtype=np.int32).reshape(n, 3),
+                 normals=np.tile([0.0, 0.0, 1.0], (n * 3, 1)), uvs=np.zeros((n * 3, 2)))
     view, proj = default_view()
-    p = make_pass(mesh, ref_shaders.GouraudShader(), view, proj)
+    p = make_pass(Mesh(**parts), ref_shaders.GouraudShader(), view, proj)
     clip_ref, vary_ref = p.shader.vertex(p.uniforms, p.attrs, np)
-    attrs, uniforms = convert.pass_to_torch(p.attrs, p.uniforms, "cpu")
-    clip, vary = shaders.vertex(p.shader, uniforms, attrs)
+    q = tp.make_pass(PortMesh(**parts), shaders.GouraudShader(), view, proj)
+    attrs, uniforms = convert.pass_to_torch(q.attrs, q.uniforms, "cpu")
+    clip, vary = shaders.vertex(q.shader, uniforms, attrs)
     assert_bits(clip.numpy(), clip_ref, "clip")
     assert_bits(vary["intensity"].numpy(), vary_ref["intensity"], "intensity")
     vp = math3d.viewport(0, 0, 64, 48).astype(np.float32)
@@ -136,17 +140,23 @@ def meshes():
     return standard_meshes()
 
 
+@pytest.fixture(scope="module")
+def port_meshes():
+    return tp.standard_meshes("port")
+
+
 @pytest.mark.parametrize("mesh,kind", [("head", "phong"), ("sphere", "gouraud"),
                                        ("head", "textured"), ("soup", "phong"),
                                        ("sphere", "eye")])
-def test_vertex_matches_numpy(meshes, mesh, kind):
+def test_vertex_matches_numpy(meshes, port_meshes, mesh, kind):
     view, proj = default_view()
-    p = make_pass(meshes[mesh], make_shader(kind), view, proj)
+    p = make_pass(meshes[mesh], make_shader(kind, "jax"), view, proj)
     clip_ref, vary_ref = p.shader.vertex(p.uniforms, p.attrs, np)
-    attrs, uniforms = convert.pass_to_torch(p.attrs, p.uniforms, "cpu")
-    clip, vary = shaders.vertex(p.shader, uniforms, attrs)
+    q = tp.make_pass(port_meshes[mesh], make_shader(kind), view, proj)
+    attrs, uniforms = convert.pass_to_torch(q.attrs, q.uniforms, "cpu")
+    clip, vary = shaders.vertex(q.shader, uniforms, attrs)
     assert_bits(clip.numpy(), clip_ref, "clip")
-    assert set(vary) == set(vary_ref) == set(p.shader.varying_spec)
+    assert set(vary) == set(vary_ref) == set(q.shader.varying_spec)
     for k in vary_ref:
         assert_bits(vary[k].numpy(), np.asarray(vary_ref[k]), k)
 
@@ -174,17 +184,18 @@ def _random_varyings(spec, n, seed):
     ("head", "phong", True), ("head", "phong", False), ("soup", "phong", False),
     ("sphere", "gouraud", False), ("head", "textured", False),
     ("head", "eye", True), ("sphere", "eye", True), ("soup", "eye", False)])
-def test_fragment_matches_numpy(meshes, mesh, kind, packed):
+def test_fragment_matches_numpy(meshes, port_meshes, mesh, kind, packed):
     view, proj = default_view()
-    p = make_pass(meshes[mesh], make_shader(kind), view, proj)
-    u = dict(p.uniforms)
+    p = make_pass(meshes[mesh], make_shader(kind, "jax"), view, proj)
+    q = tp.make_pass(port_meshes[mesh], make_shader(kind), view, proj)
+    u, uq = dict(p.uniforms), dict(q.uniforms)
     if "tex_packed" in u and not packed:
-        u["tex_packed"] = None          # the individual samplers
+        u["tex_packed"] = uq["tex_packed"] = None          # the individual samplers
     assert (u.get("tex_packed") is not None) == packed
     vary = _random_varyings(p.shader.varying_spec, 4096, seed=len(mesh) + len(kind))
     want = ref_shaders.finalize_color(p.shader.fragment(u, vary, np), np)
-    _, ut = convert.pass_to_torch({}, u, "cpu")
-    rgb = shaders.fragment(p.shader, ut, {k: _t(v) for k, v in vary.items()})
+    _, ut = convert.pass_to_torch({}, uq, "cpu")
+    rgb = shaders.fragment(q.shader, ut, {k: _t(v) for k, v in vary.items()})
     assert_bits(rgb.numpy(), p.shader.fragment(u, vary, np), "rgb")
     assert_bits(shaders.finalize_color(rgb).numpy(), want, "color")
 
@@ -196,10 +207,15 @@ def test_finalize_color_matches_numpy():
 
 
 def test_unported_shader_raises():
-    flat = ref_shaders.FlatShader()
+    class FlatShader(shaders.Shader):       # a shader the port has no device half for
+        name = "flat"
+
+    class ShadowMappedShader(shaders.PhongShader):
+        name = "shadow_mapped"
+
     with pytest.raises(NotImplementedError, match="FlatShader"):
-        shaders.vertex(flat, {}, {})
-    assert shaders.supports(ref_shaders.EyeShader((0, 0, 1), (0, 1, 0)))
-    shadow = ref_shaders.ShadowMappedShader((0, 0, 1), (0, 1, 0), (1, 0, 0),
-                                            np.eye(4), np.zeros((4, 4), np.float32))
+        shaders.vertex(FlatShader(), {}, {})
+    assert shaders.supports(shaders.EyeShader((0, 0, 1), (0, 1, 0)))
+    shadow = ShadowMappedShader((0, 0, 1), (0, 1, 0), (1, 0, 0))
     assert not shaders.supports(shadow)     # a Phong subclass is not Phong
+    assert not shaders.supports(ref_shaders.EyeShader((0, 0, 1), (0, 1, 0)))

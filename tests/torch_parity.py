@@ -37,6 +37,7 @@ SCENES = {
     "sphere_gouraud": ("sphere", "gouraud", 256, 128),
     "head_textured": ("head", "textured", 256, 128),
     "soup_phong_ragged": ("soup", "phong", 160, 42),
+    "cube_gouraud": ("cube", "gouraud", 160, 42),     # screen-sized triangles
 }
 
 
@@ -46,36 +47,102 @@ FRAMES = {
     "multimesh": (160, 96),     # bench.py's 3-mesh scene, eyes excluded in the MIDDLE
 }
 
+#: the two packages' host modules: "port" (tinyrenderder_tpu_torch) builds
+#: the port side of a comparison, "jax" (tinyrenderder_tpu) the JAX side
+SIDES = ("port", "jax")
 
-def frame_scene(name: str):
-    """A fresh ``Scene`` of ``FRAMES`` (host objects only)."""
+
+def side_modules(side: str) -> dict:
+    """{math3d, camera, procedural, shaders, oracle, scene, cli} of one side."""
+    import importlib
+    pkg = {"port": "tinyrenderder_tpu_torch", "jax": "tinyrenderder_tpu"}[side]
+    return {name: importlib.import_module(f"{pkg}.{path}") for name, path in (
+        ("math3d", "math3d"), ("camera", "camera"), ("procedural", "models.procedural"),
+        ("shaders", "shaders"), ("oracle", "oracle"), ("scene", "scene"), ("cli", "cli"))}
+
+
+def multimesh_scene(side: str, w: int, h: int, head_lat=12, head_lon=16, eye_lat=6,
+                    eye_lon=8):
+    """``tinyrenderder_tpu_torch.scene.multimesh_scene`` (the port side), or
+    the same scene built from the JAX package's host objects."""
+    m = side_modules(side)
+    if side == "port":
+        return m["scene"].multimesh_scene(w, h, head_lat, head_lon, eye_lat, eye_lon)
+    math3d, procedural, shaders = m["math3d"], m["procedural"], m["shaders"]
+    key, fill, rim = (math3d.normalized(math3d.vec3(*v)) for v in
+                      ((1.0, 1.4, 1.0), (-0.3, 0.5, 0.2), (-1.0, 0.8, -1.5)))
+    cam = m["camera"].Camera()
+    cam.set_eye(math3d.vec3(0, 0.6, 3.0))
+    cam.set_target(math3d.vec3(0, 0, 0))
+    cam.set_fov(60.0)
+    cam.set_aspect(w / h)
+    cam.set_clipping(0.1, 50.0)
+    scene = m["scene"].Scene(camera=cam, width=w, height=h)
+    head = procedural.bumpy_head(head_lat, head_lon)
+    head.materials = [procedural.default_head_material(256)]
+    scene.add(head, math3d.identity4(),
+              shaders.PhongShader(key, fill, rim, normal_map_strength=0.5), name="head")
+    eyes = procedural.uv_sphere(eye_lat, eye_lon, radius=0.12, name="eyes")
+    eyes.positions += np.array([0.35, 0.25, 0.8])
+    eyes.finalize()
+    eyes.materials = [procedural.default_head_material(64)]
+    scene.add(eyes, math3d.identity4(), shaders.EyeShader(key, rim), name="eyes",
+              exclude_from_output_depth=True)
+    room = procedural.cube(size=12.0, name="room")
+    room.faces = room.faces[:, ::-1].copy()
+    room.finalize()
+    room.materials = [procedural.default_head_material(128)]
+    scene.add(room, math3d.identity4(),
+              shaders.PhongShader(key, fill, rim, normal_map_strength=0.0), name="room")
+    return scene
+
+
+def frame_scene(name: str, side: str = "port"):
+    """A fresh ``Scene`` of ``FRAMES`` built from one side's host objects."""
     w, h = FRAMES[name]
     if name == "cli_default":
-        from tinyrenderder_tpu.cli import build_default_scene
-        return build_default_scene(width=w, height=h)
-    from tinyrenderder_tpu_torch.scene import multimesh_scene
-    return multimesh_scene(w, h, head_lat=12, head_lon=16, eye_lat=6, eye_lon=8)
+        return side_modules(side)["cli"].build_default_scene(width=w, height=h)
+    return multimesh_scene(side, w, h)
 
 
-def make_shader(kind: str):
-    from tinyrenderder_tpu import math3d
-    from tinyrenderder_tpu.shaders import (EyeShader, GouraudShader, PhongShader,
-                                           TexturedShader)
+def make_shader(kind: str, side: str = "port"):
+    m = side_modules(side)
+    math3d, sh = m["math3d"], m["shaders"]
     key = math3d.normalized(math3d.vec3(1.0, 1.4, 1.0))
     fill = math3d.normalized(math3d.vec3(-0.3, 0.5, 0.2))
     rim = math3d.normalized(math3d.vec3(-1.0, 0.8, -1.5))
-    return {"phong": lambda: PhongShader(key, fill, rim, normal_map_strength=0.5),
-            "eye": lambda: EyeShader(key, rim),
-            "gouraud": lambda: GouraudShader(light_world=key),
-            "textured": lambda: TexturedShader(light_world=key)}[kind]()
+    return {"phong": lambda: sh.PhongShader(key, fill, rim, normal_map_strength=0.5),
+            "eye": lambda: sh.EyeShader(key, rim),
+            "gouraud": lambda: sh.GouraudShader(light_world=key),
+            "textured": lambda: sh.TexturedShader(light_world=key)}[kind]()
 
 
-def scene_pass(name: str):
-    """-> (oracle.OraclePass with NumPy float32 attrs/uniforms, w, h)."""
-    from helpers import default_view, make_pass, standard_meshes
+def standard_meshes(side: str = "port") -> dict:
+    """``tests/helpers.py::standard_meshes`` from one side's ``procedural``."""
+    procedural = side_modules(side)["procedural"]
+    head = procedural.bumpy_head(12, 16)
+    head.materials = [procedural.default_head_material(32)]
+    sphere = procedural.uv_sphere(10, 14)
+    sphere.materials = [procedural.default_head_material(16)]
+    return {"head": head, "sphere": sphere, "soup": procedural.triangle_soup(40),
+            "cube": procedural.cube()}
+
+
+def make_pass(mesh, shader, view, proj, side: str = "port", dtype=np.float32):
+    """One side's ``oracle.OraclePass`` of ``mesh`` (identity model matrix)."""
+    material = mesh.materials[0] if mesh.materials else None
+    uniforms = shader.build_uniforms(view @ np.eye(4), proj, material, dtype)
+    return side_modules(side)["oracle"].OraclePass(
+        attrs=mesh.face_attributes(dtype), shader=shader, uniforms=uniforms)
+
+
+def scene_pass(name: str, side: str = "port"):
+    """-> (one side's OraclePass with NumPy float32 attrs/uniforms, w, h)."""
+    from helpers import default_view
     mesh, kind, w, h = SCENES[name]
     view, proj = default_view()
-    return make_pass(standard_meshes()[mesh], make_shader(kind), view, proj), w, h
+    return make_pass(standard_meshes(side)[mesh], make_shader(kind, side), view, proj,
+                     side), w, h
 
 
 # ---------------------------------------------------------------------------
@@ -191,16 +258,20 @@ def _clear_capacities():
     raster_fine2._FINE2_PENDING.clear()
 
 
-class _coarse_tiles_loop:
+class _tiles_loop:
     """The JAX package's tiled route off the TPU, as tests/test_scene.py
-    runs it: ``FINE_MODE = "coarse"``, ``FORCE_TILES_LOOP = True``,
-    Pallas in interpret mode; set and restored."""
+    and tests/test_fine.py run it: ``FINE_MODE`` forced to ``mode``
+    ("coarse" or "fine"), ``FORCE_TILES_LOOP = True``, Pallas in
+    interpret mode; set and restored."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
 
     def __enter__(self):
         from tinyrenderder_tpu import scene as scene_mod
         from tinyrenderder_tpu.ops import raster_sparse
         self.old = raster_sparse.FINE_MODE, scene_mod.FORCE_TILES_LOOP
-        raster_sparse.FINE_MODE, scene_mod.FORCE_TILES_LOOP = "coarse", True
+        raster_sparse.FINE_MODE, scene_mod.FORCE_TILES_LOOP = self.mode, True
         _clear_capacities()
 
     def __exit__(self, *exc):
@@ -215,14 +286,48 @@ def _jax_image(r):
 
     from tinyrenderder_tpu.ops import raster_sparse
 
-    p, w, h = scene_pass(str(r["scene"]))
+    p, w, h = scene_pass(str(r["scene"]), "jax")
     attrs = {k: jnp.asarray(v) for k, v in p.attrs.items()}
-    with _coarse_tiles_loop():
+    with _tiles_loop(str(r.get("mode", "coarse"))):
         image, overflow = raster_sparse.render_frame_fused_image(
             [(attrs, p.shader, dict(p.uniforms), False)], w, h,
             tile_h=int(r["th"]), strict_capacity=True, interpret=True)
         assert not bool(overflow)
     return {"image": np.asarray(image)}
+
+
+def _jax_pre_fine(r):
+    """``raster_fine._pre_fine_jit`` at exact capacities (the port's
+    totals): active tiles, their row segments and every slot's triangle
+    id, decoded from record column 16 (lane-row 1, lanes 0-7)."""
+    import jax.numpy as jnp
+
+    from tinyrenderder_tpu.ops import raster_fine
+
+    p, w, h = scene_pass(str(r["scene"]), "jax")
+    attrs = {k: jnp.asarray(v) for k, v in p.attrs.items()}
+    pairs, rows, active = int(r["pairs"]), int(r["rows"]), int(r["active"])
+    out = raster_fine._pre_fine_jit(
+        attrs, dict(p.uniforms), p.shader, w, h, pairs, rows,
+        1 << max(rows - 1, 0).bit_length(), active, int(r["th"]), 128)
+    _, rec, ids, kernel_ids, row_start, rows_a, pt, rt, na, _ = out
+    res = {"ids": np.asarray(ids)[:active], "row_start": np.asarray(row_start)[:active],
+           "rows": np.asarray(rows_a)[:active],
+           "slots": np.asarray(rec)[:rows, 1, 0:8].astype(np.int32),
+           "totals": np.array([int(pt), int(rt), int(na)])}
+    if "n_vary" in r:
+        # the strip kernel on this pre-stage, with and without stats
+        for stats in (False, True):
+            d, wn, v, ev = raster_fine._fine_call_jit(
+                kernel_ids, row_start, rows_a, rec, jnp.asarray(r["depth_tiles"]),
+                -(-w // 128), -(-h // int(r["th"])), int(r["th"]), 128,
+                int(r["n_vary"]), True, collect_stats=stats)
+            res.update({f"depth_{int(stats)}": np.asarray(d)[:active],
+                        f"winner_{int(stats)}": np.asarray(wn)[:active],
+                        f"vary_{int(stats)}": np.asarray(v)[:active]})
+            if stats:
+                res["ev"] = np.asarray(ev)[:active]
+    return res
 
 
 def stats_vector(st) -> np.ndarray:
@@ -234,29 +339,46 @@ def stats_vector(st) -> np.ndarray:
 
 
 def _jax_scene(r):
-    """``scene.render(backend="tiled")`` with and without stats, and the
-    frame's winner plane from ``render_frame_fused`` + ``tiles_to_buffers``."""
+    """``scene.render(backend="tiled")`` in ``mode``, with stats and (in
+    coarse mode) without, and the frame's winner plane: in coarse mode
+    from ``render_frame_fused`` + ``tiles_to_buffers``, in fine mode from
+    the tiles of the render with stats itself."""
     from tinyrenderder_tpu import scene as scene_mod
     from tinyrenderder_tpu.ops import raster_sparse
     from tinyrenderder_tpu.utils.stats import RenderStats
 
     name = str(r["scene"])
+    mode = str(r.get("mode", "coarse"))
     w, h = FRAMES[name]
     out = {}
-    with _coarse_tiles_loop():
-        for stats in (True, False):
-            res = frame_scene(name).render(backend="tiled", collect_stats=stats)
-            for k in ("color", "depth", "full_depth"):
-                out[f"{k}_{int(stats)}"] = np.asarray(getattr(res, k))
-            out[f"stats_{int(stats)}"] = stats_vector(res.stats)
-        sc = frame_scene(name)
-        passes = []
-        for p in scene_mod._cull_passes(sc, True, RenderStats()):
-            attrs, uniforms = scene_mod._pass_inputs(sc, p, np.float32, device=True)
-            passes.append((attrs, p.shader, uniforms, p.exclude_from_output_depth))
-        ft, _, overflow = raster_sparse.render_frame_fused(
-            passes, w, h, tile_h=16, strict_capacity=True, interpret=True)
-        assert not bool(overflow)
+    finish = scene_mod._finish_device_tiles
+    tiles = []
+
+    def keep_tiles(scene, ft, *args, **kw):
+        tiles.append(ft)
+        return finish(scene, ft, *args, **kw)
+
+    with _tiles_loop(mode):
+        scene_mod._finish_device_tiles = keep_tiles
+        try:
+            for stats in (True, False) if mode == "coarse" else (True,):
+                res = frame_scene(name, "jax").render(backend="tiled", collect_stats=stats)
+                for k in ("color", "depth", "full_depth"):
+                    out[f"{k}_{int(stats)}"] = np.asarray(getattr(res, k))
+                out[f"stats_{int(stats)}"] = stats_vector(res.stats)
+        finally:
+            scene_mod._finish_device_tiles = finish
+        if mode == "coarse":
+            sc = frame_scene(name, "jax")
+            passes = []
+            for p in scene_mod._cull_passes(sc, True, RenderStats()):
+                attrs, uniforms = scene_mod._pass_inputs(sc, p, np.float32, device=True)
+                passes.append((attrs, p.shader, uniforms, p.exclude_from_output_depth))
+            ft, _, overflow = raster_sparse.render_frame_fused(
+                passes, w, h, tile_h=16, strict_capacity=True, interpret=True)
+            assert not bool(overflow)
+        else:
+            ft = tiles[0]
         out["winner"] = np.asarray(raster_sparse.tiles_to_buffers(ft, w, h, 16).winner)
     return out
 
@@ -272,7 +394,7 @@ def _main(req_path, out_path):
     jax.config.update("jax_platforms", "cpu")
     ops = {"bins": _jax_bins, "raster": _jax_raster, "untile": _jax_untile,
            "untile3": _jax_untile3, "image": _jax_image, "scene": _jax_scene,
-           "post": _jax_post}
+           "post": _jax_post, "pre_fine": _jax_pre_fine}
     requests: dict = {}
     with np.load(req_path) as z:
         for key in z.files:

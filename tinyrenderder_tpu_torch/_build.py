@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
-SOURCES = ("raster_coarse.cu", "untile.cu")
+SOURCES = ("raster_coarse.cu", "raster_fine.cu", "untile.cu")
+HEADERS = ("raster_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +39,11 @@ SIGNATURES = {
     # init_depth, depth, winner, vary, ev_count, ev_maxz, stream
     "trt_coarse_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P],
+    # tri_rec, rec_stride, tri8, tile_ids, row_start, rows, n_active,
+    # origin_x, origin_y, n_tiles_x, tile_h, tile_w, n_vary,
+    # init_depth, depth, winner, vary, ev_count, ev_maxz, stream
+    "trt_fine_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P],
     # src, dst, n_tiles_x, n_tiles_y, tile_h, tile_w, stream
     "trt_untile32": [_P, _P, _I, _I, _I, _I, _P],
     # color, depth, winner, color_out, depth_out, winner_out,
@@ -64,7 +70,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libtrt_kernels_{h.hexdigest()[:16]}.so"

@@ -6,7 +6,8 @@
 
 Counterpart of ``tinyrenderder_tpu.cli`` on the port: the same default
 scene (``build_default_scene``: Sponza, head, eyes excluded from the
-output depth), rendered with exact stats by ``scene.render_scene`` on
+output depth; deterministic procedural stand-ins where the OBJ assets
+are missing), rendered with exact stats by ``scene.render_scene`` on
 ``--device``, then z-visualization, SSAO and the composite on the same
 device, and the same four TGA files and log lines.  The JAX CLI's
 shadow, animation and profiler modes are not ported yet and are refused.
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
 import sys
 import time
@@ -23,17 +25,104 @@ import time
 import numpy as np
 import torch
 
-from tinyrenderder_tpu.cli import HEIGHT, WIDTH, build_default_scene
-from tinyrenderder_tpu.scene import _cull_passes
-from tinyrenderder_tpu.utils import tga
-from tinyrenderder_tpu.utils.stats import RenderStats
+from tinyrenderder_tpu_torch import math3d
 from tinyrenderder_tpu_torch import scene as tscene
+from tinyrenderder_tpu_torch.camera import Camera
+from tinyrenderder_tpu_torch.models import procedural
+from tinyrenderder_tpu_torch.models.manager import ModelManager
+from tinyrenderder_tpu_torch.models.mesh import Mesh
 from tinyrenderder_tpu_torch.ops import post
+from tinyrenderder_tpu_torch.shaders import EyeShader, PhongShader
+from tinyrenderder_tpu_torch.utils import tga
+from tinyrenderder_tpu_torch.utils.stats import RenderStats
 
 log = logging.getLogger("tinyrenderder_tpu_torch.cli")
 
+# Render constants (main.cpp:26-30)
+WIDTH = 1200
+HEIGHT = 800
+DEFAULT_MODEL_PATH = "obj/african_head/african_head.obj"
+EYES_MODEL_PATH = "obj/african_head/african_head_eye_inner.obj"
+SPONZA_MODEL_PATH = "obj/sponza/sponza.obj"
+#: the default scene's key light (main.cpp:615)
+KEY_LIGHT_DIR = math3d.normalized(math3d.vec3(1.0, 1.4, 1.0))
+
 #: JAX CLI modes the port refuses, and the ROADMAP.md Queue 1 item that ports each
 UNPORTED = {"shadows": "item 10", "animate": "item 11", "profile": "item 11"}
+
+
+def _load_or_procedural(manager: ModelManager, path: str, kind: str,
+                        explicit: bool = False) -> Mesh:
+    """The model at ``path``, or its procedural stand-in when the file is
+    missing (or, unless the user named it, fails to parse)."""
+    if os.path.exists(path):
+        mesh = manager.load_model(path)
+        if mesh is not None:
+            return mesh
+        if explicit:
+            raise SystemExit(f"error: failed to load model: {path}")
+        log.warning("%s exists but failed to load — using procedural stand-in", path)
+    else:
+        log.warning("%s not found — using procedural stand-in", path)
+    if kind == "head":
+        mesh = procedural.bumpy_head(n_lat=32, n_lon=48)
+        mesh.materials = [procedural.default_head_material()]
+        return mesh
+    if kind == "eyes":
+        eyes = procedural.uv_sphere(n_lat=8, n_lon=12, radius=0.12, name="eyes")
+        eyes.positions += np.array([0.35, 0.25, 0.8])
+        eyes.finalize()
+        eyes.materials = [procedural.default_head_material()]
+        return eyes
+    # the Sponza stand-in: an inward-facing box room that the reference's
+    # 0.014 scale (main.cpp:506-507) leaves at ~56 units around the camera;
+    # rebuilt without cube()'s outward normals so finalize() derives them
+    # from the flipped winding
+    out = procedural.cube(size=4000.0)
+    room = Mesh(positions=out.positions, faces=out.faces[:, ::-1].copy(),
+                uvs=out.uvs, name="sponza_standin").finalize()
+    room.materials = [procedural.default_head_material(128)]
+    return room
+
+
+def build_default_scene(head_path: str | None = None, width: int = WIDTH,
+                        height: int = HEIGHT,
+                        manager: ModelManager | None = None) -> tscene.Scene:
+    """The main.cpp default scene: model matrices (main.cpp:506-513),
+    camera (main.cpp:585-597), lights (main.cpp:615-617), shader
+    assignments (main.cpp:655-657, :688-689, :711-712)."""
+    manager = manager or ModelManager.instance()
+    head = _load_or_procedural(manager, head_path or DEFAULT_MODEL_PATH, "head",
+                               explicit=head_path is not None)
+    eyes = _load_or_procedural(manager, EYES_MODEL_PATH, "eyes")
+    sponza = _load_or_procedural(manager, SPONZA_MODEL_PATH, "sponza")
+
+    sponza_matrix = math3d.scale_matrix(0.014, 0.014, 0.014)
+    head_matrix = (math3d.translation_matrix(0.0, 1.6815, 0.0)
+                   @ math3d.rotation_y(-112.82 * math.pi / 180.0))
+    eye_matrix = head_matrix
+
+    camera = Camera()
+    camera.set_eye(math3d.vec3(-3.4019, 2.2001, 1.8026))
+    camera.set_target(math3d.vec3(1.3555, 1.5116, -0.9686))
+    camera.set_up(math3d.vec3(0, 1, 0))
+    camera.set_fov(70.0)
+    camera.set_aspect(width / height)
+    camera.set_clipping(0.05, 500.0)
+
+    key_light = KEY_LIGHT_DIR
+    fill_light = math3d.normalized(math3d.vec3(-0.3, 0.5, 0.2))
+    rim_light = math3d.normalized(math3d.vec3(-1.0, 0.8, -1.5))
+
+    scene = tscene.Scene(camera=camera, width=width, height=height)
+    scene.add(sponza, sponza_matrix,
+              PhongShader(key_light, fill_light, rim_light, normal_map_strength=0.5),
+              name="sponza")
+    scene.add(head, head_matrix, PhongShader(key_light, fill_light, rim_light),
+              name="head")
+    scene.add(eyes, eye_matrix, EyeShader(key_light, rim_light), name="eyes",
+              exclude_from_output_depth=True)
+    return scene
 
 
 def write_rgb(path: str, rgb) -> None:
@@ -91,7 +180,7 @@ def _render_and_write(args, scene) -> int:
     os.makedirs(args.outdir, exist_ok=True)
     if args.image_only:
         # a fully culled scene must not clobber an earlier phong.tga
-        if not _cull_passes(scene, cull, RenderStats()):
+        if not tscene._cull_passes(scene, cull, RenderStats()):
             log.warning("every model culled — phong.tga not written")
             return 0
         image = tscene.render_scene_image(scene, args.device, cull)

@@ -1,10 +1,10 @@
-"""The state carried across from the JAX package's host code.
+"""The state carried across from the host layer to the device.
 
 ``Mesh.face_attributes`` and ``Shader.build_uniforms`` run host-side in
-NumPy (they import no jax).  Their outputs become tensors here, bit for
-bit: float32 stays float32, uint8 textures stay uint8, ``None`` (a
-missing texture) stays ``None``.  Both packages then compute from
-identical inputs.
+NumPy, in this package as in the JAX package.  Their outputs become
+tensors here, bit for bit: float32 stays float32, uint8 textures stay
+uint8, ``None`` (a missing texture) stays ``None``.  So one scene's
+NumPy inputs, from either package, feed both sides of a comparison.
 """
 
 from __future__ import annotations

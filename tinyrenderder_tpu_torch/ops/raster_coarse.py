@@ -42,7 +42,8 @@ from tinyrenderder_tpu_torch import _build
 from tinyrenderder_tpu_torch.ops import semantics
 
 __all__ = ["GEOM", "MAX_VARY", "SUB", "LAUNCHES", "STATS_LAUNCHES",
-           "build_tri_records", "coarse_raster", "coarse_raster_plain"]
+           "build_tri_records", "check_inputs", "coarse_raster", "coarse_raster_plain",
+           "tile_pixels", "interpolate_winners"]
 
 GEOM = 16            # geometry columns before the varying corners
 MAX_VARY = 36        # the reference's record limit, (128 - 20) // 3
@@ -70,16 +71,20 @@ def build_tri_records(setup: dict, vary_corners=None) -> torch.Tensor:
     return torch.cat(cols, dim=1).contiguous()
 
 
-def _check(tri_rec, sorted_tri, tile_ids, start, count, init_depth, tile_h,
-           tile_w, n_vary):
+def check_inputs(tri_rec, bins, tile_ids, start, count, init_depth, tile_h,
+                 tile_w, n_vary, names=("sorted_tri", "start", "count")):
+    """Raise ValueError unless the raster's inputs have the contract's
+    devices, dtypes, shapes and layout.  ``bins`` and its per-tile
+    ``start``/``count`` go by ``names`` (the strip raster's slot table
+    has other names)."""
     dev = tri_rec.device
     a = tile_ids.shape[0]
     for name, t, dtype, shape in (
             ("tri_rec", tri_rec, torch.float32, None),
-            ("sorted_tri", sorted_tri, torch.int32, None),
+            (names[0], bins, torch.int32, None),
             ("tile_ids", tile_ids, torch.int32, (a,)),
-            ("start", start, torch.int32, (a,)),
-            ("count", count, torch.int32, (a,)),
+            (names[1], start, torch.int32, (a,)),
+            (names[2], count, torch.int32, (a,)),
             ("init_depth", init_depth, torch.float32, (a, tile_h, tile_w))):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, tri_rec on {dev}")
@@ -92,8 +97,6 @@ def _check(tri_rec, sorted_tri, tile_ids, start, count, init_depth, tile_h,
     if tri_rec.dim() != 2 or tri_rec.shape[1] < GEOM + 3 * n_vary:
         raise ValueError(f"tri_rec {tuple(tri_rec.shape)} has no room for "
                          f"{n_vary} varying channels")
-    if sorted_tri.dim() != 1:
-        raise ValueError("sorted_tri must be 1-D")
 
 
 def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
@@ -104,8 +107,10 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
     ``collect_stats``.  CPU tensors take the plain version; CUDA tensors
     launch the kernel."""
     global LAUNCHES, STATS_LAUNCHES
-    _check(tri_rec, sorted_tri, tile_ids, start, count, init_depth, tile_h,
-           tile_w, n_vary)
+    if sorted_tri.dim() != 1:
+        raise ValueError("sorted_tri must be 1-D")
+    check_inputs(tri_rec, sorted_tri, tile_ids, start, count, init_depth, tile_h,
+                 tile_w, n_vary)
     if tri_rec.device.type == "cpu":
         return coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
                                    init_depth, n_tiles_x, tile_h, tile_w,
@@ -144,7 +149,7 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
     return out
 
 
-def _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, dtype):
+def tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, dtype):
     """Global integer pixel coords of each tile as exact floats:
     x (C, 1, 1, tw), y (C, 1, th, 1)."""
     dev = tile_ids.device
@@ -181,7 +186,7 @@ def coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
     for c0 in range(0, a, TILE_CHUNK):
         c1 = min(a, c0 + TILE_CHUNK)
         st, cnt = start[c0:c1].long(), count[c0:c1].long()
-        x, y = _tile_pixels(tile_ids[c0:c1].long(), n_tiles_x, tile_h, tile_w,
+        x, y = tile_pixels(tile_ids[c0:c1].long(), n_tiles_x, tile_h, tile_w,
                             origin, f32)
         px, py = x + 0.5, y + 0.5
         zbuf = init_depth[c0:c1].clone()
@@ -219,11 +224,11 @@ def coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
         depth[c0:c1] = zbuf
         winner[c0:c1] = wbuf
         if n_vary:
-            vary[c0:c1] = _interpolate_winners(tri_rec, wbuf, px[:, 0], py[:, 0], n_vary)
+            vary[c0:c1] = interpolate_winners(tri_rec, wbuf, px[:, 0], py[:, 0], n_vary)
     return out
 
 
-def _interpolate_winners(tri_rec, wbuf, px, py, n_vary):
+def interpolate_winners(tri_rec, wbuf, px, py, n_vary):
     """Loop 2: each pixel gathers its winner's row and interpolates.
     ``+ 0.0`` turns -0.0 into +0.0 like the TPU kernel's select-by-sum."""
     won = wbuf >= 0

@@ -1,25 +1,30 @@
 """Active-tile sparse pipeline in PyTorch: the single-pass
-direct-to-image route and the multi-pass tiled frame.  Also the untile
-kernels (``csrc/untile.cu``: one plane, and the frame's three planes in
-one launch) with their plain PyTorch versions.
+direct-to-image route and the multi-pass tiled frame, each pass routed
+to the coarse or the strip raster.  Also the untile kernels
+(``csrc/untile.cu``: one plane, and the frame's three planes in one
+launch) with their plain PyTorch versions.
 
-Counterpart of the coarse branches of
+Counterpart of the coarse and fine branches of
 ``tinyrenderder_tpu/ops/raster_sparse.py``:
 
   * ``render_frame_fused_image`` with ``direct=False``
-    (``_pre_sparse_jit``, ``_shade_compact_fresh``, ``_compact_to_image``,
-    ``_untile_one_jit``);
+    (``_pre_sparse_jit`` or ``_pre_fine_jit``, ``_shade_compact_fresh``,
+    ``_compact_to_image``, ``_untile_one_jit``);
   * ``render_frame_fused`` and ``render_pass_tiles`` (``FrameTiles``,
     ``_post_sparse_jit``, ``_reduce_events_jit``, ``tiles_to_buffers``,
     ``_untile_call_jit``).  The JAX package has a fused XLA program and a
     per-pass loop because of XLA's dispatch cost; eager PyTorch has one
-    loop with a ``collect_stats`` flag.
+    loop with a ``collect_stats`` flag;
+  * ``FINE_MODE`` and ``_decide_mode`` (``decide_mode``): which raster a
+    pass takes.  Both rasters give the same outputs, so the merge, the
+    shading and the event reduction are shared.
 
-Each pass reads back two integers, once: the exact (tile, triangle) pair
-total and the active-tile count.  Every buffer is sized from them, so
-the TPU path's capacity cache, its quantized capacities, its won-tile
-capacity and its overflow re-render have no counterpart here: nothing
-can overflow.
+Each pass reads back its totals once: the coarse route the (tile,
+triangle) pair total and the active-tile count, the strip route the
+strip pair total, the row total and the active-tile count.  Every
+buffer is sized from them, so the TPU path's capacity cache, its
+quantized capacities, its won-tile capacity and its overflow re-render
+have no counterpart here: nothing can overflow.
 """
 
 from __future__ import annotations
@@ -29,18 +34,21 @@ from typing import NamedTuple
 import torch
 
 from tinyrenderder_tpu_torch import _build, shaders
+from tinyrenderder_tpu_torch.ops import raster_fine
 from tinyrenderder_tpu_torch.ops.raster import BACKGROUND, FrameBuffers
 from tinyrenderder_tpu_torch.ops.raster_coarse import build_tri_records, coarse_raster
-from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, build_bins, cdiv,
-                                                      flatten_varyings, tile_pair_counts,
-                                                      tile_spans, vertex_stage)
+from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids,
+                                                      build_bins, cdiv, shader_varyings,
+                                                      tile_pair_counts, tile_spans,
+                                                      vertex_stage)
 
 __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
            "untile_one_plain", "untile3", "untile3_plain", "FrameTiles",
            "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
            "shade_compact_fresh", "compact_to_image", "post_sparse",
-           "PassEvents", "reduce_events", "render_frame_fused",
-           "render_frame_fused_image", "LAUNCHES", "UNTILE3_LAUNCHES"]
+           "PassEvents", "reduce_events", "FINE_MODE", "decide_mode", "raster_pass",
+           "render_frame_fused", "render_frame_fused_image", "LAUNCHES",
+           "UNTILE3_LAUNCHES"]
 
 #: untile kernel launches since the last reset (the CPU path does not
 #: count): the single-plane kernel and the three-plane kernel
@@ -216,19 +224,8 @@ def pre_sparse(attrs: dict, uniforms: dict, shader, width: int, height: int,
     total, n_active = torch.stack([per_tile.sum(), (per_tile > 0).sum()]).tolist()
     sorted_tri, start, counts = build_bins(tx0, ty0, span_x, spans, total,
                                            n_tiles_x, n_tiles_y)
-
-    spec = tuple(shader.varying_spec.items())
-    if {name for name, _ in spec} != set(varyings):
-        raise ValueError(f"{shader.name}.varying_spec {sorted(dict(spec))} != "
-                         f"vertex output {sorted(varyings)}")
-    tri_rec = build_tri_records(setup, flatten_varyings(varyings, spec))
-
-    # ids[j] = j-th non-empty tile; empty tiles go to a trash slot
-    active = counts > 0
-    slot = torch.where(active, torch.cumsum(active, 0) - 1, n_active)
-    ids = torch.empty(n_active + 1, dtype=torch.int32, device=counts.device)
-    ids.scatter_(0, slot, torch.arange(n_tiles, dtype=torch.int32, device=counts.device))
-    ids = ids[:n_active]
+    tri_rec = build_tri_records(setup, shader_varyings(varyings, shader))
+    ids = active_ids(counts > 0, n_active)
     idl = ids.long()
     return PreSparse(tri_rec, sorted_tri, ids, start[idl], counts[idl],
                      total, n_active, setup)
@@ -298,6 +295,81 @@ def reduce_events(ev, depth_c, winner_c):
     return count.sum(dtype=torch.int64), min_z, max_z.amax()
 
 
+# ---------------------------------------------------------------------------
+# coarse/fine dispatch
+# ---------------------------------------------------------------------------
+
+#: which raster a pass takes: "auto" (``decide_mode``), or "coarse" or
+#: "fine" for every pass.  "fine2" is not ported yet (ROADMAP.md Queue 1,
+#: item 8)
+FINE_MODE = "auto"
+#: "auto" takes the strip raster when its rows (the sum over tiles of
+#: the largest strip bin) are at most this share of the coarse pairs.
+#: None: never.  On the H100 the strip kernel beats the coarse one on
+#: passes with rows <= ~0.46 x pairs, but its pre-stage costs more than
+#: the kernel saves on every pass measured (PERF.md, Findings), so "auto"
+#: routes coarse until the strip pre-stage is cheaper
+FINE_RATIO: float | None = None
+#: passes below this many faces stay coarse (the reference's floor)
+FINE_MIN_FACES = 512
+#: "auto" decisions, per (faces, grid, shader kind)
+_FINE_DECISION: dict = {}
+
+
+def decide_mode(attrs: dict, uniforms: dict, shader, width: int, height: int,
+                tile_h: int = TILE_H, tile_w: int = TILE_W) -> str:
+    """The raster a pass takes, "coarse" or "fine" (``_decide_mode``).  A
+    forced ``FINE_MODE`` applies to every pass.  "auto" probes the pass's
+    strip rows and coarse pairs once per (faces, grid, shader kind) and
+    caches the answer; passes under ``FINE_MIN_FACES`` faces or with more
+    than ``raster_fine.MAX_VARY`` varying channels stay coarse.  The
+    reference's TPU-only clause and its 2^21 strip-pair cap (a workaround
+    of the TPU's exact-f32 divmod) have no counterpart here."""
+    if FINE_MODE in ("coarse", "fine"):
+        return FINE_MODE
+    if FINE_MODE == "fine2":
+        raise NotImplementedError("FINE_MODE='fine2' is not ported yet: ROADMAP.md "
+                                  "Queue 1, item 8")
+    if FINE_MODE != "auto":
+        raise ValueError(f"FINE_MODE must be 'auto', 'coarse' or 'fine', not {FINE_MODE!r}")
+    f = attrs["position"].shape[0]
+    n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
+    n_vary = sum(shader.varying_spec.values())
+    key = (f, n_tiles_x, n_tiles_y, tile_h, tile_w, shader.writes_color, n_vary)
+    mode = _FINE_DECISION.get(key)
+    if mode is None:
+        if (FINE_RATIO is None or f < FINE_MIN_FACES or n_vary > raster_fine.MAX_VARY
+                or tile_w != TILE_W):
+            mode = "coarse"
+        else:
+            rows, pairs = raster_fine.probe_rows_pairs(attrs, uniforms, shader, width,
+                                                       height, tile_h, tile_w)
+            mode = "fine" if rows <= FINE_RATIO * pairs else "coarse"
+        _FINE_DECISION[key] = mode
+    return mode
+
+
+def raster_pass(attrs: dict, uniforms: dict, shader, width: int, height: int,
+                tile_h: int, tile_w: int, init_depth, collect_stats: bool = False):
+    """One pass's pre-stage and raster on the route ``decide_mode`` picks.
+    ``init_depth(ids)`` gives the running depth of the active tiles.
+    Returns (ids, setup, (depth, winner, vary[, ev])) in the raster
+    contract both routes share."""
+    n_tiles_x = cdiv(width, tile_w)
+    n_vary = sum(shader.varying_spec.values())
+    if decide_mode(attrs, uniforms, shader, width, height, tile_h, tile_w) == "fine":
+        pre = raster_fine.pre_fine(attrs, uniforms, shader, width, height, tile_h, tile_w)
+        out = raster_fine.fine_raster(pre.tri_rec, pre.tri8, pre.ids, pre.row_start,
+                                      pre.rows, init_depth(pre.ids), n_tiles_x, tile_h,
+                                      tile_w, n_vary, collect_stats=collect_stats)
+    else:
+        pre = pre_sparse(attrs, uniforms, shader, width, height, tile_h, tile_w)
+        out = coarse_raster(pre.tri_rec, pre.sorted_tri, pre.ids, pre.start, pre.counts,
+                            init_depth(pre.ids), n_tiles_x, tile_h, tile_w, n_vary,
+                            collect_stats=collect_stats)
+    return pre.ids, pre.setup, out
+
+
 def compact_to_image(c_tiles, ids, n_tiles_x: int, n_tiles_y: int, tile_h: int,
                      tile_w: int, fill=0, untile=untile_one):
     """Scatter compact (A, th, tw) 32-bit tiles into the full tile frame
@@ -324,20 +396,16 @@ def render_frame_fused_image(passes, width: int, height: int,
     if attrs["position"].shape[0] == 0:
         raise ValueError("render_frame_fused_image requires a non-empty pass")
     n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
-    n_vary = sum(shader.varying_spec.values())
-
-    pre = pre_sparse(attrs, uniforms, shader, width, height, tile_h, tile_w)
-    init = torch.full((pre.n_active, tile_h, tile_w), torch.inf,
-                      dtype=torch.float32, device=pre.tri_rec.device)
-    depth_c, winner_c, vary_c = coarse_raster(
-        pre.tri_rec, pre.sorted_tri, pre.ids, pre.start, pre.counts, init,
-        n_tiles_x, tile_h, tile_w, n_vary)
+    ids, _, (depth_c, winner_c, vary_c) = raster_pass(
+        attrs, uniforms, shader, width, height, tile_h, tile_w,
+        lambda ids: torch.full((ids.shape[0], tile_h, tile_w), torch.inf,
+                               dtype=torch.float32, device=ids.device))
     c_img = shade_compact_fresh(winner_c, vary_c, uniforms, shader)
-    img = compact_to_image(c_img, pre.ids, n_tiles_x, n_tiles_y, tile_h, tile_w)
+    img = compact_to_image(c_img, ids, n_tiles_x, n_tiles_y, tile_h, tile_w)
     image = unpack_rgb(img[:height, :width])
     if not return_depth:
         return image
-    depth = compact_to_image(depth_c, pre.ids, n_tiles_x, n_tiles_y, tile_h,
+    depth = compact_to_image(depth_c, ids, n_tiles_x, n_tiles_y, tile_h,
                              tile_w, fill=torch.inf)
     return image, depth[:height, :width]
 
@@ -356,7 +424,6 @@ def render_frame_fused(passes, width: int, height: int, device,
     excluded run; ``events`` is one ``PassEvents`` per pass with faces
     when ``collect_stats``, else None.  Updates the frame's tiles in
     place, so the snapshot is a copy."""
-    n_tiles_x = cdiv(width, tile_w)
     ft = new_frame_tiles(width, height, device, tile_h, tile_w)
     events = [] if collect_stats else None
     snapshot = None
@@ -376,17 +443,12 @@ def render_frame_fused(passes, width: int, height: int, device,
         if attrs["position"].device != ft.depth.device:
             raise ValueError(f"pass inputs are on {attrs['position'].device}, "
                              f"the frame on {ft.depth.device}")
-        pre = pre_sparse(attrs, uniforms, shader, width, height, tile_h, tile_w)
-        init = ft.depth[pre.ids.long()]
-        out = coarse_raster(pre.tri_rec, pre.sorted_tri, pre.ids, pre.start,
-                            pre.counts, init, n_tiles_x, tile_h, tile_w,
-                            sum(shader.varying_spec.values()),
-                            collect_stats=collect_stats)
+        ids, setup, out = raster_pass(attrs, uniforms, shader, width, height, tile_h,
+                                      tile_w, lambda ids: ft.depth[ids.long()],
+                                      collect_stats)
         depth_c, winner_c, vary_c = out[:3]
-        post_sparse(ft, pre.ids, depth_c, winner_c, vary_c, uniforms, shader,
-                    winner_offset)
+        post_sparse(ft, ids, depth_c, winner_c, vary_c, uniforms, shader, winner_offset)
         if collect_stats:
-            events.append(PassEvents(pre.setup, *reduce_events(out[3], depth_c,
-                                                               winner_c)))
+            events.append(PassEvents(setup, *reduce_events(out[3], depth_c, winner_c)))
         winner_offset += f
     return ft, (snapshot if in_excluded else ft.depth), events

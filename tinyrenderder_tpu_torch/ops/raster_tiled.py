@@ -14,8 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from tinyrenderder_tpu import math3d
-from tinyrenderder_tpu_torch import shaders
+from tinyrenderder_tpu_torch import math3d, shaders
 from tinyrenderder_tpu_torch.ops import semantics
 
 __all__ = ["TILE_H", "TILE_W", "cdiv", "vertex_stage", "tile_spans",
@@ -107,3 +106,23 @@ def build_bins(tx0, ty0, span_x, spans, total: int, n_tiles_x: int, n_tiles_y: i
 def flatten_varyings(varyings: dict, spec) -> torch.Tensor:
     """{name: (F, 3, C)} -> (F, 3, V) in ``spec`` order."""
     return torch.cat([varyings[name] for name, _ in spec], dim=-1)
+
+
+def shader_varyings(varyings: dict, shader) -> torch.Tensor:
+    """The vertex stage's varyings as (F, 3, V) in the shader's
+    ``varying_spec`` order, checked against the spec."""
+    spec = tuple(shader.varying_spec.items())
+    if {name for name, _ in spec} != set(varyings):
+        raise ValueError(f"{shader.name}.varying_spec {sorted(dict(spec))} != "
+                         f"vertex output {sorted(varyings)}")
+    return flatten_varyings(varyings, spec)
+
+
+def active_ids(active, n_active: int):
+    """(n_active,) int32 ids of the True entries of ``active``, ascending;
+    ``n_active`` is their count, already on the host."""
+    slot = torch.where(active, torch.cumsum(active, 0) - 1, n_active)
+    ids = torch.empty(n_active + 1, dtype=torch.int32, device=active.device)
+    ids.scatter_(0, slot, torch.arange(active.shape[0], dtype=torch.int32,
+                                       device=active.device))
+    return ids[:n_active]     # the last slot is the trash of the inactive

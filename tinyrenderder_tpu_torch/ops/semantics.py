@@ -19,13 +19,16 @@ from __future__ import annotations
 
 import torch
 
-from tinyrenderder_tpu.ops.semantics import DEGEN_EPS, DENOM_EPS, W_EPS
-
 __all__ = [
     "apply_mat4", "barycentric", "coverage_mask", "interp3", "affine_z",
     "perspective_correct_bary", "triangle_setup_planes",
     "W_EPS", "DEGEN_EPS", "DENOM_EPS",
 ]
+
+# Thresholds exactly as in the reference (our_gl.cpp:94, :82, :177)
+W_EPS = 1e-12       # w <= W_EPS -> reject triangle
+DEGEN_EPS = 1e-12   # |cross.z| < DEGEN_EPS -> degenerate barycentric
+DENOM_EPS = 1e-15   # |persp denom| < DENOM_EPS -> fall back to affine bary
 
 
 def apply_mat4(m, v):

@@ -1,12 +1,13 @@
-"""Scene entry points: the tiled frame and the image route.
+"""Scenes and their entry points: the tiled frame and the image route.
 
-Counterpart of ``tinyrenderder_tpu.scene.render_scene`` (the tiled
-backend's device loop, ``_render_device_tiles`` and
-``_finish_device_tiles``) and ``render_scene_image``.  The scene
-description stays the JAX package's host-side ``Scene``: its frustum
-cull and per-pass inputs (``_cull_passes``, ``_pass_inputs(device=False)``)
-run in NumPy, ``convert`` carries them across, and ``ops.raster_sparse``
-renders.
+Counterpart of ``tinyrenderder_tpu/scene.py``: the scene description
+(``ScenePass``, ``Scene``, ``RenderResult``), the per-model frustum cull
+(main.cpp:623-736) and the per-pass inputs (``build_uniforms`` and the
+face attributes, in NumPy), then ``render_scene`` (the tiled backend's
+frame loop, ``_render_device_tiles`` + ``_finish_device_tiles``) and
+``render_scene_image``: ``convert`` carries each pass's inputs to the
+device and ``ops.raster_sparse`` renders.  ``oracle_render`` is the
+scene on the NumPy oracle (``_render_oracle``), the bitwise reference.
 
 A shader the port has no device half for raises ``NotImplementedError``
 naming the ROADMAP item that ports it; nothing falls back to another
@@ -15,24 +16,124 @@ route.
 
 from __future__ import annotations
 
+import logging
 import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from tinyrenderder_tpu import math3d
-from tinyrenderder_tpu.camera import Camera
-from tinyrenderder_tpu.models import procedural
-from tinyrenderder_tpu.scene import RenderResult, Scene, _cull_passes, _pass_inputs
-from tinyrenderder_tpu.shaders import (EyeShader, GouraudShader, PhongShader,
-                                       TexturedShader)
-from tinyrenderder_tpu.utils.stats import RenderStats
-from tinyrenderder_tpu_torch import convert, shaders
+from tinyrenderder_tpu_torch import convert, math3d, oracle, shaders
+from tinyrenderder_tpu_torch.camera import Camera
+from tinyrenderder_tpu_torch.math3d import Frustum
+from tinyrenderder_tpu_torch.models import procedural
+from tinyrenderder_tpu_torch.models.mesh import Mesh
 from tinyrenderder_tpu_torch.ops import raster, raster_sparse
+from tinyrenderder_tpu_torch.shaders import (EyeShader, GouraudShader, PhongShader,
+                                             Shader, TexturedShader)
+from tinyrenderder_tpu_torch.utils.stats import RenderStats
 
-__all__ = ["render_scene", "render_passes", "render_scene_image", "pass_tensors",
-           "oracle_render", "headline_scene", "multimesh_scene", "Scene",
-           "RenderResult"]
+log = logging.getLogger("tinyrenderder_tpu_torch.scene")
+
+__all__ = ["ScenePass", "Scene", "RenderResult", "render_scene", "render_passes",
+           "render_scene_image", "pass_tensors", "oracle_render", "headline_scene",
+           "multimesh_scene"]
+
+
+@dataclass
+class ScenePass:
+    """One model submission: mesh + model matrix + shader (a
+    main.cpp:647-668 render block)."""
+
+    mesh: Mesh
+    model_matrix: np.ndarray
+    shader: Shader
+    name: str = ""
+    material_index: int = 0
+    #: rendered into colour, but its depth writes leave the frame's OUTPUT
+    #: depth: the reference's eye pass (z-buffer snapshot before, restore
+    #: after, main.cpp:700,730), so SSAO sees the depth without the eyes
+    exclude_from_output_depth: bool = False
+
+
+@dataclass
+class RenderResult:
+    color: object                # (H, W, 3) uint8 RGB
+    depth: object                # (H, W) float, the output depth (after restore)
+    full_depth: object           # (H, W) float, excluded passes included
+    stats: RenderStats
+    pass_timings: dict = field(default_factory=dict)
+
+
+@dataclass
+class Scene:
+    """A renderable scene description (camera + passes)."""
+
+    camera: Camera
+    width: int
+    height: int
+    passes: list[ScenePass] = field(default_factory=list)
+
+    def add(self, mesh: Mesh, model_matrix, shader: Shader, **kw) -> ScenePass:
+        p = ScenePass(mesh=mesh, model_matrix=np.asarray(model_matrix, dtype=np.float64),
+                      shader=shader, **kw)
+        self.passes.append(p)
+        return p
+
+    def describe(self) -> str:
+        """Scene-analysis text in the spirit of main.cpp:545-579."""
+        lines = ["=== Scene Analysis ==="]
+        for p in self.passes:
+            c = p.mesh.get_center()
+            wc = p.mesh.get_world_aabb(p.model_matrix).center()
+            lines.append(f"  {p.name or p.mesh.name}: local center "
+                         f"({c[0]:.4f}, {c[1]:.4f}, {c[2]:.4f}) world center "
+                         f"({wc[0]:.4f}, {wc[1]:.4f}, {wc[2]:.4f}) "
+                         f"faces {p.mesh.nfaces}")
+        return "\n".join(lines)
+
+
+# one-entry frustum cache: a render loop keeps the camera fixed or moves
+# it every frame, and either way one entry suffices
+_FRUSTUM_CACHE: tuple | None = None
+
+
+def _frustum_cached(view_proj: np.ndarray) -> Frustum:
+    global _FRUSTUM_CACHE
+    key = view_proj.tobytes()
+    hit = _FRUSTUM_CACHE
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    f = Frustum.from_matrix(view_proj)
+    _FRUSTUM_CACHE = (key, f)
+    return f
+
+
+def _cull_passes(scene: Scene, frustum_cull: bool, stats: RenderStats) -> list:
+    """Per-model frustum culling (main.cpp:623-736): the visible passes,
+    with the model and triangle counts added to ``stats``."""
+    frustum = _frustum_cached(scene.camera.projection_matrix @ scene.camera.view_matrix)
+    visible = []
+    for p in scene.passes:
+        if frustum_cull and not frustum.intersects(p.mesh.get_world_aabb(p.model_matrix)):
+            stats.models_culled += 1
+            stats.culled_triangles += p.mesh.nfaces
+            log.info("%s CULLED by frustum", p.name or p.mesh.name)
+            continue
+        stats.models_rendered += 1
+        stats.total_triangles += p.mesh.nfaces
+        visible.append(p)
+    return visible
+
+
+def _pass_inputs(scene: Scene, p: ScenePass, dtype) -> tuple[dict, dict]:
+    """A pass's face attributes and uniforms as NumPy arrays of ``dtype``
+    (ModelView = view @ model, main.cpp:653)."""
+    modelview = scene.camera.view_matrix @ p.model_matrix
+    material = p.mesh.materials[p.material_index] if p.mesh.materials else None
+    uniforms = p.shader.build_uniforms(modelview, scene.camera.projection_matrix,
+                                       material, dtype)
+    return p.mesh.face_attributes(dtype), uniforms
 
 
 def _tensors(scene: Scene, p, device):
@@ -40,7 +141,7 @@ def _tensors(scene: Scene, p, device):
         raise NotImplementedError(
             f"{type(p.shader).__name__} is not ported yet: ROADMAP.md Queue 1 "
             "(depth-only and shadow-mapped passes: item 10)")
-    attrs, uniforms = _pass_inputs(scene, p, np.float32, device=False)
+    attrs, uniforms = _pass_inputs(scene, p, np.float32)
     attrs_t, uniforms_t = convert.pass_to_torch(attrs, uniforms, device)
     return attrs_t, p.shader, uniforms_t, p.exclude_from_output_depth
 
@@ -124,10 +225,36 @@ def render_scene_image(scene: Scene, device, frustum_cull: bool = True):
     return render_scene(scene, device, frustum_cull, collect_stats=False).color
 
 
-def oracle_render(scene: Scene, frustum_cull: bool = True) -> RenderResult:
-    """The JAX package's float32 NumPy oracle on the same scene: the
-    bitwise reference for ``render_scene`` and ``render_scene_image``."""
-    return scene.render(backend="oracle", dtype=np.float32, frustum_cull=frustum_cull)
+def oracle_render(scene: Scene, frustum_cull: bool = True,
+                  dtype=np.float32) -> RenderResult:
+    """The scene on the NumPy oracle (the JAX package's
+    ``render(backend="oracle")``), with the same snapshot/restore around
+    excluded passes: the bitwise reference for ``render_scene`` and
+    ``render_scene_image`` at float32.  NumPy arrays, exact stats."""
+    stats = RenderStats()
+    visible = _cull_passes(scene, frustum_cull, stats)
+    frame = oracle.OracleFrame(
+        color=np.zeros((scene.height, scene.width, 3), dtype=np.uint8),
+        zbuffer=np.full((scene.height, scene.width), np.inf, dtype=dtype), stats=stats)
+    snapshot = None
+    in_excluded = False
+    timings = {}
+    for p in visible:
+        attrs, uniforms = _pass_inputs(scene, p, dtype)
+        if p.exclude_from_output_depth:
+            if not in_excluded:
+                snapshot = frame.zbuffer.copy()     # main.cpp:700
+                in_excluded = True
+        elif in_excluded:
+            frame.zbuffer = snapshot.copy()         # main.cpp:730
+            in_excluded = False
+        t0 = time.perf_counter()
+        oracle.render_pass(frame, oracle.OraclePass(attrs, p.shader, uniforms),
+                           scene.width, scene.height, dtype=dtype)
+        timings[p.name or p.mesh.name] = time.perf_counter() - t0
+    return RenderResult(color=frame.color,
+                        depth=snapshot if in_excluded else frame.zbuffer,
+                        full_depth=frame.zbuffer, stats=stats, pass_timings=timings)
 
 
 def _lights():
