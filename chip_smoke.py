@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: the single-pass image route and
-the multi-pass tiled frame with exact stats, each on the coarse and on the
-strip raster, the post pass and the CLI.
+the multi-pass tiled frame with exact stats, each on the coarse raster, the
+strip raster and the grouped strip raster, the post pass, the CLI, and the
+bench's two 246k-triangle scenes.
 
     python3 chip_smoke.py
 
@@ -12,36 +13,50 @@ Phases, one line each (any failure exits non-zero before the last line):
   3. each kernel against its plain PyTorch version on the card, bitwise:
      the coarse and the strip raster and the single-plane untile at the
      headline shapes (2048², 32-row tiles, Phong with 8 varyings); the
-     three-plane untile on the tiled 3-pass frame at 2048² and at ragged
-     1200x800; the coarse raster's event planes on the room pass of the
-     3-pass scene at 2048², rendered after the head, and the strip
-     raster's on the head pass, rendered after the room (so each running
-     depth is not all +inf); each stats launch must also leave depth,
-     winner and varyings as the launch without stats does.  Each kernel's
+     grouped strip raster at the stress scene's (1280x800, 16-row tiles,
+     Phong with 8 varyings), pass-local and seeded with the depth of the
+     1200x800 3-pass scene's room at 1280x800; the three-plane untile on the
+     tiled 3-pass frame at 2048² and at ragged 1200x800; the coarse raster's
+     event planes on the room pass of the 3-pass scene at 2048², rendered
+     after the head, and the strip and grouped strip rasters' on the head
+     pass, rendered after the room (so each running depth is not all
+     +inf); each stats launch must also leave depth, winner and varyings
+     as the seeded launch without stats does.  Each kernel's
      time, its plain version's, the library call's where one PyTorch call
      computes the same function, and its bound (bytes over 3.35 TB/s or
      float operations over 67 TFLOP/s, from this run's data);
   4. the image route end to end through ``scene.render_scene_image`` on
      the headline scene (the 27,360-face bumpy head, normal-mapped Phong,
-     2048²) under ``FINE_MODE = "fine"`` and ``"coarse"``: every kernel of
-     each route must have launched, and both images must equal the
+     2048²) under ``FINE_MODE`` "coarse", "fine" and "fine2": every kernel
+     of each route must have launched, and every image must equal the
      float32 NumPy oracle bitwise;
   5. CUDA-event timing (3 warm-up frames, median of 20) on pre-uploaded
-     inputs, coarse against fine: the headline (kernel and plain routes,
-     per stage), the Gouraud head at 800², and the headline head at three
-     tessellations (its strip rows against its coarse pairs);
+     inputs, the three rasters in turns: the headline (kernel and plain
+     routes, per stage), the Gouraud head at 800², and the headline head
+     at three tessellations (its strip rows and grouped rows against its
+     coarse pairs);
   6. the tiled frame through ``scene.render_scene`` with exact stats, on
      the bench's 3-pass scene (eyes excluded in the middle) and the CLI's
-     default scene (eyes excluded last), both 1200x800, under "coarse"
-     and "fine": colour, output depth and full depth bitwise equal to the
-     float32 oracle, equal ``RenderStats``, the same frame without stats,
-     and every kernel of the route launched;
+     default scene (eyes excluded last), both 1200x800, on each raster:
+     colour, output depth and full depth bitwise equal to the float32
+     oracle, equal ``RenderStats``, the same frame without stats, and
+     every kernel of the route launched;
   7. the port's CLI at 1200x800 on the card: its four TGA files must
      equal, byte for byte, those written from the oracle's colour and the
      port's NumPy post on the oracle's depth;
-  8. CUDA-event timing, coarse against fine, of the reference pipeline
-     (the 3-pass scene at 1200x800 plus the post pass) and of the 3-pass
-     frame at 2048², kernel route and plain route, per stage.
+  8. CUDA-event timing, the three rasters in turns, of the reference
+     pipeline (the 3-pass scene at 1200x800 plus the post pass) and of the
+     3-pass frame at 2048², kernel route and plain route, per stage;
+  9. the bench's stress scene (``head_wall(3)``, 246,240 faces) and mixed
+     scene (``mixed_interior(3)``, 246,252) at 1280x800 through
+     ``scene.render_scene`` with exact stats and ``render_scene_image``
+     under "fine2": colour and depth bitwise equal to the float32 oracle,
+     equal ``RenderStats``, every kernel of the route launched, and the
+     same frames and images under "coarse" and "fine";
+ 10. CUDA-event timing, the three rasters in turns (coarse, fine, fine2,
+     fine2, fine, coarse), of both scenes' tiled frames as the bench runs
+     them (``render_frame_fused`` + ``tiles_to_buffers(...).color``), per
+     stage.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -62,7 +77,9 @@ WIDTH = HEIGHT = 2048                 # the headline and the large 3-pass frame
 REF_W, REF_H = 1200, 800              # the reference's default frame (main.cpp:26-27)
 FRAME_SIZES = ((WIDTH, HEIGHT), (REF_W, REF_H))   # the 3-pass frame's two sizes
 WARMUP, FRAMES = 3, 20
-MODES = ("coarse", "fine")
+MODES = ("coarse", "fine", "fine2")
+#: the bench's 246k-triangle scenes (bench.py::bench_stress, bench_mixed)
+WALL_W, WALL_H = 1280, 800
 #: the bound's peaks: NVIDIA's H100 SXM data sheet, float32 outside the
 #: tensor cores and HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -149,41 +166,56 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bbox_tests(tri_rec, tri, tile, x_off, span_w: int, n_tiles_x: int, tile_h: int) -> int:
-    """Pixels inside each (triangle, tile-or-strip) pair's integer bbox,
-    summed: the raster tests that reach the arithmetic."""
+def bbox_tests(tri_rec, tri, x0, y0, span_w: int, tile_h: int) -> int:
+    """Pixels inside each (triangle, block) pair's integer bbox, summed,
+    for blocks of ``span_w`` x ``tile_h`` pixels at (x0, y0): the raster
+    tests that reach the arithmetic."""
     import torch
     bb = tri_rec[tri.long(), 12:16]
-    x0 = ((tile % n_tiles_x) * 128 + x_off).to(torch.float32)
-    y0 = (torch.div(tile, n_tiles_x, rounding_mode="floor") * tile_h).to(torch.float32)
+    x0, y0 = x0.to(torch.float32), y0.to(torch.float32)
     nx = (torch.minimum(x0 + (span_w - 1), bb[:, 1]) - torch.maximum(x0, bb[:, 0]) + 1)
     ny = (torch.minimum(y0 + (tile_h - 1), bb[:, 3]) - torch.maximum(y0, bb[:, 2]) + 1)
     return int((nx.clamp(min=0).double() * ny.clamp(min=0).double()).sum())
 
 
 def raster_bound(kind: str, pre, out, tile_h: int, n_tiles_x: int, n_vary: int,
-                 stats: bool) -> tuple[float, str]:
-    """The raster's bound: bytes = its inputs (bins or slot table, the
-    per-triangle rows, the active tiles' ids/segments, the running depth)
-    read once and its (2 + V) output planes (+2 with stats) written once;
-    operations = OPS_TEST per pixel inside a visited bbox and the varyings
-    of every won pixel."""
+                 stats: bool, seeded: bool = True) -> tuple[float, str]:
+    """The raster's bound: bytes = its inputs (the live entries of the bins
+    or slot table, the 16 geometry floats of each triangle they name, the
+    3V varying corners of each triangle that wins a pixel, the blocks'
+    ids/segments or origins, the running depth where ``seeded``) read once
+    and its (2 + V) output planes (+2 with stats) written once; operations
+    = OPS_TEST per pixel inside the bbox of a visited (triangle, tile or
+    strip) pair and the varyings of every won pixel."""
     import torch
-    a, plane = pre.ids.shape[0], tile_h * 128 * 4
+    plane = tile_h * 128 * 4
     if kind == "coarse":
+        a = pre.ids.shape[0]
         tile = torch.repeat_interleave(pre.ids, pre.counts)
-        tests = bbox_tests(pre.tri_rec, pre.sorted_tri, tile, 0, 128, n_tiles_x, tile_h)
-        bins_bytes = pre.sorted_tri.numel() * 4
-    else:
-        slots = pre.tri8.reshape(-1)
+        tri, span_w, meta = pre.sorted_tri, 128, 3 * a * 4
+        x0, y0 = (tile % n_tiles_x) * 128, torch.div(tile, n_tiles_x, rounding_mode="floor") * tile_h
+    elif kind == "fine":
+        a = pre.ids.shape[0]
+        tri = pre.tri8.reshape(-1)
         tile = torch.repeat_interleave(pre.ids, pre.rows * 8)
-        strip = torch.arange(slots.numel(), device=slots.device) % 8
-        live = slots >= 0
-        tests = bbox_tests(pre.tri_rec, slots[live], tile[live], strip[live] * 16, 16,
-                           n_tiles_x, tile_h)
-        bins_bytes = slots.numel() * 4
-    won = int((out[1] >= 0).sum())
-    n_bytes = (bins_bytes + pre.tri_rec.numel() * 4 + 3 * a * 4 + a * plane
+        strip = torch.arange(tri.numel(), device=tri.device) % 8
+        x0 = (tile % n_tiles_x) * 128 + strip * 16
+        y0 = torch.div(tile, n_tiles_x, rounding_mode="floor") * tile_h
+        span_w, meta = 16, 3 * a * 4
+    else:
+        a = pre.n_groups
+        tri = pre.tri8.reshape(-1)
+        group = torch.repeat_interleave(torch.arange(a, device=tri.device), pre.group_rows * 8)
+        slot = torch.arange(tri.numel(), device=tri.device) % 8
+        x0, y0 = pre.x0y0[group, slot, 0], pre.x0y0[group, slot, 1]
+        span_w, meta = 16, a * 4 * (2 + 16)
+    live = tri >= 0
+    tests = bbox_tests(pre.tri_rec, tri[live], x0[live], y0[live], span_w, tile_h)
+    winner = out[1][out[1] >= 0]
+    won = winner.numel()
+    rec_floats = (torch.unique(tri[live]).numel() * 16
+                  + torch.unique(winner).numel() * 3 * n_vary)
+    n_bytes = (int(live.sum()) * 4 + rec_floats * 4 + meta + (a * plane if seeded else 0)
                + a * plane * (2 + n_vary + (2 if stats else 0)))
     ops = tests * OPS_TEST + won * (OPS_WIN + OPS_WIN_PER_VARY * n_vary)
     return bound(n_bytes, ops)
@@ -195,15 +227,22 @@ def raster_bound(kind: str, pre, out, tile_h: int, n_tiles_x: int, n_vary: int,
 
 def raster_stage(mode: str, plain: bool, attrs, shader, uniforms, w: int, h: int,
                  th: int, init_depth, mark):
-    """``raster_sparse.raster_pass`` on one route, marking the end of the
-    pre-stage and of the raster; -> (ids, (depth, winner, vary))."""
+    """``raster_sparse.raster_pass`` or ``grouped_pass`` (pass-local) on
+    one route, marking the end of the pre-stage and of the raster; ->
+    (pre, (depth, winner, vary)), in group space on the "fine2" route."""
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
+    from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
     from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_W, cdiv
 
     ntx, n_vary = cdiv(w, TILE_W), sum(shader.varying_spec.values())
-    if mode == "fine":
+    if mode == "fine2":
+        pre = rf2.pre_fine2(attrs, uniforms, shader, w, h, th, TILE_W)
+        mark("pre")
+        fn = rf2.fine2_raster_plain if plain else rf2.fine2_raster
+        out = fn(pre.tri_rec, pre.tri8, pre.group_start, pre.group_rows, pre.x0y0, th, n_vary)
+    elif mode == "fine":
         pre = rf.pre_fine(attrs, uniforms, shader, w, h, th, TILE_W)
         mark("pre")
         fn = rf.fine_raster_plain if plain else rf.fine_raster
@@ -216,7 +255,7 @@ def raster_stage(mode: str, plain: bool, attrs, shader, uniforms, w: int, h: int
         out = fn(pre.tri_rec, pre.sorted_tri, pre.ids, pre.start, pre.counts,
                  init_depth(pre.ids), ntx, th, TILE_W, n_vary)
     mark("raster")
-    return pre.ids, out
+    return pre, out
 
 
 def marker(marks):
@@ -236,19 +275,24 @@ def staged_frame(attrs, shader, uniforms, w, h, th, mode, plain, marks=None):
     ``raster_sparse.render_frame_fused_image``)."""
     import torch
 
+    from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
     from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_W, cdiv
 
     mark = marker(marks)
     ntx, nty = cdiv(w, TILE_W), cdiv(h, th)
     mark(None)
-    ids, (_, winner_c, vary_c) = raster_stage(
+    pre, out = raster_stage(
         mode, plain, attrs, shader, uniforms, w, h, th,
         lambda ids: torch.full((ids.shape[0], th, TILE_W), torch.inf, device=DEVICE), mark)
-    c_img = rs.shade_compact_fresh(winner_c, vary_c, uniforms, shader)
+    if mode == "fine2":
+        c_img, _ = rf2.post_fine2_image(pre, out,
+                                        lambda v: rs._shade_packed(v, uniforms, shader))
+    else:
+        c_img = rs.shade_compact_fresh(out[1], out[2], uniforms, shader)
     mark("shade")
     untile = (lambda *a: rs.untile_one_plain(*a).contiguous()) if plain else rs.untile_one
-    img = rs.compact_to_image(c_img, ids, ntx, nty, th, TILE_W, untile=untile)
+    img = rs.compact_to_image(c_img, pre.ids, ntx, nty, th, TILE_W, untile=untile)
     image = rs.unpack_rgb(img[:h, :w])
     mark("placement")
     return image
@@ -261,6 +305,7 @@ def staged_multipass(passes, width, height, mode, plain, with_post, marks=None):
     (stage, CUDA event) after each stage, the stage naming the interval
     that ends at the event."""
     from tinyrenderder_tpu_torch.ops import post
+    from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
     from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_W, cdiv
 
@@ -276,9 +321,13 @@ def staged_multipass(passes, width, height, mode, plain, with_post, marks=None):
                 snapshot, in_excluded = ft.depth.clone(), True
         elif in_excluded:
             ft, in_excluded = ft._replace(depth=snapshot), False
-        ids, (d_c, w_c, v_c) = raster_stage(mode, plain, attrs, shader, uniforms, width,
-                                            height, th, lambda i: ft.depth[i.long()], mark)
-        rs.post_sparse(ft, ids, d_c, w_c, v_c, uniforms, shader, offset)
+        pre, out = raster_stage(mode, plain, attrs, shader, uniforms, width, height, th,
+                                lambda i: ft.depth[i.long()], mark)
+        if mode == "fine2":
+            rf2.post_fine2(ft, pre, out, offset,
+                           lambda v, u=uniforms, sh=shader: rs._shade_packed(v, u, sh))
+        else:
+            rs.post_sparse(ft, pre.ids, *out, uniforms, shader, offset)
         mark("merge+shade")
         offset += attrs["position"].shape[0]
     if plain:
@@ -299,13 +348,19 @@ def staged_multipass(passes, width, height, mode, plain, with_post, marks=None):
 
 def ab_ms(run) -> dict:
     """ms/frame of ``run(mode)`` per mode, measured in turns (coarse, fine,
-    fine, coarse), each turn a median of FRAMES: the mean of a mode's two
-    turns."""
+    fine2, fine2, fine, coarse), each turn a median of FRAMES: the mean of a
+    mode's two turns."""
     turns = {m: [] for m in MODES}
     for mode in MODES + MODES[::-1]:
         with fine_mode(mode):
             turns[mode].append(event_ms(lambda: run(mode)))
     return {m: statistics.fmean(v) for m, v in turns.items()}
+
+
+def ab_text(ms: dict) -> str:
+    """'coarse a fine b fine2 c (fine/coarse x, fine2/coarse y)' from ms per mode."""
+    ratios = ", ".join(f"{m}/coarse {ms[m] / ms['coarse']:.3f}" for m in MODES[1:])
+    return " ".join(f"{m} {ms[m]:.3f}" for m in MODES) + f" ({ratios})"
 
 
 def stage_medians(run, stage_names):
@@ -343,17 +398,21 @@ class fine_mode:
 def launch_counts():
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
+    from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
     return {"coarse_raster": rc.LAUNCHES, "coarse_raster_stats": rc.STATS_LAUNCHES,
             "fine_raster": rf.LAUNCHES, "fine_raster_stats": rf.STATS_LAUNCHES,
+            "fine2_raster": rf2.LAUNCHES, "fine2_raster_stats": rf2.STATS_LAUNCHES,
             "untile_one": rs.LAUNCHES, "untile3": rs.UNTILE3_LAUNCHES}
 
 
 def reset_counts():
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
+    from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
     rc.LAUNCHES = rc.STATS_LAUNCHES = rf.LAUNCHES = rf.STATS_LAUNCHES = 0
+    rf2.LAUNCHES = rf2.STATS_LAUNCHES = 0
     rs.LAUNCHES = rs.UNTILE3_LAUNCHES = 0
 
 
@@ -379,6 +438,7 @@ def main() -> int:
     from tinyrenderder_tpu_torch.ops import post
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
+    from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
     from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_W, cdiv
 
@@ -455,6 +515,80 @@ def main() -> int:
         "replaces": "tinyrenderder_tpu/ops/raster_fine.py:231",
         "max_abs_err": fine_err, "ms": fine_ms, "plain_ms": fine_plain_ms,
         "bound_ms": fine_bound[0], "bound_by": fine_bound[1], "library_ms": None}
+
+    # the grouped strip raster at the stress scene's shapes, pass-local and
+    # seeded with the depth of the 3-pass scene's room at the same size;
+    # the coarse and strip kernels on the same pass beside it
+    t0 = time.perf_counter()
+    walls = {"stress": tscene.stress_scene(WALL_W, WALL_H),
+             "mixed": tscene.mixed_scene(WALL_W, WALL_H)}
+    wall_passes = {name: tscene.pass_tensors(sc, DEVICE) for name, sc in walls.items()}
+    wall_host_s = time.perf_counter() - t0
+    s_attrs, s_shader, s_uniforms, _ = wall_passes["stress"][0]
+    th_w = rs.pick_tile_h(WALL_W, WALL_H)
+    ntx_w = cdiv(WALL_W, TILE_W)
+    nv_w = sum(s_shader.varying_spec.values())
+    pre_2 = rf2.pre_fine2(s_attrs, s_uniforms, s_shader, WALL_W, WALL_H, th_w, TILE_W)
+    args_2 = (pre_2.tri_rec, pre_2.tri8, pre_2.group_start, pre_2.group_rows, pre_2.x0y0,
+              th_w, nv_w)
+    k2 = rf2.fine2_raster(*args_2)
+    fine2_err = check_outputs("grouped strip raster vs plain", k2,
+                              rf2.fine2_raster_plain(*args_2))
+    room_w = tscene.pass_tensors(tscene.multimesh_scene(WALL_W, WALL_H), DEVICE)[2]
+    with fine_mode("coarse"):
+        after_room_w, _, _ = rs.render_frame_fused([room_w], WALL_W, WALL_H, DEVICE,
+                                                   tile_h=th_w)
+    init_2 = rf2.init_strips(after_room_w.depth, pre_2)
+    k2s = rf2.fine2_raster(*args_2, init_2, collect_stats=True)
+    fine2s_err = check_outputs("grouped strip stats raster vs plain", k2s,
+                               rf2.fine2_raster_plain(*args_2, init_2, collect_stats=True))
+    check_outputs("grouped strip stats raster vs the seeded launch without stats",
+                  k2s[:3], rf2.fine2_raster(*args_2, init_2))
+    finite_2, events_2 = int(torch.isfinite(init_2).sum()), int(k2s[3][0].sum())
+    if not finite_2 or not events_2:
+        fail(f"fine2_raster_stats: {finite_2} finite init depths, {events_2} events")
+    f2_ms, f2_plain_ms = (event_ms(lambda: rf2.fine2_raster(*args_2)),
+                          event_ms(lambda: rf2.fine2_raster_plain(*args_2)))
+    f2s_ms = event_ms(lambda: rf2.fine2_raster(*args_2, init_2, collect_stats=True))
+    f2s_plain_ms = event_ms(lambda: rf2.fine2_raster_plain(*args_2, init_2,
+                                                          collect_stats=True))
+    f2_seeded_ms = event_ms(lambda: rf2.fine2_raster(*args_2, init_2))
+    f2_bound = raster_bound("fine2", pre_2, k2, th_w, ntx_w, nv_w, False, seeded=False)
+    f2s_bound = raster_bound("fine2", pre_2, k2s, th_w, ntx_w, nv_w, True)
+    pre_wc = rs.pre_sparse(s_attrs, s_uniforms, s_shader, WALL_W, WALL_H, th_w, TILE_W)
+    pre_wf = rf.pre_fine(s_attrs, s_uniforms, s_shader, WALL_W, WALL_H, th_w, TILE_W)
+    wc_ms = event_ms(lambda: rc.coarse_raster(
+        pre_wc.tri_rec, pre_wc.sorted_tri, pre_wc.ids, pre_wc.start, pre_wc.counts,
+        torch.full((pre_wc.n_active, th_w, TILE_W), torch.inf, device=DEVICE), ntx_w, th_w,
+        TILE_W, nv_w))
+    wf_ms = event_ms(lambda: rf.fine_raster(
+        pre_wf.tri_rec, pre_wf.tri8, pre_wf.ids, pre_wf.row_start, pre_wf.rows,
+        torch.full((pre_wf.n_active, th_w, TILE_W), torch.inf, device=DEVICE), ntx_w, th_w,
+        TILE_W, nv_w))
+    say(f"[3 shapes] stress pass {WALL_W}x{WALL_H} (host build of both 246k scenes "
+        f"{wall_host_s:.1f} s): faces {s_attrs['position'].shape[0]}, th {th_w}, V {nv_w}; "
+        f"coarse pairs {pre_wc.total}, active {pre_wc.n_active}; strips: pairs {pre_2.pairs}, "
+        f"per-tile rows {pre_wf.row_total}, grouped rows {pre_2.row_total} "
+        f"({pre_2.row_total / pre_wf.row_total:.3f}), groups {pre_2.n_groups}, active "
+        f"{pre_2.n_active}, largest group {int(pre_2.group_rows[0])} rows")
+    say(f"[3 raster] stress pass: grouped strip kernel == plain bitwise, pass-local "
+        f"(depth, winner, {nv_w} varyings) and seeded by the room's depth with stats "
+        f"({finite_2} finite init depths, {events_2} events; == the seeded launch without "
+        f"stats); kernel {f2_ms:.4f} ms, plain {f2_plain_ms:.4f} ms, bound "
+        f"{f2_bound[0]:.4f} ms ({f2_bound[1]}); stats kernel {f2s_ms:.4f} ms, plain "
+        f"{f2s_plain_ms:.4f} ms, bound {f2s_bound[0]:.4f} ms ({f2s_bound[1]}), seeded "
+        f"without stats {f2_seeded_ms:.4f} ms; on the same pass coarse kernel {wc_ms:.4f} ms, "
+        f"strip kernel {wf_ms:.4f} ms (grouped/strip {f2_ms / wf_ms:.3f}, grouped/coarse "
+        f"{f2_ms / wc_ms:.3f}) | {smi}")
+    for name, err, ms, plain_ms, b in (
+            ("fine2_raster", fine2_err, f2_ms, f2_plain_ms, f2_bound),
+            ("fine2_raster_stats", fine2s_err, f2s_ms, f2s_plain_ms, f2s_bound)):
+        record[name] = {
+            "name": name, "route": "cuda",
+            "source": "tinyrenderder_tpu_torch/csrc/raster_fine2.cu",
+            "replaces": "tinyrenderder_tpu/ops/raster_fine2.py:236",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None}
 
     c_img = rs.shade_compact_fresh(kc[1], kc[2], uniforms, shader)
     tiles = torch.zeros((ntx * nty, th, TILE_W), dtype=torch.int32, device=DEVICE)
@@ -561,8 +695,26 @@ def main() -> int:
         record[name] = {"name": name, "route": "cuda", "source": src, "replaces": repl,
                         "max_abs_err": err, "ms": s_ms, "plain_ms": sp_ms,
                         "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None}
+    # the grouped strip raster's 32-row instantiations: the head pass after
+    # the room, seeded, with and without stats
+    h_attrs, h_shader, h_uniforms, _ = head_pass
+    pp = rf2.pre_fine2(h_attrs, h_uniforms, h_shader, w, h, th3, TILE_W)
+    hargs = (pp.tri_rec, pp.tri8, pp.group_start, pp.group_rows, pp.x0y0, th3,
+             sum(h_shader.varying_spec.values()))
+    h_init = rf2.init_strips(after_room.depth, pp)
+    ks = rf2.fine2_raster(*hargs, h_init, collect_stats=True)
+    check_outputs("fine2_raster_stats at 32 rows vs plain", ks,
+                  rf2.fine2_raster_plain(*hargs, h_init, collect_stats=True))
+    check_outputs("fine2_raster_stats at 32 rows vs the seeded launch without stats", ks[:3],
+                  rf2.fine2_raster(*hargs, h_init))
+    check_outputs("fine2_raster at 32 rows vs plain", rf2.fine2_raster(*hargs),
+                  rf2.fine2_raster_plain(*hargs))
+    say(f"[3 raster stats] fine2_raster_stats, head pass after the room at {w}x{h} "
+        f"({pp.n_groups} groups, {pp.row_total} rows, {int(ks[3][0].sum())} events): kernel "
+        f"== plain bitwise with and without stats, seeded and pass-local; kernel "
+        f"{event_ms(lambda: rf2.fine2_raster(*hargs, h_init, collect_stats=True)):.4f} ms")
 
-    # ---- 4. the image route end to end, counted, on both rasters ----
+    # ---- 4. the image route end to end, counted, on each raster ----
     images = {}
     for mode in MODES:
         with fine_mode(mode):
@@ -587,10 +739,10 @@ def main() -> int:
             first = [tuple(int(v) for v in c) for c in np.argwhere(bad)[:5]]
             fail(f"{mode}: {int(bad.sum())} pixels differ from the f32 oracle (max {lsb} "
                  f"LSB; first (y, x): {first})")
-    say(f"[4 oracle] both images == float32 oracle bitwise: 0 of {WIDTH * HEIGHT} pixels "
+    say(f"[4 oracle] all {len(images)} images == float32 oracle bitwise: 0 of {WIDTH * HEIGHT} pixels "
         f"differ, {covered} covered (oracle {oracle_s:.1f} s on the host)")
 
-    # ---- 5. timing on pre-uploaded inputs, coarse against fine ----
+    # ---- 5. timing on pre-uploaded inputs, the three rasters in turns ----
     stage_names = ("pre", "raster", "shade", "placement")
     for mode in MODES:
         for plain in (False, True):      # the staged copy has not drifted
@@ -610,12 +762,11 @@ def main() -> int:
             say(f"[5 timing] head_phong_{WIDTH} {mode} {route} route: {ms:.3f} ms/frame, "
                 f"{WIDTH * HEIGHT / ms / 1e3:.1f} Mpix/s (screen pixels); stages ms: "
                 + " ".join(f"{s} {v:.3f}" for s, v in st.items()) + f" | {smi}")
-    say(f"[5 a/b] head_phong_{WIDTH}: kernel route ms/frame in turns, coarse "
-        f"{frame_ms['coarse']:.3f} fine {frame_ms['fine']:.3f} (fine/coarse "
-        f"{frame_ms['fine'] / frame_ms['coarse']:.3f}) | {smi}")
+    say(f"[5 a/b] head_phong_{WIDTH}: kernel route ms/frame in turns, {ab_text(frame_ms)} "
+        f"| {smi}")
 
-    # the coarse/fine A/B on more single-pass frames: the Gouraud head at
-    # 800², and the headline head at three tessellations
+    # the A/B on more single-pass frames: the Gouraud head at 800², and the
+    # headline head at three tessellations
     ab_scenes = {"head_gouraud_800": (tscene.headline_scene(800, 800, "gouraud"), 800, 800)}
     for lat, lon in ((24, 36), (48, 72), (96, 144)):
         ab_scenes[f"head_phong_{WIDTH}_{lat}x{lon}"] = (
@@ -623,7 +774,8 @@ def main() -> int:
     for name, (sc, w, h) in ab_scenes.items():
         a_attrs, a_shader, a_uniforms, _ = tscene.pass_tensors(sc, DEVICE)[0]
         th_a = rs.pick_tile_h(w, h)
-        rows, pairs = rf.probe_rows_pairs(a_attrs, a_uniforms, a_shader, w, h, th_a, TILE_W)
+        probe = rf2.probe_rows(a_attrs, a_uniforms, a_shader, w, h, th_a, TILE_W)
+        rows, pairs = probe.rows, probe.pairs
         outs, st = {}, {}
         for mode in MODES:
             with fine_mode(mode):
@@ -633,16 +785,18 @@ def main() -> int:
                 a_attrs, a_shader, a_uniforms, w, h, th_a, mode, False, m), stage_names)
         ms = ab_ms(lambda mode: rs.render_frame_fused_image(
             [(a_attrs, a_shader, a_uniforms, False)], w, h, tile_h=th_a))
-        if not torch.equal(outs["coarse"], outs["fine"]):
-            fail(f"{name}: the fine image differs from the coarse image")
+        for mode in MODES[1:]:
+            if not torch.equal(outs["coarse"], outs[mode]):
+                fail(f"{name}: the {mode} image differs from the coarse image")
         rs._FINE_DECISION.clear()
         auto = rs.decide_mode(a_attrs, a_uniforms, a_shader, w, h, th_a, TILE_W)
         say(f"[5 a/b] {name}: faces {a_attrs['position'].shape[0]}, th {th_a}, strip rows "
-            f"{rows}, coarse pairs {pairs}, rows/pairs {rows / max(pairs, 1):.3f}; "
-            f"ms/frame coarse {ms['coarse']:.3f} fine {ms['fine']:.3f} (fine/coarse "
-            f"{ms['fine'] / ms['coarse']:.3f}, in turns); raster ms coarse {st['coarse']['raster']:.3f} "
-            f"fine {st['fine']['raster']:.3f}, pre ms coarse {st['coarse']['pre']:.3f} fine "
-            f"{st['fine']['pre']:.3f}; images equal; auto picks {auto} | {smi}")
+            f"{rows}, grouped rows {probe.grouped_rows}, coarse pairs {pairs}, rows/pairs "
+            f"{rows / max(pairs, 1):.3f}, grouped/rows {probe.grouped_rows / max(rows, 1):.3f}; "
+            f"ms/frame in turns {ab_text(ms)}; raster ms "
+            + " ".join(f"{m} {st[m]['raster']:.3f}" for m in MODES) + "; pre ms "
+            + " ".join(f"{m} {st[m]['pre']:.3f}" for m in MODES)
+            + f"; images equal; auto picks {auto} | {smi}")
 
     # ---- 6. the tiled frame with exact stats, against the oracle ----
     frames = {"multimesh": tscene.multimesh_scene(REF_W, REF_H),
@@ -709,7 +863,7 @@ def main() -> int:
                 fail(f"CLI {f} differs from the oracle + NumPy post file")
             sizes[f] = len(got_b)
     if not (cli_launches["untile3"] and cli_launches["untile_one"]
-            and cli_launches["coarse_raster_stats"] + cli_launches["fine_raster_stats"]):
+            and sum(cli_launches[f"{m}_raster_stats"] for m in MODES)):
         fail(f"a kernel of the CLI's frame never launched: {cli_launches}")
     say(f"[7 cli] tinyrenderder_tpu_torch.cli {REF_W}x{REF_H} on {DEVICE} "
         f"(FINE_MODE={rs.FINE_MODE!r}): 4 TGAs byte-identical to the f32 oracle + NumPy "
@@ -747,14 +901,86 @@ def main() -> int:
                     f"{ms:.3f} ms/frame, {w * h / ms / 1e3:.1f} Mpix/s; stages ms: "
                     + " ".join(f"{k} {v:.3f}" for k, v in st.items())
                     + f" | {len(passes)} passes, one readback each | {smi}")
-        say(f"[8 a/b] {cell}: kernel route ms/frame in turns, coarse {frame_ms['coarse']:.3f} "
-            f"fine {frame_ms['fine']:.3f} (fine/coarse "
-            f"{frame_ms['fine'] / frame_ms['coarse']:.3f}) | {smi}")
+        say(f"[8 a/b] {cell}: kernel route ms/frame in turns, {ab_text(frame_ms)} | {smi}")
+
+    # ---- 9. the bench's 246k-triangle scenes, against the oracle ----
+    for name, sc in walls.items():
+        t0 = time.perf_counter()
+        ref = oracles[name] = tscene.oracle_render(sc)
+        say(f"[9 oracle] {name} {WALL_W}x{WALL_H}, {sc.passes[0].mesh.nfaces} faces, on the "
+            f"host: {time.perf_counter() - t0:.1f} s")
+        frames_w = {}
+        for mode in MODES[::-1]:
+            with fine_mode(mode):
+                frames_w[mode], wl = counted(lambda: (
+                    tscene.render_scene(sc, DEVICE, collect_stats=True),
+                    tscene.render_scene_image(sc, DEVICE)))
+            add_launches(wl)
+            for k in (f"{mode}_raster", f"{mode}_raster_stats", "untile3", "untile_one"):
+                if not wl[k]:
+                    fail(f"{k} never launched on the {name} scene under {mode}: {wl}")
+            r, image = frames_w[mode]
+            if mode == "fine2":
+                for plane in ("color", "depth", "full_depth"):
+                    diff, err = bits_equal(getattr(r, plane).cpu(), torch.from_numpy(
+                        np.ascontiguousarray(getattr(ref, plane))))
+                    if diff:
+                        fail(f"fine2 {name} {plane}: {diff} elements differ from the f32 "
+                             f"oracle (max abs err {err})")
+                if r.stats != ref.stats:
+                    fail(f"fine2 {name} stats differ from the oracle's:\n  port   {r.stats}\n"
+                         f"  oracle {ref.stats}")
+                if not np.array_equal(image.cpu().numpy(), ref.color):
+                    fail(f"fine2 {name}: render_scene_image differs from the f32 oracle")
+            else:
+                want, want_image = frames_w["fine2"]
+                for plane in ("color", "depth", "full_depth"):
+                    if not torch.equal(getattr(r, plane), getattr(want, plane)):
+                        fail(f"{name}: the {mode} {plane} differs from the fine2 frame's")
+                if r.stats != want.stats or not torch.equal(image, want_image):
+                    fail(f"{name}: the {mode} stats or image differ from the fine2 route's")
+            say(f"[9 route] {name} FINE_MODE={mode!r}: render_scene (stats) and "
+                f"render_scene_image; launches {wl}")
+        say(f"[9 oracle] {name}: under fine2 colour, depth and full depth == float32 oracle "
+            f"bitwise ({int(torch.isfinite(r.full_depth).sum())} covered), stats equal "
+            f"({ref.stats.describe()}), render_scene_image == oracle; the coarse and fine "
+            f"frames, stats and images equal the fine2 ones")
+
+    # ---- 10. timing of the 246k-triangle frames, the three rasters in turns ----
+    for name, passes in wall_passes.items():
+        def bench_frame():
+            ft, _, _ = rs.render_frame_fused(passes, WALL_W, WALL_H, DEVICE)
+            return rs.tiles_to_buffers(ft, WALL_W, WALL_H).color
+
+        for mode in MODES:
+            with fine_mode(mode):
+                want_img = bench_frame()
+            if not torch.equal(staged_multipass(passes, WALL_W, WALL_H, mode, False,
+                                                False)[0], want_img):
+                fail(f"{name} {mode}: the staged frame differs from render_frame_fused")
+        frame_ms = ab_ms(lambda mode: bench_frame())
+        st = {mode: stage_medians(lambda m: staged_multipass(passes, WALL_W, WALL_H, mode,
+                                                             False, False, m), frame_stages)
+              for mode in MODES}
+        p_attrs, p_shader, p_uniforms, _ = passes[0]
+        probe = rf2.probe_rows(p_attrs, p_uniforms, p_shader, WALL_W, WALL_H, th_w, TILE_W)
+        rs._FINE_DECISION.clear()
+        auto = rs.decide_mode(p_attrs, p_uniforms, p_shader, WALL_W, WALL_H, th_w, TILE_W)
+        for mode in MODES:
+            say(f"[10 timing] {name}_{WALL_W}x{WALL_H} {mode} kernel route: "
+                f"{frame_ms[mode]:.3f} ms/frame, {WALL_W * WALL_H / frame_ms[mode] / 1e3:.1f} "
+                f"Mpix/s, {p_attrs['position'].shape[0] / frame_ms[mode] / 1e3:.2f} Mtri/s; "
+                f"stages ms: " + " ".join(f"{k} {v:.3f}" for k, v in st[mode].items())
+                + f" | {smi}")
+        say(f"[10 a/b] {name}_{WALL_W}x{WALL_H}: per-tile rows {probe.rows}, grouped rows "
+            f"{probe.grouped_rows} ({probe.grouped_rows / probe.rows:.3f}), groups "
+            f"{probe.groups}, active {probe.active}, coarse pairs {probe.pairs}; kernel route "
+            f"ms/frame in turns, {ab_text(frame_ms)}; auto picks {auto} | {smi}")
 
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
     order = ("coarse_raster", "coarse_raster_stats", "fine_raster", "fine_raster_stats",
-             "untile_one", "untile3")
+             "fine2_raster", "fine2_raster_stats", "untile_one", "untile3")
     kernels = []
     for name in order:
         entry = dict(record[name])
@@ -762,7 +988,7 @@ def main() -> int:
         kernels.append({k: entry[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    say(f"[9 done] {time.perf_counter() - t_start:.1f} s; main-path launches {totals}")
+    say(f"[11 done] {time.perf_counter() - t_start:.1f} s; main-path launches {totals}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

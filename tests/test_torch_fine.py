@@ -21,7 +21,7 @@ from torch_parity import (FRAMES, assert_bits, frame_scene, run_jax, scene_pass,
                           stats_vector)
 from tinyrenderder_tpu_torch import convert
 from tinyrenderder_tpu_torch import scene as tscene
-from tinyrenderder_tpu_torch.ops import raster_coarse, raster_fine, raster_sparse
+from tinyrenderder_tpu_torch.ops import raster_coarse, raster_fine, raster_fine2, raster_sparse
 
 #: pre-stage and raster cases: (scene of torch_parity.SCENES, tile_h)
 CASES = {f"{scene}_{th}": (scene, th)
@@ -226,24 +226,22 @@ def test_z_ties_go_to_the_first_drawn():
 
 
 def test_mode_dispatch(monkeypatch):
-    """Forced modes apply to every pass; "fine2" is not ported; "auto"
-    probes rows against pairs once per key when a ratio is set, and
-    routes coarse otherwise."""
+    """Forced modes apply to every pass ("fine2" included); "auto" probes
+    rows against pairs once per key when a ratio is set, and routes
+    coarse otherwise."""
     attrs, shader, uniforms, w, h = _pass("head_phong")
     decide = lambda: raster_sparse.decide_mode(attrs, uniforms, shader, w, h, 16, 128)  # noqa: E731
-    for mode in ("coarse", "fine"):
+    for mode in ("coarse", "fine", "fine2"):
         monkeypatch.setattr(raster_sparse, "FINE_MODE", mode)
         assert decide() == mode
-    monkeypatch.setattr(raster_sparse, "FINE_MODE", "fine2")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        decide()
     monkeypatch.setattr(raster_sparse, "FINE_MODE", "strips")
     with pytest.raises(ValueError):
         decide()
     monkeypatch.setattr(raster_sparse, "FINE_MODE", "auto")
     monkeypatch.setattr(raster_sparse, "_FINE_DECISION", {})
     assert raster_sparse.FINE_RATIO is None and decide() == "coarse"
-    rows, pairs = raster_fine.probe_rows_pairs(attrs, uniforms, shader, w, h, 16, 128)
+    probe = raster_fine2.probe_rows(attrs, uniforms, shader, w, h, 16, 128)
+    rows, pairs = probe.rows, probe.pairs
     pre = raster_fine.pre_fine(attrs, uniforms, shader, w, h, 16)
     assert (rows, pairs) == (pre.row_total, raster_sparse.pre_sparse(
         attrs, uniforms, shader, w, h, 16).total)

@@ -118,6 +118,38 @@ def test_camera_matches_jax(setup):
     assert cams[0].describe() == cams[1].describe()
 
 
+@pytest.mark.parametrize("name", ["stress", "mixed"])
+def test_wall_scenes_match_the_bench(name):
+    """``scene.stress_scene`` / ``mixed_scene`` against the pass
+    ``bench.py::bench_stress`` / ``bench_mixed`` build from the JAX
+    package: the bench's view and projection, bitwise, and the same face
+    attributes and uniforms (a small grid here; the bench's is 3).  The
+    bench passes the view as the modelview, a scene ``view @ model``
+    (main.cpp:653), which turns its -0.0 translation into +0.0: equal as
+    numbers, and bitwise equal to the JAX scene's own inputs."""
+    w, h = 1280, 800
+    grid, n_lat, n_lon = 2, 6, 8
+    sc = {"stress": tscene.stress_scene, "mixed": tscene.mixed_scene}[name](
+        w, h, grid, n_lat, n_lon)
+    mesh = {"stress": j_procedural.head_wall, "mixed": j_procedural.mixed_interior}[name](
+        grid=grid, n_lat=n_lat, n_lon=n_lon)
+    view = j_math3d.lookat((0, 0.3, 6.5), (0, 0, 0), (0, 1, 0))
+    proj = j_math3d.perspective(60.0, w / h, 0.1, 50.0)
+    _same(sc.camera.view_matrix, view, "view")
+    _same(sc.camera.projection_matrix, proj, "projection")
+    key, fill, rim = (j_math3d.normalized(j_math3d.vec3(*v)) for v in
+                      ((1.0, 1.4, 1.0), (-0.3, 0.5, 0.2), (-1.0, 0.8, -1.5)))
+    shader = j_shaders.PhongShader(key, fill, rim, normal_map_strength=0.5)
+    (p,) = sc.passes
+    attrs, uniforms = tscene._pass_inputs(sc, p, np.float32)
+    want = shader.build_uniforms(view @ np.eye(4), proj, mesh.materials[0], np.float32)
+    _same(attrs, mesh.face_attributes(np.float32), "attrs")
+    _same(uniforms, {k: want[k] for k in uniforms}, "uniforms")
+    assert set(uniforms) == set(want)
+    bench = shader.build_uniforms(view, proj, mesh.materials[0], np.float32)
+    assert all(np.array_equal(uniforms[k], bench[k]) for k in bench)
+
+
 # ---------------------------------------------------------------------------
 # meshes, materials, model files, TGA
 # ---------------------------------------------------------------------------
@@ -127,6 +159,8 @@ MESHES = {
     "uv_sphere": lambda p: p.uv_sphere(10, 14, radius=0.12, name="eyes"),
     "cube": lambda p: p.cube(size=12.0, name="room"),
     "triangle_soup": lambda p: p.triangle_soup(40),
+    "head_wall": lambda p: p.head_wall(2, 6, 8),
+    "mixed_interior": lambda p: p.mixed_interior(3, 4, 6, room=10.0),
 }
 MESH_FIELDS = ("positions", "faces", "normals", "uvs", "tangents", "bitangents")
 
@@ -143,6 +177,9 @@ def test_procedural_meshes_match_jax(name):
     assert (mesh.name, mesh.nfaces) == (jmesh.name, jmesh.nfaces)
     _same(_mesh_arrays(mesh), _mesh_arrays(jmesh), name)
     _same(mesh.get_center(), jmesh.get_center(), "center")
+    for m, jm in zip(mesh.materials, jmesh.materials, strict=True):
+        for k in ("diffuse", "normal", "specular", "emission"):
+            _same(getattr(m, k), getattr(jm, k), k)
 
 
 @pytest.mark.parametrize("size", [32, 256])

@@ -10,6 +10,11 @@ even with ``--xla_allow_excess_precision=false``; under
 product and sum like NumPy and the port.  ``tests/conftest.py`` adds its
 AVX2 cap only when no cap is set, so the subprocess sets its own.
 
+Threads: the suite runs its files in several worker processes on one
+machine, so each test process caps torch at one intra-op thread when it
+imports this module, and the JAX subprocess runs XLA:CPU single-threaded;
+both keep every comparison bitwise (one thread changes no op order here).
+
 Requests and results are flat ``.npz`` files with keys ``case/name``;
 ``case/op`` names the JAX function to run.
 """
@@ -24,7 +29,12 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-JAX_XLA_FLAGS = "--xla_cpu_max_isa=SSE4_2 --xla_allow_excess_precision=false"
+JAX_XLA_FLAGS = ("--xla_cpu_max_isa=SSE4_2 --xla_allow_excess_precision=false "
+                 "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
+
+if __name__ != "__main__":      # a test process; the JAX subprocess needs no torch
+    import torch
+    torch.set_num_threads(1)
 
 
 # ---------------------------------------------------------------------------
@@ -259,10 +269,10 @@ def _clear_capacities():
 
 
 class _tiles_loop:
-    """The JAX package's tiled route off the TPU, as tests/test_scene.py
-    and tests/test_fine.py run it: ``FINE_MODE`` forced to ``mode``
-    ("coarse" or "fine"), ``FORCE_TILES_LOOP = True``, Pallas in
-    interpret mode; set and restored."""
+    """The JAX package's tiled route off the TPU, as tests/test_scene.py,
+    tests/test_fine.py and tests/test_fine2.py run it: ``FINE_MODE``
+    forced to ``mode`` ("coarse", "fine" or "fine2"), ``FORCE_TILES_LOOP =
+    True``, Pallas in interpret mode; set and restored."""
 
     def __init__(self, mode: str):
         self.mode = mode
@@ -330,6 +340,43 @@ def _jax_pre_fine(r):
     return res
 
 
+def _jax_pre_fine2(r):
+    """``raster_fine2._pre_fine2_jit`` at exact capacities (the port's
+    totals): the groups, their slot origins and strips, the active-tile
+    map and every slot's triangle id (record column 16); with ``n_vary``
+    also ``_init_strips_jit`` on ``depth_tiles`` and ``_fine2_call_jit``
+    on this pre-stage, pass-local with the varyings and init-seeded with
+    stats (n_vary 0), as ``render_pass_fine2`` launches them."""
+    import jax.numpy as jnp
+
+    from tinyrenderder_tpu.ops import raster_fine2
+
+    p, w, h = scene_pass(str(r["scene"]), "jax")
+    attrs = {k: jnp.asarray(v) for k, v in p.attrs.items()}
+    pairs, rows, groups, active = (int(r[k]) for k in ("pairs", "rows", "groups", "active"))
+    th = int(r["th"])
+    (_, rec, ids, _, src, live, start_g, rows_g, x0y0, sid_of, pt, rt, ng, na,
+     _) = raster_fine2._pre_fine2_jit(attrs, dict(p.uniforms), p.shader, w, h, pairs, rows,
+                                      1 << max(rows - 1, 0).bit_length(), groups, active,
+                                      th, 128)
+    res = {"ids": np.asarray(ids), "src": np.asarray(src), "live": np.asarray(live),
+           "group_start": np.asarray(start_g), "group_rows": np.asarray(rows_g),
+           "x0y0": np.asarray(x0y0), "sid_of": np.asarray(sid_of)[:groups],
+           "slots": np.asarray(rec)[:rows, 1, 0:8].astype(np.int32),
+           "totals": np.array([int(pt), int(rt), int(ng), int(na)])}
+    if "n_vary" in r:
+        init = raster_fine2._init_strips_jit(jnp.asarray(r["depth_tiles"]), sid_of, groups,
+                                             th)
+        d, wn, v, _ = raster_fine2._fine2_call_jit(start_g, rows_g, rec, x0y0, th,
+                                                   int(r["n_vary"]), True)
+        de, we, _, ev = raster_fine2._fine2_call_jit(start_g, rows_g, rec, x0y0, th, 0, True,
+                                                     collect_stats=True, init_g=init)
+        res.update(init=np.asarray(init), depth_0=np.asarray(d), winner_0=np.asarray(wn),
+                   vary_0=np.asarray(v), depth_1=np.asarray(de), winner_1=np.asarray(we),
+                   ev=np.asarray(ev))
+    return res
+
+
 def stats_vector(st) -> np.ndarray:
     """The RenderStats fields a frame computes, as one float64 vector."""
     return np.array([st.triangles_rasterized, st.fragments_drawn, st.min_x, st.min_y,
@@ -394,7 +441,7 @@ def _main(req_path, out_path):
     jax.config.update("jax_platforms", "cpu")
     ops = {"bins": _jax_bins, "raster": _jax_raster, "untile": _jax_untile,
            "untile3": _jax_untile3, "image": _jax_image, "scene": _jax_scene,
-           "post": _jax_post, "pre_fine": _jax_pre_fine}
+           "post": _jax_post, "pre_fine": _jax_pre_fine, "pre_fine2": _jax_pre_fine2}
     requests: dict = {}
     with np.load(req_path) as z:
         for key in z.files:

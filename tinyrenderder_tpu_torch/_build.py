@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
-SOURCES = ("raster_coarse.cu", "raster_fine.cu", "untile.cu")
+SOURCES = ("raster_coarse.cu", "raster_fine.cu", "raster_fine2.cu", "untile.cu")
 HEADERS = ("raster_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,6 +44,11 @@ SIGNATURES = {
     # init_depth, depth, winner, vary, ev_count, ev_maxz, stream
     "trt_fine_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P],
+    # tri_rec, rec_stride, tri8, group_start, group_rows, x0y0, n_groups,
+    # origin_x, origin_y, tile_h, tile_w, n_vary,
+    # init_depth (or null), depth, winner, vary, ev_count, ev_maxz, stream
+    "trt_fine2_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P],
     # src, dst, n_tiles_x, n_tiles_y, tile_h, tile_w, stream
     "trt_untile32": [_P, _P, _I, _I, _I, _I, _P],
     # color, depth, winner, color_out, depth_out, winner_out,

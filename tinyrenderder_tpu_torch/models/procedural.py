@@ -3,8 +3,9 @@ reference's assets (its obj/ directory is not shipped).
 
 Counterpart of ``tinyrenderder_tpu/models/procedural.py``, the meshes and
 textures the port's scenes and tests use: a UV sphere, the bumpy head
-(a displaced sphere), a cube, a random triangle soup, and the checker /
-normal / specular maps of the default head material.
+(a displaced sphere), a cube, a random triangle soup, the bench's two
+246k-triangle meshes (a wall of heads, and the same inside a room), and
+the checker / normal / specular maps of the default head material.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ import numpy as np
 
 from tinyrenderder_tpu_torch.models.mesh import Material, Mesh
 
-__all__ = ["uv_sphere", "bumpy_head", "cube", "triangle_soup", "checker_texture",
-           "gradient_specular_texture", "sphere_normal_texture",
-           "default_head_material"]
+__all__ = ["uv_sphere", "bumpy_head", "cube", "triangle_soup", "head_wall",
+           "mixed_interior", "checker_texture", "gradient_specular_texture",
+           "sphere_normal_texture", "default_head_material"]
 
 
 def uv_sphere(n_lat: int = 16, n_lon: int = 24, radius: float = 1.0,
@@ -109,6 +110,50 @@ def triangle_soup(n: int = 64, seed: int = 3, spread: float = 1.0,
     faces = np.arange(n * 3, dtype=np.int32).reshape(n, 3)
     uvs = rng.uniform(0, 1, size=(n * 3, 2))
     return Mesh(positions=pos, faces=faces, uvs=uvs, name=name).finalize()
+
+
+def head_wall(grid: int = 3, n_lat: int = 96, n_lon: int = 144,
+              spacing: float = 2.4, name: str = "head_wall") -> Mesh:
+    """grid x grid dense bumpy heads merged into one mesh: the
+    Sponza-scale (~quarter-million triangle) stress stand-in."""
+    head = bumpy_head(n_lat, n_lon)
+    pos, fac, uvs, nrm = [], [], [], []
+    offset = 0
+    half = (grid - 1) / 2.0
+    for gy in range(grid):
+        for gx in range(grid):
+            shift = np.array([(gx - half) * spacing, (gy - half) * spacing, 0.0])
+            pos.append(head.positions + shift)
+            fac.append(head.faces + offset)
+            uvs.append(head.uvs)
+            nrm.append(head.normals)
+            offset += head.nverts
+    mesh = Mesh(positions=np.concatenate(pos), faces=np.concatenate(fac),
+                uvs=np.concatenate(uvs), normals=np.concatenate(nrm), name=name)
+    mesh.materials = [default_head_material(128)]
+    return mesh.finalize()
+
+
+def mixed_interior(grid: int = 3, n_lat: int = 96, n_lon: int = 144,
+                   room: float = 14.0, name: str = "mixed_interior") -> Mesh:
+    """Sponza-regime stand-in: twelve giant inward-facing room triangles
+    (walls, floor and ceiling spanning most of the screen) and the
+    ``head_wall`` grid of tiny head triangles, merged into ONE mesh, as
+    the reference's default scene mixes Sponza's walls with head props
+    (main.cpp:483-513)."""
+    wall = head_wall(grid=grid, n_lat=n_lat, n_lon=n_lon)
+    out = cube(size=room, name="roombox")
+    # inward-facing: flip the winding so backface culling keeps the
+    # interior; the normals are regenerated from the new winding
+    box = Mesh(positions=out.positions, faces=out.faces[:, ::-1].copy(),
+               uvs=out.uvs, name="roombox").finalize()
+    n0 = wall.nverts
+    mesh = Mesh(positions=np.concatenate([wall.positions, box.positions]),
+                faces=np.concatenate([wall.faces, box.faces + n0]),
+                uvs=np.concatenate([wall.uvs, box.uvs * 6.0]),
+                normals=np.concatenate([wall.normals, box.normals]), name=name)
+    mesh.materials = [default_head_material(128)]
+    return mesh.finalize()
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,8 @@ from tinyrenderder_tpu_torch import _build
 from tinyrenderder_tpu_torch.ops import semantics
 
 __all__ = ["GEOM", "MAX_VARY", "SUB", "LAUNCHES", "STATS_LAUNCHES",
-           "build_tri_records", "check_inputs", "coarse_raster", "coarse_raster_plain",
+           "build_tri_records", "check_inputs", "check_tensors", "coarse_raster",
+           "coarse_raster_plain",
            "tile_pixels", "interpolate_winners"]
 
 GEOM = 16            # geometry columns before the varying corners
@@ -77,15 +78,22 @@ def check_inputs(tri_rec, bins, tile_ids, start, count, init_depth, tile_h,
     devices, dtypes, shapes and layout.  ``bins`` and its per-tile
     ``start``/``count`` go by ``names`` (the strip raster's slot table
     has other names)."""
-    dev = tri_rec.device
     a = tile_ids.shape[0]
-    for name, t, dtype, shape in (
-            ("tri_rec", tri_rec, torch.float32, None),
-            (names[0], bins, torch.int32, None),
-            ("tile_ids", tile_ids, torch.int32, (a,)),
-            (names[1], start, torch.int32, (a,)),
-            (names[2], count, torch.int32, (a,)),
-            ("init_depth", init_depth, torch.float32, (a, tile_h, tile_w))):
+    check_tensors(tri_rec, n_vary, (
+        (names[0], bins, torch.int32, None),
+        ("tile_ids", tile_ids, torch.int32, (a,)),
+        (names[1], start, torch.int32, (a,)),
+        (names[2], count, torch.int32, (a,)),
+        ("init_depth", init_depth, torch.float32, (a, tile_h, tile_w))))
+
+
+def check_tensors(tri_rec, n_vary: int, specs) -> None:
+    """Raise ValueError unless ``tri_rec`` is a contiguous float32 (F, 16 +
+    3V) table with room for ``n_vary`` channels and each (name, tensor,
+    dtype, shape or None) of ``specs`` lies on its device with that dtype
+    and shape, contiguous."""
+    dev = tri_rec.device
+    for name, t, dtype, shape in (("tri_rec", tri_rec, torch.float32, None), *specs):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, tri_rec on {dev}")
         if t.dtype != dtype:

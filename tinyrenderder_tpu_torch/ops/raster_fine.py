@@ -50,7 +50,7 @@ from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids
                                                       vertex_stage)
 
 __all__ = ["STRIP_W", "STRIPS", "MAX_VARY", "LAUNCHES", "STATS_LAUNCHES", "PreFine",
-           "pre_fine", "probe_rows_pairs", "fine_raster", "fine_raster_plain"]
+           "pre_fine", "fine_raster", "fine_raster_plain", "strip_raster_plain"]
 
 STRIP_W = 16
 STRIPS = TILE_W // STRIP_W       # 8 strips per 128-px tile
@@ -119,21 +119,6 @@ def pre_fine(attrs: dict, uniforms: dict, shader, width: int, height: int,
                    rows_t[idl].contiguous(), pairs, row_total, n_active, setup)
 
 
-def probe_rows_pairs(attrs: dict, uniforms: dict, shader, width: int, height: int,
-                     tile_h: int = TILE_H, tile_w: int = TILE_W) -> tuple[int, int]:
-    """(strip rows, coarse pairs) of a pass, one readback: the two counts
-    ``raster_sparse.decide_mode`` weighs (``_probe_both_jit`` and the
-    coarse ``_tile_spans`` total)."""
-    setup, _ = vertex_stage(attrs, uniforms, shader, width, height)
-    n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
-    tx0, ty0, span_x, span_y, _ = tile_spans(setup, STRIP_W, tile_h)
-    per_strip = tile_pair_counts(tx0, ty0, span_x, span_y, n_tiles_x * STRIPS, n_tiles_y)
-    rows = per_strip.view(n_tiles_x * n_tiles_y, STRIPS).amax(dim=1).sum()
-    pairs = tile_spans(setup, tile_w, tile_h)[4].sum()
-    rows, pairs = torch.stack([rows, pairs.to(rows.dtype)]).tolist()
-    return rows, pairs
-
-
 def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x: int,
                 tile_h: int, tile_w: int, n_vary: int, origin=(0, 0),
                 collect_stats: bool = False):
@@ -185,15 +170,29 @@ def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x:
 def fine_raster_plain(tri_rec, tri8, tile_ids, row_start, rows, init_depth,
                       n_tiles_x: int, tile_h: int, tile_w: int, n_vary: int,
                       origin=(0, 0), collect_stats: bool = False):
-    """Plain PyTorch version, vectorised over tiles and SUB_ROWS-row steps
-    and chunked over tiles; each pixel takes its own strip's slot of a
-    row.  Loop 1 is the TPU kernel's form: per step, the first-minimum
-    argmin over the step's rows, then a strict-less merge.  The event
-    planes keep the TPU form too: a row is an event iff its z is below
-    the exclusive cummin of the step's earlier rows and the running depth
-    (raster_fine.py:356-374).  Loop 2 is the coarse raster's."""
+    """Plain PyTorch version: ``strip_raster_plain`` over the active
+    tiles, each pixel at its tile's place on the screen."""
+    return strip_raster_plain(
+        tri_rec, tri8, row_start, rows, init_depth, n_vary, collect_stats,
+        lambda c0, c1: tile_pixels(tile_ids[c0:c1].long(), n_tiles_x, tile_h, tile_w,
+                                   origin, torch.float32))
+
+
+def strip_raster_plain(tri_rec, tri8, row_start, rows, init_depth, n_vary: int,
+                       collect_stats: bool, pixels):
+    """The strip rasters' plain version over output blocks of (th, tw)
+    pixels, block b walking slot rows ``row_start[b] .. + rows[b]`` of
+    ``tri8``; ``pixels(c0, c1)`` gives blocks c0..c1's global integer pixel
+    coordinates as exact floats, x and y broadcastable to (C, 1, th, tw).
+    Vectorised over blocks and SUB_ROWS-row steps and chunked over blocks;
+    each pixel takes its own strip's slot of a row.  Loop 1 is the TPU
+    kernel's form: per step, the first-minimum argmin over the step's rows,
+    then a strict-less merge.  The event planes keep the TPU form too: a
+    row is an event iff its z is below the exclusive cummin of the step's
+    earlier rows and the running depth (raster_fine.py:356-374).  Loop 2
+    is the coarse raster's."""
     dev = tri_rec.device
-    a = tile_ids.shape[0]
+    a, tile_h, tile_w = init_depth.shape
     f32 = torch.float32
     depth = torch.empty((a, tile_h, tile_w), dtype=f32, device=dev)
     winner = torch.empty((a, tile_h, tile_w), dtype=torch.int32, device=dev)
@@ -208,7 +207,7 @@ def fine_raster_plain(tri_rec, tri8, tile_ids, row_start, rows, init_depth,
     for c0 in range(0, a, TILE_CHUNK):
         c1 = min(a, c0 + TILE_CHUNK)
         st, cnt = row_start[c0:c1].long(), rows[c0:c1].long()
-        x, y = tile_pixels(tile_ids[c0:c1].long(), n_tiles_x, tile_h, tile_w, origin, f32)
+        x, y = pixels(c0, c1)
         px, py = x + 0.5, y + 0.5
         zbuf = init_depth[c0:c1].clone()
         wbuf = torch.full_like(zbuf, -1, dtype=torch.int32)

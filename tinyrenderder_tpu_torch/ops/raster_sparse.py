@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from tinyrenderder_tpu_torch import _build, shaders
-from tinyrenderder_tpu_torch.ops import raster_fine
+from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2
 from tinyrenderder_tpu_torch.ops.raster import BACKGROUND, FrameBuffers
 from tinyrenderder_tpu_torch.ops.raster_coarse import build_tri_records, coarse_raster
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids,
@@ -47,6 +47,7 @@ __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
            "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
            "shade_compact_fresh", "compact_to_image", "post_sparse",
            "PassEvents", "reduce_events", "FINE_MODE", "decide_mode", "raster_pass",
+           "grouped_pass",
            "render_frame_fused", "render_frame_fused_image", "LAUNCHES",
            "UNTILE3_LAUNCHES"]
 
@@ -299,9 +300,8 @@ def reduce_events(ev, depth_c, winner_c):
 # coarse/fine dispatch
 # ---------------------------------------------------------------------------
 
-#: which raster a pass takes: "auto" (``decide_mode``), or "coarse" or
-#: "fine" for every pass.  "fine2" is not ported yet (ROADMAP.md Queue 1,
-#: item 8)
+#: which raster a pass takes: "auto" (``decide_mode``), or "coarse",
+#: "fine" (strips per tile) or "fine2" (grouped strips) for every pass
 FINE_MODE = "auto"
 #: "auto" takes the strip raster when its rows (the sum over tiles of
 #: the largest strip bin) are at most this share of the coarse pairs.
@@ -310,6 +310,11 @@ FINE_MODE = "auto"
 #: the kernel saves on every pass measured (PERF.md, Findings), so "auto"
 #: routes coarse until the strip pre-stage is cheaper
 FINE_RATIO: float | None = None
+#: "auto" takes the grouped strip raster when its grouped rows are at most
+#: this share of the strip raster's per-tile rows (and at most 0.45 of
+#: the coarse pairs).  None: never.  The H100 A/B on the 246k-triangle
+#: stress scene showed no gain beyond the noise (PERF.md, Findings)
+FINE2_RATIO: float | None = None
 #: passes below this many faces stay coarse (the reference's floor)
 FINE_MIN_FACES = 512
 #: "auto" decisions, per (faces, grid, shader kind)
@@ -318,46 +323,50 @@ _FINE_DECISION: dict = {}
 
 def decide_mode(attrs: dict, uniforms: dict, shader, width: int, height: int,
                 tile_h: int = TILE_H, tile_w: int = TILE_W) -> str:
-    """The raster a pass takes, "coarse" or "fine" (``_decide_mode``).  A
-    forced ``FINE_MODE`` applies to every pass.  "auto" probes the pass's
-    strip rows and coarse pairs once per (faces, grid, shader kind) and
-    caches the answer; passes under ``FINE_MIN_FACES`` faces or with more
+    """The raster a pass takes, "coarse", "fine" or "fine2"
+    (``_decide_mode``).  A forced ``FINE_MODE`` applies to every pass.
+    "auto" probes the pass's per-tile strip rows, grouped rows and coarse
+    pairs once per (faces, grid, shader kind) and caches the answer:
+    "fine2" where grouped rows <= FINE2_RATIO x rows (and <= 0.45 x
+    pairs, else coarse), otherwise "fine" where rows <=
+    FINE_RATIO x pairs.  Passes under ``FINE_MIN_FACES`` faces or with more
     than ``raster_fine.MAX_VARY`` varying channels stay coarse.  The
     reference's TPU-only clause and its 2^21 strip-pair cap (a workaround
     of the TPU's exact-f32 divmod) have no counterpart here."""
-    if FINE_MODE in ("coarse", "fine"):
+    if FINE_MODE in ("coarse", "fine", "fine2"):
         return FINE_MODE
-    if FINE_MODE == "fine2":
-        raise NotImplementedError("FINE_MODE='fine2' is not ported yet: ROADMAP.md "
-                                  "Queue 1, item 8")
     if FINE_MODE != "auto":
-        raise ValueError(f"FINE_MODE must be 'auto', 'coarse' or 'fine', not {FINE_MODE!r}")
+        raise ValueError(f"FINE_MODE must be 'auto', 'coarse', 'fine' or 'fine2', "
+                         f"not {FINE_MODE!r}")
     f = attrs["position"].shape[0]
     n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
     n_vary = sum(shader.varying_spec.values())
     key = (f, n_tiles_x, n_tiles_y, tile_h, tile_w, shader.writes_color, n_vary)
     mode = _FINE_DECISION.get(key)
     if mode is None:
-        if (FINE_RATIO is None or f < FINE_MIN_FACES or n_vary > raster_fine.MAX_VARY
-                or tile_w != TILE_W):
-            mode = "coarse"
-        else:
-            rows, pairs = raster_fine.probe_rows_pairs(attrs, uniforms, shader, width,
-                                                       height, tile_h, tile_w)
-            mode = "fine" if rows <= FINE_RATIO * pairs else "coarse"
+        mode = "coarse"
+        if ((FINE_RATIO is not None or FINE2_RATIO is not None) and f >= FINE_MIN_FACES
+                and n_vary <= raster_fine.MAX_VARY and tile_w == TILE_W):
+            p = raster_fine2.probe_rows(attrs, uniforms, shader, width, height, tile_h,
+                                        tile_w)
+            if FINE2_RATIO is not None and p.grouped_rows <= FINE2_RATIO * p.rows:
+                if p.grouped_rows <= 0.45 * p.pairs:
+                    mode = "fine2"
+            elif FINE_RATIO is not None and p.rows <= FINE_RATIO * p.pairs:
+                mode = "fine"
         _FINE_DECISION[key] = mode
     return mode
 
 
-def raster_pass(attrs: dict, uniforms: dict, shader, width: int, height: int,
+def raster_pass(mode: str, attrs: dict, uniforms: dict, shader, width: int, height: int,
                 tile_h: int, tile_w: int, init_depth, collect_stats: bool = False):
-    """One pass's pre-stage and raster on the route ``decide_mode`` picks.
+    """One pass's pre-stage and raster on the coarse or the strip route.
     ``init_depth(ids)`` gives the running depth of the active tiles.
     Returns (ids, setup, (depth, winner, vary[, ev])) in the raster
     contract both routes share."""
     n_tiles_x = cdiv(width, tile_w)
     n_vary = sum(shader.varying_spec.values())
-    if decide_mode(attrs, uniforms, shader, width, height, tile_h, tile_w) == "fine":
+    if mode == "fine":
         pre = raster_fine.pre_fine(attrs, uniforms, shader, width, height, tile_h, tile_w)
         out = raster_fine.fine_raster(pre.tri_rec, pre.tri8, pre.ids, pre.row_start,
                                       pre.rows, init_depth(pre.ids), n_tiles_x, tile_h,
@@ -368,6 +377,19 @@ def raster_pass(attrs: dict, uniforms: dict, shader, width: int, height: int,
                             init_depth(pre.ids), n_tiles_x, tile_h, tile_w, n_vary,
                             collect_stats=collect_stats)
     return pre.ids, pre.setup, out
+
+
+def grouped_pass(attrs: dict, uniforms: dict, shader, width: int, height: int,
+                 tile_h: int, depth_tiles=None, collect_stats: bool = False):
+    """One pass's pre-stage and raster on the grouped strip route: -> (the
+    ``raster_fine2.PreFine2``, its group-space outputs).  Pass-local, or
+    seeded with the frame's ``depth_tiles`` (T, th, 128) when given."""
+    pre = raster_fine2.pre_fine2(attrs, uniforms, shader, width, height, tile_h)
+    init = None if depth_tiles is None else raster_fine2.init_strips(depth_tiles, pre)
+    out = raster_fine2.fine2_raster(pre.tri_rec, pre.tri8, pre.group_start, pre.group_rows,
+                                    pre.x0y0, tile_h, sum(shader.varying_spec.values()),
+                                    init, collect_stats=collect_stats)
+    return pre, out
 
 
 def compact_to_image(c_tiles, ids, n_tiles_x: int, n_tiles_y: int, tile_h: int,
@@ -396,11 +418,18 @@ def render_frame_fused_image(passes, width: int, height: int,
     if attrs["position"].shape[0] == 0:
         raise ValueError("render_frame_fused_image requires a non-empty pass")
     n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
-    ids, _, (depth_c, winner_c, vary_c) = raster_pass(
-        attrs, uniforms, shader, width, height, tile_h, tile_w,
-        lambda ids: torch.full((ids.shape[0], tile_h, tile_w), torch.inf,
-                               dtype=torch.float32, device=ids.device))
-    c_img = shade_compact_fresh(winner_c, vary_c, uniforms, shader)
+    mode = decide_mode(attrs, uniforms, shader, width, height, tile_h, tile_w)
+    if mode == "fine2":
+        pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h)
+        ids = pre.ids
+        c_img, depth_c = raster_fine2.post_fine2_image(
+            pre, out, lambda v: _shade_packed(v, uniforms, shader))
+    else:
+        ids, _, (depth_c, winner_c, vary_c) = raster_pass(
+            mode, attrs, uniforms, shader, width, height, tile_h, tile_w,
+            lambda ids: torch.full((ids.shape[0], tile_h, tile_w), torch.inf,
+                                   dtype=torch.float32, device=ids.device))
+        c_img = shade_compact_fresh(winner_c, vary_c, uniforms, shader)
     img = compact_to_image(c_img, ids, n_tiles_x, n_tiles_y, tile_h, tile_w)
     image = unpack_rgb(img[:height, :width])
     if not return_depth:
@@ -443,12 +472,20 @@ def render_frame_fused(passes, width: int, height: int, device,
         if attrs["position"].device != ft.depth.device:
             raise ValueError(f"pass inputs are on {attrs['position'].device}, "
                              f"the frame on {ft.depth.device}")
-        ids, setup, out = raster_pass(attrs, uniforms, shader, width, height, tile_h,
-                                      tile_w, lambda ids: ft.depth[ids.long()],
-                                      collect_stats)
-        depth_c, winner_c, vary_c = out[:3]
-        post_sparse(ft, ids, depth_c, winner_c, vary_c, uniforms, shader, winner_offset)
+        mode = decide_mode(attrs, uniforms, shader, width, height, tile_h, tile_w)
+        if mode == "fine2":
+            # pass-local, or seeded with the running depth for exact events
+            pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h,
+                                    ft.depth if collect_stats else None, collect_stats)
+            setup = pre.setup
+            raster_fine2.post_fine2(ft, pre, out, winner_offset,
+                                    lambda v: _shade_packed(v, uniforms, shader))
+        else:
+            ids, setup, out = raster_pass(mode, attrs, uniforms, shader, width, height,
+                                          tile_h, tile_w, lambda ids: ft.depth[ids.long()],
+                                          collect_stats)
+            post_sparse(ft, ids, *out[:3], uniforms, shader, winner_offset)
         if collect_stats:
-            events.append(PassEvents(setup, *reduce_events(out[3], depth_c, winner_c)))
+            events.append(PassEvents(setup, *reduce_events(out[3], out[0], out[1])))
         winner_offset += f
     return ft, (snapshot if in_excluded else ft.depth), events

@@ -37,7 +37,7 @@ log = logging.getLogger("tinyrenderder_tpu_torch.scene")
 
 __all__ = ["ScenePass", "Scene", "RenderResult", "render_scene", "render_passes",
            "render_scene_image", "pass_tensors", "oracle_render", "headline_scene",
-           "multimesh_scene"]
+           "multimesh_scene", "stress_scene", "mixed_scene"]
 
 
 @dataclass
@@ -321,3 +321,30 @@ def multimesh_scene(width: int, height: int, head_lat: int = 64, head_lon: int =
     scene.add(room, math3d.identity4(),
               PhongShader(key, fill, rim, normal_map_strength=0.0), name="room")
     return scene
+
+
+def _wall_scene(mesh: Mesh, width: int, height: int) -> Scene:
+    """One normal-mapped Phong pass of ``mesh`` (its own 128² material)
+    under the camera of ``bench.py::bench_stress`` / ``bench_mixed``."""
+    key, fill, rim = _lights()
+    scene = Scene(camera=_camera(width, height, (0, 0.3, 6.5)), width=width,
+                  height=height)
+    scene.add(mesh, math3d.identity4(), PhongShader(key, fill, rim, normal_map_strength=0.5),
+              name=mesh.name)
+    return scene
+
+
+def stress_scene(width: int, height: int, grid: int = 3, n_lat: int = 96,
+                 n_lon: int = 144) -> Scene:
+    """The bench's Sponza-scale stress scene (``bench.py::bench_stress``):
+    ``procedural.head_wall(grid)``, 246,240 faces at grid 3.  Tests pass a
+    smaller grid and tessellation."""
+    return _wall_scene(procedural.head_wall(grid, n_lat, n_lon), width, height)
+
+
+def mixed_scene(width: int, height: int, grid: int = 3, n_lat: int = 96,
+                n_lon: int = 144) -> Scene:
+    """The bench's mixed-regime scene (``bench.py::bench_mixed``):
+    ``procedural.mixed_interior(grid)``, the head wall and twelve giant
+    room triangles in one mesh, 246,252 faces at grid 3."""
+    return _wall_scene(procedural.mixed_interior(grid, n_lat, n_lon), width, height)
