@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU: the single-pass image route and
 the multi-pass tiled frame with exact stats, each on the coarse raster, the
-strip raster and the grouped strip raster, the post pass, the CLI, and the
-bench's two 246k-triangle scenes.
+strip raster and the grouped strip raster, the post pass, the CLI, the
+bench's two 246k-triangle scenes, the two-pass shadowed frame and the
+dense-grid raster entry.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,13 @@ Phases, one line each (any failure exits non-zero before the last line):
      after the head, and the strip and grouped strip rasters' on the head
      pass, rendered after the room (so each running depth is not all
      +inf); each stats launch must also leave depth, winner and varyings
-     as the seeded launch without stats does.  Each kernel's
+     as the seeded launch without stats does; the dense launch of the
+     coarse raster over every tile (``raster_coarse.rasterize`` /
+     ``depth_resolve``) on the headline pass (2048², 32-row tiles, 8
+     varyings) and on the light pass of ``shadow_phong_800`` (1024²,
+     16-row tiles, depth only), each entry driven once through its user
+     function, and ``depth_resolve`` of the light pass equal to the
+     shadow map of the sparse route.  Each kernel's
      time, its plain version's, the library call's where one PyTorch call
      computes the same function, and its bound (bytes over 3.35 TB/s or
      float operations over 67 TFLOP/s, from this run's data);
@@ -41,9 +48,10 @@ Phases, one line each (any failure exits non-zero before the last line):
      colour, output depth and full depth bitwise equal to the float32
      oracle, equal ``RenderStats``, the same frame without stats, and
      every kernel of the route launched;
-  7. the port's CLI at 1200x800 on the card: its four TGA files must
-     equal, byte for byte, those written from the oracle's colour and the
-     port's NumPy post on the oracle's depth;
+  7. the port's CLI at 1200x800 on the card, without and with
+     ``--shadows``: its four TGA files must equal, byte for byte, those
+     written from the oracle's colour and the port's NumPy post on the
+     oracle's depth;
   8. CUDA-event timing, the three rasters in turns, of the reference
      pipeline (the 3-pass scene at 1200x800 plus the post pass) and of the
      3-pass frame at 2048², kernel route and plain route, per stage;
@@ -56,7 +64,15 @@ Phases, one line each (any failure exits non-zero before the last line):
  10. CUDA-event timing, the three rasters in turns (coarse, fine, fine2,
      fine2, fine, coarse), of both scenes' tiled frames as the bench runs
      them (``render_frame_fused`` + ``tiles_to_buffers(...).color``), per
-     stage.
+     stage;
+ 12. ``shadow_phong_800`` (``bench.py::bench_shadows``): the 3-mesh scene
+     at 800², its key light, a 1024² map, no frustum cull, through
+     ``shadows.render_with_shadows`` under "coarse", "fine" and "fine2":
+     the map equal to the float32 oracle's light pass, colour, depth and
+     full depth equal to the oracle's lit frame fed that map, bitwise,
+     equal ``RenderStats``, and every kernel of the route launched;
+ 13. CUDA-event timing of that frame on pre-uploaded inputs, the three
+     rasters in turns, per stage (light pass, untile, lit frame).
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -71,6 +87,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 DEVICE = "cuda"
 WIDTH = HEIGHT = 2048                 # the headline and the large 3-pass frame
@@ -80,6 +97,9 @@ WARMUP, FRAMES = 3, 20
 MODES = ("coarse", "fine", "fine2")
 #: the bench's 246k-triangle scenes (bench.py::bench_stress, bench_mixed)
 WALL_W, WALL_H = 1280, 800
+#: shadow_phong_800 (bench.py::bench_shadows): the frame and the map side
+SHADOW_W = SHADOW_H = 800
+SHADOW_SIZE = 1024
 #: the bound's peaks: NVIDIA's H100 SXM data sheet, float32 outside the
 #: tensor cores and HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -346,6 +366,56 @@ def staged_multipass(passes, width, height, mode, plain, with_post, marks=None):
     return image, depth, final
 
 
+def staged_shadow_frame(light_passes, lit_passes, width, height, size, marks=None):
+    """One shadowed frame from its stage functions on pre-uploaded pass
+    tensors (the body of ``shadows.render_with_shadows`` without the host
+    layer): the light pass, the untile of its depth, then the lit frame
+    with that map as each shadow-mapped pass's uniform."""
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_H, TILE_W, cdiv
+
+    mark = marker(marks)
+    mark(None)
+    ft, _, _ = rs.render_frame_fused(light_passes, size, size, DEVICE, tile_h=TILE_H)
+    mark("light pass")
+    smap = rs.untile_one(ft.depth, cdiv(size, TILE_W), cdiv(size, TILE_H), TILE_H,
+                         TILE_W)[:size, :size].contiguous()
+    mark("untile")
+    passes = [(a, sh, dict(u, shadow_map=smap) if "shadow_map" in u else u, ex)
+              for a, sh, u, ex in lit_passes]
+    fb, _, _ = tscene.render_passes(passes, width, height, DEVICE)
+    mark("lit frame")
+    return fb.color
+
+
+def write_oracle_files(out: Path, ref) -> None:
+    """The CLI's four files from an oracle result: its colour, and the
+    port's NumPy post on its depth."""
+    import torch
+
+    from tinyrenderder_tpu_torch import cli
+    from tinyrenderder_tpu_torch.ops import post
+
+    out.mkdir()
+    zimg, ao_u8, final = post.oracle_post(ref.color, ref.depth)
+    cli.write_rgb(str(out / "phong.tga"), torch.from_numpy(ref.color))
+    cli.write_gray(str(out / "zbuffer.tga"), torch.from_numpy(zimg))
+    cli.write_gray(str(out / "ao.tga"), torch.from_numpy(ao_u8))
+    cli.write_rgb(str(out / "final.tga"), torch.from_numpy(final))
+
+
+def same_files(got: Path, want: Path, what: str) -> dict:
+    """Fail unless the CLI's four TGA files are byte-identical; -> sizes."""
+    sizes = {}
+    for f in ("phong.tga", "zbuffer.tga", "ao.tga", "final.tga"):
+        got_b, want_b = (got / f).read_bytes(), (want / f).read_bytes()
+        if got_b != want_b:
+            fail(f"{what} {f} differs from the oracle + NumPy post file")
+        sizes[f] = len(got_b)
+    return sizes
+
+
 def ab_ms(run) -> dict:
     """ms/frame of ``run(mode)`` per mode, measured in turns (coarse, fine,
     fine2, fine2, fine, coarse), each turn a median of FRAMES: the mean of a
@@ -401,7 +471,8 @@ def launch_counts():
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
     return {"coarse_raster": rc.LAUNCHES, "coarse_raster_stats": rc.STATS_LAUNCHES,
-            "fine_raster": rf.LAUNCHES, "fine_raster_stats": rf.STATS_LAUNCHES,
+            "dense_raster": rc.DENSE_LAUNCHES, "fine_raster": rf.LAUNCHES,
+            "fine_raster_stats": rf.STATS_LAUNCHES,
             "fine2_raster": rf2.LAUNCHES, "fine2_raster_stats": rf2.STATS_LAUNCHES,
             "untile_one": rs.LAUNCHES, "untile3": rs.UNTILE3_LAUNCHES}
 
@@ -411,7 +482,8 @@ def reset_counts():
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
-    rc.LAUNCHES = rc.STATS_LAUNCHES = rf.LAUNCHES = rf.STATS_LAUNCHES = 0
+    rc.LAUNCHES = rc.STATS_LAUNCHES = rc.DENSE_LAUNCHES = 0
+    rf.LAUNCHES = rf.STATS_LAUNCHES = 0
     rf2.LAUNCHES = rf2.STATS_LAUNCHES = 0
     rs.LAUNCHES = rs.UNTILE3_LAUNCHES = 0
 
@@ -433,14 +505,16 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this script needs one GPU")
 
     from tinyrenderder_tpu_torch import _build  # fails outside a checkout
-    from tinyrenderder_tpu_torch import cli
+    from tinyrenderder_tpu_torch import cli, shadows
     from tinyrenderder_tpu_torch import scene as tscene
     from tinyrenderder_tpu_torch.ops import post
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
-    from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_W, cdiv
+    from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, bin_triangles_csr,
+                                                          cdiv, n_vary_of, shader_varyings,
+                                                          to_tiles, vertex_stage)
 
     t_start = time.perf_counter()
     record: dict[str, dict] = {}        # kernel name -> its JSON entry
@@ -714,6 +788,74 @@ def main() -> int:
         f"== plain bitwise with and without stats, seeded and pass-local; kernel "
         f"{event_ms(lambda: rf2.fine2_raster(*hargs, h_init, collect_stats=True)):.4f} ms")
 
+    # the dense launch over every tile (rasterize_pallas / depth_resolve_pallas):
+    # the headline pass (2048², 32-row tiles, 8 varyings) and the light pass of
+    # shadow_phong_800 (1024², 16-row tiles, depth only), each driven once
+    # through its user entry with the counts zeroed
+    sh_scene = tscene.multimesh_scene(SHADOW_W, SHADOW_H)
+    sh_key = sh_scene.passes[0].shader.key_light_world    # bench.py::_lights()'s key
+    sh_settings = shadows.ShadowSettings(size=SHADOW_SIZE)
+    light_cam = shadows.light_camera_for_scene(sh_scene, sh_key, sh_settings)
+    light_pass = tscene.pass_tensors(shadows.depth_scene(sh_scene, light_cam, sh_settings),
+                                     DEVICE, frustum_cull=False)[0]
+    for name, (d_attrs, d_shader, d_uniforms, _), size, th_d in (
+            ("headline pass", (attrs, shader, uniforms, False), WIDTH, th),
+            ("light pass", light_pass, SHADOW_SIZE, TILE_H)):
+        setup_d, vary_d = vertex_stage(d_attrs, d_uniforms, d_shader, size, size)
+        corners, nv = shader_varyings(vary_d, d_shader), n_vary_of(d_shader)
+        bins = bin_triangles_csr(setup_d, size, size, TILE_W, th_d)
+        n_t = bins.counts.shape[0]
+        rec_d = rc.build_tri_records(setup_d, corners)
+        init_img = torch.full((size, size), torch.inf, device=DEVICE)
+        init_t = to_tiles(init_img, bins.n_tiles_y, bins.n_tiles_x, th_d, TILE_W, torch.inf)
+        every = torch.arange(n_t, dtype=torch.int32, device=DEVICE)
+        dargs = (rec_d, bins.sorted_tri, bins.start[:-1], bins.counts, init_t, bins.n_tiles_x,
+                 th_d, TILE_W, nv)
+        pargs = dargs[:2] + (every,) + dargs[2:]
+        kd = rc.dense_raster(*dargs)
+        d_err = check_outputs(f"dense raster vs plain, {name}", kd, rc.coarse_raster_plain(*pargs))
+        d_ms, dp_ms = event_ms(lambda: rc.dense_raster(*dargs)), event_ms(
+            lambda: rc.coarse_raster_plain(*pargs))
+        d_bound = raster_bound("coarse", SimpleNamespace(ids=every, counts=bins.counts,
+                                                         sorted_tri=bins.sorted_tri,
+                                                         tri_rec=rec_d),
+                               kd, th_d, bins.n_tiles_x, nv, False)
+        # the sparse launch over the same pass's active tiles, for the empty blocks' cost
+        act = torch.nonzero(bins.counts > 0)[:, 0]
+        sargs = (rec_d, bins.sorted_tri, act.to(torch.int32), bins.start[act], bins.counts[act],
+                 init_t[act], bins.n_tiles_x, th_d, TILE_W, nv)
+        s_ms = event_ms(lambda: rc.coarse_raster(*sargs))
+        if corners is None:
+            (got, _), dl = counted(lambda: rc.depth_resolve(setup_d, bins, init_img, size, size,
+                                                            th_d, TILE_W))
+            want = shadows.render_depth_from_light(sh_scene, light_cam, sh_settings, DEVICE)
+            entry = "depth_resolve == render_depth_from_light's map (the sparse route)"
+        else:
+            (got, _, _), dl = counted(lambda: rc.rasterize(setup_d, bins, init_img, size, size,
+                                                           corners, th_d, TILE_W))
+            want = rs.untile_one_plain(kd[0], bins.n_tiles_x, bins.n_tiles_y, th_d, TILE_W)
+            entry = "rasterize == the untiled kernel depth"
+        add_launches(dl)
+        diff, _ = bits_equal(got.contiguous(), want[:size, :size].contiguous())
+        if diff or dl["dense_raster"] != 1:
+            fail(f"dense entry, {name}: {diff} depths differ ({entry}); launches {dl}")
+        say(f"[3 dense] {name} {size}x{size} (th {th_d}, V {nv}): {n_t} tiles, "
+            f"{int((bins.counts == 0).sum())} empty, {bins.total} pairs, largest bin "
+            f"{int(bins.counts.max())}; kernel == plain bitwise (depth, winner, {nv} varyings); "
+            f"kernel {d_ms:.4f} ms, plain {dp_ms:.4f} ms, library none, bound {d_bound[0]:.4f} ms "
+            f"({d_bound[1]}); the sparse launch over the {act.numel()} active tiles "
+            f"{s_ms:.4f} ms; {entry} bitwise; launches {dl['dense_raster']} | {smi}")
+        if name == "headline pass":
+            record["dense_raster"] = {
+                "name": "dense_raster", "route": "cuda",
+                "source": "tinyrenderder_tpu_torch/csrc/raster_coarse.cu",
+                "replaces": "tinyrenderder_tpu/ops/raster_pallas.py:321",
+                "max_abs_err": d_err, "ms": d_ms, "plain_ms": dp_ms,
+                "bound_ms": d_bound[0], "bound_by": d_bound[1], "library_ms": None}
+        else:
+            record["dense_raster"]["max_abs_err"] = max(record["dense_raster"]["max_abs_err"],
+                                                        d_err)
+
     # ---- 4. the image route end to end, counted, on each raster ----
     images = {}
     for mode in MODES:
@@ -843,31 +985,44 @@ def main() -> int:
     # ---- 7. the CLI, against the oracle + NumPy post ----
     with tempfile.TemporaryDirectory() as tmp:
         out, want_dir = Path(tmp) / "port", Path(tmp) / "oracle"
-        want_dir.mkdir()
         code, cli_launches = counted(lambda: cli.run(
             ["--device", DEVICE, "--width", str(REF_W), "--height", str(REF_H),
              "--outdir", str(out)]))
         add_launches(cli_launches)
         if code != 0:
             fail(f"the CLI exited {code}")
-        ref = oracles["cli_default"]
-        zimg, ao_u8, final = post.oracle_post(ref.color, ref.depth)
-        cli.write_rgb(str(want_dir / "phong.tga"), torch.from_numpy(ref.color))
-        cli.write_gray(str(want_dir / "zbuffer.tga"), torch.from_numpy(zimg))
-        cli.write_gray(str(want_dir / "ao.tga"), torch.from_numpy(ao_u8))
-        cli.write_rgb(str(want_dir / "final.tga"), torch.from_numpy(final))
-        sizes = {}
-        for f in ("phong.tga", "zbuffer.tga", "ao.tga", "final.tga"):
-            got_b, want_b = (out / f).read_bytes(), (want_dir / f).read_bytes()
-            if got_b != want_b:
-                fail(f"CLI {f} differs from the oracle + NumPy post file")
-            sizes[f] = len(got_b)
-    if not (cli_launches["untile3"] and cli_launches["untile_one"]
-            and sum(cli_launches[f"{m}_raster_stats"] for m in MODES)):
-        fail(f"a kernel of the CLI's frame never launched: {cli_launches}")
-    say(f"[7 cli] tinyrenderder_tpu_torch.cli {REF_W}x{REF_H} on {DEVICE} "
-        f"(FINE_MODE={rs.FINE_MODE!r}): 4 TGAs byte-identical to the f32 oracle + NumPy "
-        f"post ({sizes}); launches {cli_launches}")
+        write_oracle_files(want_dir, oracles["cli_default"])
+        sizes = same_files(out, want_dir, "CLI")
+        if not (cli_launches["untile3"] and cli_launches["untile_one"]
+                and sum(cli_launches[f"{m}_raster_stats"] for m in MODES)):
+            fail(f"a kernel of the CLI's frame never launched: {cli_launches}")
+        say(f"[7 cli] tinyrenderder_tpu_torch.cli {REF_W}x{REF_H} on {DEVICE} "
+            f"(FINE_MODE={rs.FINE_MODE!r}): 4 TGAs byte-identical to the f32 oracle + NumPy "
+            f"post ({sizes}); launches {cli_launches}")
+        # --shadows: the shadowed frame from the key light, 1024² map
+        out_s = Path(tmp) / "port_shadows"
+        code, cli_s_launches = counted(lambda: cli.run(
+            ["--device", DEVICE, "--width", str(REF_W), "--height", str(REF_H),
+             "--outdir", str(out_s), "--shadows", "--shadow-size", str(SHADOW_SIZE)]))
+        add_launches(cli_s_launches)
+        if code != 0:
+            fail(f"the CLI with --shadows exited {code}")
+        t0 = time.perf_counter()
+        ref_s, _ = shadows.oracle_render_with_shadows(
+            cli.build_default_scene(width=REF_W, height=REF_H), cli.KEY_LIGHT_DIR,
+            shadows.ShadowSettings(size=SHADOW_SIZE))
+        cli_oracle_s = time.perf_counter() - t0
+        write_oracle_files(Path(tmp) / "oracle_shadows", ref_s)
+        sizes = same_files(out_s, Path(tmp) / "oracle_shadows", "CLI --shadows")
+        if (out_s / "phong.tga").read_bytes() == (out / "phong.tga").read_bytes():
+            fail("the CLI's --shadows phong.tga equals the one without shadows")
+        if not (cli_s_launches["untile3"] and cli_s_launches["untile_one"]
+                and sum(cli_s_launches[f"{m}_raster"] for m in MODES)
+                and sum(cli_s_launches[f"{m}_raster_stats"] for m in MODES)):
+            fail(f"a kernel of the CLI's shadowed frame never launched: {cli_s_launches}")
+        say(f"[7 cli] --shadows --shadow-size {SHADOW_SIZE}: 4 TGAs byte-identical to the f32 "
+            f"oracle's two passes + NumPy post ({sizes}; oracle {cli_oracle_s:.1f} s on the "
+            f"host); launches {cli_s_launches}")
 
     # ---- 8. timing of the 3-pass frame on pre-uploaded inputs ----
     frame_stages = ("pre", "raster", "merge+shade", "untile")
@@ -977,10 +1132,88 @@ def main() -> int:
             f"{probe.groups}, active {probe.active}, coarse pairs {probe.pairs}; kernel route "
             f"ms/frame in turns, {ab_text(frame_ms)}; auto picks {auto} | {smi}")
 
+    # ---- 12. shadow_phong_800: the shadowed frame against the oracle ----
+    t0 = time.perf_counter()
+    ref, ref_map = shadows.oracle_render_with_shadows(sh_scene, sh_key, sh_settings,
+                                                      frustum_cull=False)
+    sh_oracle_s = time.perf_counter() - t0
+    l_attrs, l_shader, l_uniforms, _ = light_pass
+    l_pre = rs.pre_sparse(l_attrs, l_uniforms, l_shader, SHADOW_SIZE, SHADOW_SIZE, TILE_H,
+                          TILE_W)
+    lit_shapes = ", ".join(f"{p.name} {p.mesh.nfaces} faces {type(p.shader).__name__} "
+                           f"V {n_vary_of(p.shader)}"
+                           for p in shadows.shadowed_scene(sh_scene, sh_key, ref_map, light_cam,
+                                                           sh_settings).passes)
+    say(f"[12 shapes] shadow_phong_{SHADOW_W}: light pass {SHADOW_SIZE}x{SHADOW_SIZE} (th "
+        f"{TILE_H}, depth only): faces {l_attrs['position'].shape[0]}, coarse pairs "
+        f"{l_pre.total}, active tiles {l_pre.n_active} of "
+        f"{cdiv(SHADOW_SIZE, TILE_W) * cdiv(SHADOW_SIZE, TILE_H)}; "
+        f"lit passes at {SHADOW_W}x{SHADOW_H} (th {rs.pick_tile_h(SHADOW_W, SHADOW_H)}): "
+        f"{lit_shapes}; f32 oracle of both passes {sh_oracle_s:.1f} s on the host")
+    for mode in MODES:
+        with fine_mode(mode):
+            (res, smap), sl = counted(lambda: shadows.render_with_shadows(
+                sh_scene, sh_key, sh_settings, DEVICE, frustum_cull=False))
+            res0, smap0 = shadows.render_with_shadows(sh_scene, sh_key, sh_settings, DEVICE,
+                                                      frustum_cull=False, collect_stats=False)
+        add_launches(sl)
+        for k in (f"{mode}_raster", f"{mode}_raster_stats", "untile_one", "untile3"):
+            if not sl[k]:
+                fail(f"{k} never launched in the {mode} shadowed frame: {sl}")
+        diff, err = bits_equal(smap.cpu(), torch.from_numpy(ref_map))
+        if diff or not torch.equal(smap0, smap):
+            fail(f"{mode} shadow map: {diff} depths differ from the f32 oracle's light pass "
+                 f"(max abs err {err}), or the map differs without stats")
+        for plane in ("color", "depth", "full_depth"):
+            diff, err = bits_equal(getattr(res, plane).cpu(),
+                                   torch.from_numpy(np.ascontiguousarray(getattr(ref, plane))))
+            if diff:
+                fail(f"{mode} shadow_phong_{SHADOW_W} {plane}: {diff} elements differ from the "
+                     f"f32 oracle (max abs err {err})")
+            if not torch.equal(getattr(res0, plane), getattr(res, plane)):
+                fail(f"{mode} shadow_phong_{SHADOW_W} {plane} differs without stats")
+        if res.stats != ref.stats:
+            fail(f"{mode} shadow_phong_{SHADOW_W} stats differ from the oracle's:\n  port   "
+                 f"{res.stats}\n  oracle {ref.stats}")
+        say(f"[12 shadows] FINE_MODE={mode!r}: render_with_shadows -> map == f32 oracle light "
+            f"pass bitwise ({int(torch.isfinite(smap).sum())} texels drawn), colour, depth and "
+            f"full depth == f32 oracle of the lit scene fed that map bitwise "
+            f"({int(torch.isfinite(res.full_depth).sum())} covered), stats equal "
+            f"({res.stats.describe()}), the frame without stats equal; launches {sl}")
+
+    # ---- 13. shadow_phong_800 timing on pre-uploaded inputs, in turns ----
+    lit_passes = tscene.pass_tensors(shadows.shadowed_scene(sh_scene, sh_key, smap, light_cam,
+                                                            sh_settings),
+                                     DEVICE, frustum_cull=False)
+
+    def shadow_run(marks=None):
+        return staged_shadow_frame([light_pass], lit_passes, SHADOW_W, SHADOW_H, SHADOW_SIZE,
+                                   marks)
+
+    def shadow_e2e():
+        return shadows.render_with_shadows(sh_scene, sh_key, sh_settings, DEVICE,
+                                           frustum_cull=False, collect_stats=False)[0].color
+
+    for mode in MODES:
+        with fine_mode(mode):
+            if not torch.equal(shadow_run(), shadow_e2e()):
+                fail(f"the staged shadowed frame ({mode}) differs from render_with_shadows")
+    frame_ms = ab_ms(lambda mode: shadow_run())
+    e2e_ms = ab_ms(lambda mode: shadow_e2e())
+    for mode in MODES:
+        with fine_mode(mode):
+            st = stage_medians(shadow_run, ("light pass", "untile", "lit frame"))
+        say(f"[13 timing] shadow_phong_{SHADOW_W} {mode} kernel route: {frame_ms[mode]:.3f} "
+            f"ms/frame on pre-uploaded inputs, {SHADOW_W * SHADOW_H / frame_ms[mode] / 1e3:.1f} "
+            f"Mpix/s; render_with_shadows with its host layer {e2e_ms[mode]:.3f} ms/frame; "
+            f"stages ms: " + " ".join(f"{k} {v:.3f}" for k, v in st.items()) + f" | {smi}")
+    say(f"[13 a/b] shadow_phong_{SHADOW_W}: ms/frame in turns, pre-uploaded "
+        f"{ab_text(frame_ms)}; with the host layer {ab_text(e2e_ms)} | {smi}")
+
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
-    order = ("coarse_raster", "coarse_raster_stats", "fine_raster", "fine_raster_stats",
-             "fine2_raster", "fine2_raster_stats", "untile_one", "untile3")
+    order = ("coarse_raster", "coarse_raster_stats", "dense_raster", "fine_raster",
+             "fine_raster_stats", "fine2_raster", "fine2_raster_stats", "untile_one", "untile3")
     kernels = []
     for name in order:
         entry = dict(record[name])
@@ -988,7 +1221,7 @@ def main() -> int:
         kernels.append({k: entry[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    say(f"[11 done] {time.perf_counter() - t_start:.1f} s; main-path launches {totals}")
+    say(f"[14 done] {time.perf_counter() - t_start:.1f} s; main-path launches {totals}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -12,12 +12,14 @@ excluded in the MIDDLE: depth is restored before the room pass).
     without stats, and the winner plane of its ``render_frame_fused`` +
     ``tiles_to_buffers`` (coarse mode, Pallas in interpret mode, one
     subprocess for the module): bitwise;
-plus the image route on multi-pass scenes, the tile height, empty and
-unported frames, and (``cuda``) the GPU frame against the CPU frame.
+plus the image route on multi-pass scenes, the tile height, empty,
+depth-only and unknown-shader frames, and (``cuda``) the GPU frame
+against the CPU frame.
 The port side runs on the port's own scenes and shaders (``frame_scene``
 builds them), the JAX side on the JAX package's."""
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -32,16 +34,9 @@ from tinyrenderder_tpu_torch.ops import raster, raster_coarse, raster_fine, rast
 PLANES = ("color", "depth", "full_depth")
 
 
-class FlatShader(shaders.Shader):
-    """A colour shader the port has no device half for."""
-    name = "flat"
-
-
-class DepthShader(shaders.Shader):
-    """A depth-only shader: not ported yet (ROADMAP item 10)."""
-    name = "depth"
-    varying_spec: dict = {}
-    writes_color = False
+class UnknownShader(shaders.Shader):
+    """A colour shader class the port has no device half for."""
+    name = "unknown"
 
 
 def _np(result):
@@ -182,14 +177,28 @@ def test_empty_and_rejected_passes_render_nothing():
     assert r.stats == want.stats
 
 
-def test_unported_shaders_raise():
+def test_unported_shaders_raise(monkeypatch):
+    """A shader class the port does not know raises.  Depth-only passes
+    (``DepthShader``) render: a frame of them only is black with the
+    passes' depth, and a depth-only room keeps the colour of the passes
+    before it; both equal the oracle on each raster."""
     sc = frame_scene("multimesh")
-    sc.passes[2].shader = FlatShader()
-    with pytest.raises(NotImplementedError, match="FlatShader"):
+    sc.passes[2].shader = UnknownShader()
+    with pytest.raises(NotImplementedError, match="UnknownShader"):
         tscene.render_scene(sc, "cpu")
-    sc.passes[2].shader = DepthShader()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tscene.render_scene_image(sc, "cpu")
+    for mode, depth_only in itertools.product(("coarse", "fine", "fine2"), ([2], [0, 1, 2])):
+        monkeypatch.setattr(raster_sparse, "FINE_MODE", mode)
+        sc = frame_scene("multimesh")
+        for i in depth_only:
+            sc.passes[i].shader = shaders.DepthShader()
+        r = tscene.render_scene(sc, "cpu")
+        want = tscene.oracle_render(sc)
+        for k in PLANES:
+            assert_bits(getattr(r, k).numpy(), getattr(want, k), k)
+        assert r.stats == want.stats
+        assert_bits(tscene.render_scene_image(sc, "cpu").numpy(), want.color, "image")
+        assert r.color.any() == (len(depth_only) == 1)
+        assert torch.isfinite(r.full_depth).any()
 
 
 def test_cpu_frame_launches_no_kernel(monkeypatch):

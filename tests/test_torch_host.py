@@ -158,6 +158,7 @@ MESHES = {
     "bumpy_head": lambda p: p.bumpy_head(12, 16),
     "uv_sphere": lambda p: p.uv_sphere(10, 14, radius=0.12, name="eyes"),
     "cube": lambda p: p.cube(size=12.0, name="room"),
+    "plane": lambda p: p.plane(6.0, y=-1.0),
     "triangle_soup": lambda p: p.triangle_soup(40),
     "head_wall": lambda p: p.head_wall(2, 6, 8),
     "mixed_interior": lambda p: p.mixed_interior(3, 4, 6, room=10.0),
@@ -267,7 +268,7 @@ def test_stats_text_matches_jax():
 # shaders, scenes, post, oracle
 # ---------------------------------------------------------------------------
 
-KINDS = ("phong", "eye", "gouraud", "textured")
+KINDS = ("phong", "eye", "gouraud", "textured", "flat", "depth", "gray_depth")
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -275,7 +276,8 @@ def test_shader_host_half_matches_jax(kind):
     """build_uniforms, the NumPy vertex and fragment, and the constants."""
     from helpers import default_view
     view, proj = default_view()
-    mesh = {"phong": "head", "eye": "sphere", "gouraud": "sphere", "textured": "head"}[kind]
+    mesh = {"phong": "head", "eye": "sphere", "gouraud": "sphere", "textured": "head",
+            "flat": "head", "depth": "soup", "gray_depth": "sphere"}[kind]
     p = tp.make_pass(tp.standard_meshes()[mesh], tp.make_shader(kind), view, proj)
     jp = tp.make_pass(tp.standard_meshes("jax")[mesh], tp.make_shader(kind, "jax"), view,
                       proj, "jax")

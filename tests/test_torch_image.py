@@ -6,8 +6,9 @@
     with ``FINE_MODE = "coarse"`` (Pallas in interpret mode, one
     subprocess for the module, see tests/torch_parity.py): image, bitwise;
 (c) the port imports and renders with jax unimportable;
-plus the scene entry point's refusals, and (``cuda``) the GPU route against
-the CPU route.  The port side runs on the port's own meshes, shaders and
+plus the scene shapes the entry point sends to the tiled frame (a
+depth-only pass among them) and its refusals, and (``cuda``) the GPU
+route against the CPU route.  The port side runs on the port's own meshes, shaders and
 scenes, the oracle and JAX sides on the JAX package's."""
 
 import os
@@ -24,13 +25,6 @@ from tinyrenderder_tpu_torch import convert, math3d, shaders
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.models import procedural
 from tinyrenderder_tpu_torch.ops import raster_coarse, raster_fine, raster_sparse
-
-
-class DepthShader(shaders.Shader):
-    """A depth-only shader: the port has no device half for it yet."""
-    name = "depth"
-    varying_spec: dict = {}
-    writes_color = False
 
 
 def _port_frame(name, device="cpu", tile_h=16):
@@ -108,13 +102,22 @@ def _head_scene():
 
 
 def test_unported_scene_shapes_raise():
-    """Only a shader without a device half still raises; the scene shapes
-    the single-pass route did not take (several passes, an excluded pass,
-    an empty frame) go through the tiled frame and equal the oracle."""
+    """The scene shapes the single-pass route does not take (a depth-only
+    pass, several passes, an excluded pass, an empty frame) go through
+    the tiled frame and equal the oracle; the depth-only frame is black
+    with the pass's depth.  A shader class the port does not know
+    raises."""
     depth_only = _head_scene()
-    depth_only.passes[0].shader = DepthShader()
-    with pytest.raises(NotImplementedError, match="depth-only"):
-        tscene.render_scene_image(depth_only, "cpu")
+    depth_only.passes[0].shader = shaders.DepthShader()
+    image = tscene.render_scene_image(depth_only, "cpu")
+    want = tscene.oracle_render(depth_only)
+    assert_bits(image.numpy(), want.color, "image")
+    assert not image.any() and np.isfinite(want.depth).any()
+    assert_bits(tscene.render_scene(depth_only, "cpu").depth.numpy(), want.depth, "depth")
+    unknown = _head_scene()
+    unknown.passes[0].shader = type("UnknownShader", (shaders.Shader,), {})()
+    with pytest.raises(NotImplementedError, match="UnknownShader"):
+        tscene.render_scene_image(unknown, "cpu")
     key = math3d.normalized(math3d.vec3(1.0, 1.4, 1.0))
     two = _head_scene()
     two.add(procedural.uv_sphere(6, 8), math3d.identity4(),
@@ -137,8 +140,8 @@ def test_frame_function_validates_passes():
     with pytest.raises(ValueError, match="exactly one"):
         raster_sparse.render_frame_fused_image([one, one], w, h)
     with pytest.raises(ValueError, match="color shader"):
-        raster_sparse.render_frame_fused_image([(attrs, DepthShader(), uniforms, False)],
-                                               w, h)
+        raster_sparse.render_frame_fused_image(
+            [(attrs, shaders.DepthShader(), uniforms, False)], w, h)
     empty = {k: v[:0] for k, v in attrs.items()}
     with pytest.raises(ValueError, match="non-empty"):
         raster_sparse.render_frame_fused_image([(empty, p.shader, uniforms, False)], w, h)

@@ -6,8 +6,9 @@
     (one subprocess for the module, see tests/torch_parity.py), bitwise;
 (c) the port's CLI on the CPU: its TGA files equal, byte for byte, those
     written from the float32 oracle's colour and depth through the JAX
-    package's NumPy post and TGA writer, as the JAX CLI writes them;
-    refused modes exit non-zero.  The scenes are the port's own."""
+    package's NumPy post and TGA writer, as the JAX CLI writes them,
+    with and without ``--shadows`` (the shadowed oracle frame); refused
+    modes exit non-zero.  The scenes are the port's own."""
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from tinyrenderder_tpu.ops import post as ref
 from tinyrenderder_tpu.utils import tga
 from tinyrenderder_tpu_torch import cli
 from tinyrenderder_tpu_torch import scene as tscene
+from tinyrenderder_tpu_torch import shadows
 from tinyrenderder_tpu_torch.ops import post
 
 
@@ -98,13 +100,14 @@ def test_composite_is_integer_floor():
 # ---------------------------------------------------------------------------
 
 W, H = 64, 48
+#: the shadow map side of the --shadows case
+SHADOW_SIZE = 128
 
 
-@pytest.fixture(scope="module")
-def oracle_files(tmp_path_factory):
-    """The four files written the JAX CLI's way from the f32 oracle."""
-    out = tmp_path_factory.mktemp("oracle_cli")
-    r = tscene.oracle_render(cli.build_default_scene(width=W, height=H))
+def _write_oracle_files(out, r):
+    """The four files the JAX CLI writes from a render result, through
+    the JAX package's NumPy post and TGA writer, and the float64 z image
+    of its --no-ssao path."""
     zimg = ref.zbuffer_to_image(r.depth, np)
     ao_u8 = ref.ssao_image(ref.ssao_map(r.depth, np), np)
     final = ref.composite(r.color, ao_u8, np)
@@ -114,6 +117,14 @@ def oracle_files(tmp_path_factory):
         tga.TGAImage.from_rgb(rgb).write_tga_file(str(out / f"{name}.tga"))
     z64 = ref.zbuffer_to_image(np.asarray(r.depth, np.float64), np)
     tga.TGAImage.from_rgb(gray(z64)).write_tga_file(str(out / "zbuffer64.tga"))
+
+
+@pytest.fixture(scope="module")
+def oracle_files(tmp_path_factory):
+    """The four files written the JAX CLI's way from the f32 oracle."""
+    out = tmp_path_factory.mktemp("oracle_cli")
+    r = tscene.oracle_render(cli.build_default_scene(width=W, height=H))
+    _write_oracle_files(out, r)
     return out, r.stats
 
 
@@ -143,8 +154,32 @@ def test_cli_no_ssao_and_image_only(oracle_files, tmp_path):
     assert (tmp_path / "b" / "phong.tga").read_bytes() == (want / "phong.tga").read_bytes()
 
 
-@pytest.mark.parametrize("flags,item", [(["--shadows"], "item 10"),
-                                        (["--animate", "4"], "item 11"),
+def test_cli_shadows_writes_the_oracle_files(oracle_files, tmp_path, caplog):
+    """--shadows: the shadowed frame with exact stats, then the same post;
+    the files equal those of the oracle's two passes.  With --image-only
+    the flag is ignored, with a warning."""
+    want = tmp_path / "oracle"
+    want.mkdir()
+    r, _ = shadows.oracle_render_with_shadows(cli.build_default_scene(width=W, height=H),
+                                              cli.KEY_LIGHT_DIR,
+                                              shadows.ShadowSettings(size=SHADOW_SIZE))
+    _write_oracle_files(want, r)
+    caplog.set_level("INFO")
+    assert cli.run(["--device", "cpu", "--width", str(W), "--height", str(H), "--outdir",
+                    str(tmp_path / "a"), "--shadows", "--shadow-size", str(SHADOW_SIZE)]) == 0
+    for name in ("phong", "zbuffer", "ao", "final"):
+        assert (tmp_path / "a" / f"{name}.tga").read_bytes() == \
+            (want / f"{name}.tga").read_bytes(), name
+    assert r.stats.describe() in caplog.text
+    assert (want / "phong.tga").read_bytes() != (oracle_files[0] / "phong.tga").read_bytes()
+    assert cli.run(["--device", "cpu", "--width", str(W), "--height", str(H), "--outdir",
+                    str(tmp_path / "b"), "--image-only", "--shadows"]) == 0
+    assert "--shadows is not supported with --image-only" in caplog.text
+    assert (tmp_path / "b" / "phong.tga").read_bytes() == \
+        (oracle_files[0] / "phong.tga").read_bytes()
+
+
+@pytest.mark.parametrize("flags,item", [(["--animate", "4"], "item 11"),
                                         (["--profile"], "item 11")])
 def test_cli_refuses_unported_modes(flags, item, tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:

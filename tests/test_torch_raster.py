@@ -5,9 +5,12 @@ interpret mode), in one subprocess for the module (tests/torch_parity.py
 says why): ``raster_tiled._build_bins``,
 ``raster_pallas._pallas_call_sparse_jit(interpret=True)`` with and
 without ``collect_stats``, ``raster_sparse._untile_one_jit`` and
-``raster_sparse._untile_call_jit`` (both ``interpret=True``).  Both sides
-get the same inputs, made on the port side from one shared setup (and a
-seeded random running depth, half of it finite).  Tolerance: bitwise.
+``raster_sparse._untile_call_jit`` (both ``interpret=True``), and the
+dense entry: ``rasterize_pallas`` / ``depth_resolve_pallas`` on the JAX
+package's own ``bin_triangles_csr`` bins, and ``_pallas_call_jit`` with a
+nonzero ``origin``.  Both sides get the same inputs, made on the port
+side from one shared setup (and a seeded random running depth, half of
+it finite).  Tolerance: bitwise.
 
 Tests marked ``cuda`` compare the CUDA kernels with their plain versions
 and skip where no GPU is present."""
@@ -23,6 +26,12 @@ from tinyrenderder_tpu_torch.ops import raster_coarse, raster_sparse, raster_til
 #: raster cases: (scene of torch_parity.SCENES, tile_h)
 CASES = {"head16": ("head_phong", 16), "soup32": ("soup_phong_ragged", 32)}
 UNTILE = {"i32": (torch.int32, 2, 3, 16), "f32": (torch.float32, 3, 2, 32)}
+#: dense-entry cases: (scene of torch_parity.SCENES, width, height, tile_h,
+#: origin or None); ragged frames, the last three with empty tiles
+DENSE = {"head_97x61": ("head_phong", 97, 61, 16, None),
+         "cube_97x61": ("cube_gouraud", 97, 61, 16, None),
+         "head_300x61": ("head_phong", 300, 61, 16, None),
+         "head_300x61_th32_origin": ("head_phong", 300, 61, 32, (5, 3))}
 
 
 def _prepare(scene, th, seed):
@@ -59,6 +68,38 @@ def prepared():
             for seed, (name, (scene, th)) in enumerate(CASES.items())}
 
 
+def _prepare_dense(scene, w, h, th, origin, seed):
+    """A pass's setup, varying corners and a running depth (H, W), half
+    finite, as NumPy; the port's bins of the setup."""
+    p, _, _ = scene_pass(scene)
+    attrs, uniforms = convert.pass_to_torch(p.attrs, p.uniforms, "cpu")
+    setup, varyings = raster_tiled.vertex_stage(attrs, uniforms, p.shader, w, h)
+    vary_corners = raster_tiled.shader_varyings(varyings, p.shader)
+    rng = np.random.default_rng(seed)
+    init = rng.uniform(-0.2, 1.0, size=(h, w)).astype(np.float32)
+    init[rng.random(init.shape) < 0.5] = np.inf
+    return {"setup": {k: v.numpy() for k, v in setup.items()},
+            "vary_corners": vary_corners.numpy(), "init": init, "w": w, "h": h, "th": th,
+            "origin": origin, "bins": raster_tiled.bin_triangles_csr(setup, w, h, 128, th)}
+
+
+@pytest.fixture(scope="module")
+def dense_inputs():
+    return {name: _prepare_dense(*case, seed=20 + i)
+            for i, (name, case) in enumerate(DENSE.items())}
+
+
+def _dense_port(c, device="cpu"):
+    """The port's rasterize and depth_resolve of a dense case on ``device``."""
+    setup = {k: torch.from_numpy(v).to(device) for k, v in c["setup"].items()}
+    bins = raster_tiled.Bins(*(x.to(device) for x in c["bins"][:3]), *c["bins"][3:])
+    init = torch.from_numpy(c["init"]).to(device)
+    kw = {"tile_h": c["th"], "tile_w": 128, "origin": c["origin"] or (0, 0)}
+    full = raster_coarse.rasterize(setup, bins, init, c["h"], c["w"],
+                                   torch.from_numpy(c["vary_corners"]).to(device), **kw)
+    return full, raster_coarse.depth_resolve(setup, bins, init, c["h"], c["w"], **kw)
+
+
 @pytest.fixture(scope="module")
 def untile_inputs():
     rng = np.random.default_rng(11)
@@ -90,8 +131,13 @@ def untile3_inputs():
 
 
 @pytest.fixture(scope="module")
-def jax_side(prepared, untile_inputs, untile3_inputs, tmp_path_factory):
+def jax_side(prepared, untile_inputs, untile3_inputs, dense_inputs, tmp_path_factory):
     req = {}
+    for name, c in dense_inputs.items():
+        req[f"{name}_dense"] = {"op": "dense", **c["setup"], "vary_corners": c["vary_corners"],
+                                "init": c["init"], "w": c["w"], "h": c["h"], "th": c["th"]}
+        if c["origin"] is not None:
+            req[f"{name}_dense"]["origin"] = np.asarray(c["origin"], np.int32)
     for name, c in prepared.items():
         req[f"{name}_bins"] = {"op": "bins", **c["spans"], "total": c["total"],
                                "ntx": c["ntx"], "nty": c["nty"]}
@@ -202,6 +248,37 @@ def test_untile_plain_matches_pallas(untile_inputs, jax_side, name):
     assert_bits(got.numpy(), jax_side[f"{name}_untile"]["out"], "untile")
 
 
+@pytest.mark.parametrize("case", list(DENSE))
+def test_dense_raster_plain_matches_pallas(dense_inputs, jax_side, case):
+    """``rasterize`` (depth, winner, every varying plane) and
+    ``depth_resolve`` bitwise against ``rasterize_pallas`` /
+    ``depth_resolve_pallas`` on the JAX package's own bins (with an
+    origin, against ``_pallas_call_jit(origin=...)``); an empty tile keeps
+    its init depth, winner -1 and zero varyings."""
+    c = dense_inputs[case]
+    want = jax_side[f"{case}_dense"]
+    assert_bits(c["bins"].counts.numpy(), want["counts"], "bin counts")
+    (depth, winner, vary), (depth0, winner0) = _dense_port(c)
+    assert_bits(depth.numpy(), want["depth"], "depth")
+    assert_bits(winner.numpy(), want["winner"], "winner")
+    assert_bits(vary.numpy(), want["vary"], "varyings")
+    if c["origin"] is None:
+        assert_bits(depth0.numpy(), want["depth_only"], "depth_resolve depth")
+        assert_bits(winner0.numpy(), want["winner_only"], "depth_resolve winner")
+    won = winner.numpy() >= 0
+    assert won.any() and (~won).any()
+    assert_bits(depth.numpy()[~won], c["init"][~won], "depth where no triangle won")
+    assert not vary.numpy()[:, ~won].any()
+    if case != "head_97x61":
+        assert (c["bins"].counts == 0).any()
+
+
+def test_dense_raster_counts_no_cpu_launch(dense_inputs):
+    raster_coarse.DENSE_LAUNCHES = 0
+    _dense_port(dense_inputs["cube_97x61"])
+    assert raster_coarse.DENSE_LAUNCHES == 0
+
+
 def test_z_ties_go_to_the_first_drawn():
     """Every triangle drawn twice: each covered pixel's depth ties, and the
     first copy must win (the reference's strict-less z-test)."""
@@ -295,6 +372,22 @@ def test_cuda_coarse_raster_event_planes_match_plain(prepared, cuda_device, case
         assert_bits(g.cpu().numpy(), w.numpy(), name)
     for name, g, w in zip(names, got[:3], without):
         assert_bits(g.cpu().numpy(), w.cpu().numpy(), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DENSE))
+def test_cuda_dense_raster_matches_plain(dense_inputs, cuda_device, case):
+    """The dense launch (no tile list, every tile) against the plain
+    version, through ``rasterize`` and ``depth_resolve``."""
+    c = dense_inputs[case]
+    want = _dense_port(c)
+    before = raster_coarse.DENSE_LAUNCHES
+    got = _dense_port(c, cuda_device)
+    torch.cuda.synchronize()
+    assert raster_coarse.DENSE_LAUNCHES == before + 2
+    for name, g, w in zip(("depth", "winner", "vary", "depth only", "winner only"),
+                          (*got[0], *got[1]), (*want[0], *want[1])):
+        assert_bits(g.cpu().numpy(), w.numpy(), name)
 
 
 @pytest.mark.cuda

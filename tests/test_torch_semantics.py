@@ -207,15 +207,27 @@ def test_finalize_color_matches_numpy():
 
 
 def test_unported_shader_raises():
-    class FlatShader(shaders.Shader):       # a shader the port has no device half for
-        name = "flat"
+    """Every shader class of the JAX package has its counterpart in the
+    port, and the port supports each; a class it does not know raises,
+    a subclass included (a Phong subclass is not Phong)."""
+    class UnknownShader(shaders.Shader):
+        name = "unknown"
 
-    class ShadowMappedShader(shaders.PhongShader):
-        name = "shadow_mapped"
+    class MyPhong(shaders.PhongShader):
+        name = "my_phong"
 
-    with pytest.raises(NotImplementedError, match="FlatShader"):
-        shaders.vertex(FlatShader(), {}, {})
-    assert shaders.supports(shaders.EyeShader((0, 0, 1), (0, 1, 0)))
-    shadow = ShadowMappedShader((0, 0, 1), (0, 1, 0), (1, 0, 0))
-    assert not shaders.supports(shadow)     # a Phong subclass is not Phong
-    assert not shaders.supports(ref_shaders.EyeShader((0, 0, 1), (0, 1, 0)))
+    with pytest.raises(NotImplementedError, match="UnknownShader"):
+        shaders.vertex(UnknownShader(), {}, {})
+    names = {c.__name__ for c in vars(ref_shaders).values()
+             if isinstance(c, type) and issubclass(c, ref_shaders.Shader)}
+    assert names == {c.__name__ for c in vars(shaders).values()
+                     if isinstance(c, type) and issubclass(c, shaders.Shader)}
+    key, fill, rim = (0, 0, 1), (0, 1, 0), (1, 0, 0)
+    ported = [shaders.Shader(), shaders.PhongShader(key, fill, rim),
+              shaders.EyeShader(key, rim), shaders.FlatShader(), shaders.GouraudShader(),
+              shaders.TexturedShader(), shaders.DepthShader(), shaders.GrayDepthShader(),
+              shaders.ShadowMappedShader(key, fill, rim, np.eye(4), None)]
+    assert {type(s).__name__ for s in ported} == names
+    assert [shaders.supports(s) for s in ported] == [False] + [True] * (len(ported) - 1)
+    assert not shaders.supports(MyPhong(key, fill, rim))
+    assert not shaders.supports(ref_shaders.EyeShader(key, rim))

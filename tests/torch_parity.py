@@ -107,6 +107,36 @@ def multimesh_scene(side: str, w: int, h: int, head_lat=12, head_lon=16, eye_lat
     return scene
 
 
+#: the blocker scene of tests/test_shadows.py: its lights and the light it is lit from
+SHADOW_KEY = (0.6, 1.2, 0.8)
+
+
+def blocker_scene(side: str, w: int = 96, h: int = 72):
+    """``tests/test_shadows.py::_blocker_scene`` from one side's host
+    objects: a sphere hovering over a ground plane, Phong without normal
+    maps, lit from above."""
+    m = side_modules(side)
+    math3d, procedural, shaders = m["math3d"], m["procedural"], m["shaders"]
+    key, fill, rim = (math3d.normalized(math3d.vec3(*v)) for v in
+                      (SHADOW_KEY, (-0.3, 0.5, 0.2), (-1.0, 0.8, -1.5)))
+    sphere = procedural.uv_sphere(10, 14, radius=0.5)
+    sphere.materials = [procedural.default_head_material(16)]
+    ground = procedural.plane(6.0, y=-1.0)
+    ground.materials = [procedural.default_head_material(16)]
+    cam = m["camera"].Camera()
+    cam.set_eye(math3d.vec3(0.0, 1.2, 3.2))
+    cam.set_target(math3d.vec3(0.0, -0.3, 0.0))
+    cam.set_fov(55.0)
+    cam.set_aspect(w / h)
+    cam.set_clipping(0.1, 50.0)
+    scene = m["scene"].Scene(camera=cam, width=w, height=h)
+    scene.add(sphere, math3d.translation_matrix(0.0, 0.2, 0.0),
+              shaders.PhongShader(key, fill, rim, normal_map_strength=0.0), name="sphere")
+    scene.add(ground, math3d.identity4(),
+              shaders.PhongShader(key, fill, rim, normal_map_strength=0.0), name="ground")
+    return scene
+
+
 def frame_scene(name: str, side: str = "port"):
     """A fresh ``Scene`` of ``FRAMES`` built from one side's host objects."""
     w, h = FRAMES[name]
@@ -124,7 +154,10 @@ def make_shader(kind: str, side: str = "port"):
     return {"phong": lambda: sh.PhongShader(key, fill, rim, normal_map_strength=0.5),
             "eye": lambda: sh.EyeShader(key, rim),
             "gouraud": lambda: sh.GouraudShader(light_world=key),
-            "textured": lambda: sh.TexturedShader(light_world=key)}[kind]()
+            "textured": lambda: sh.TexturedShader(light_world=key),
+            "flat": lambda: sh.FlatShader(light_world=key),
+            "depth": lambda: sh.DepthShader(),
+            "gray_depth": lambda: sh.GrayDepthShader()}[kind]()
 
 
 def standard_meshes(side: str = "port") -> dict:
@@ -430,6 +463,57 @@ def _jax_scene(r):
     return out
 
 
+def _jax_shadows(r):
+    """``shadows.render_with_shadows(backend="tiled")`` of the blocker
+    scene at (w, h, size), with stats, on the tiled route's loop in
+    ``mode``: the map and the frame."""
+    from tinyrenderder_tpu import math3d, shadows
+
+    key = math3d.normalized(math3d.vec3(*SHADOW_KEY))
+    scene = blocker_scene("jax", int(r["w"]), int(r["h"]))
+    with _tiles_loop(str(r["mode"])):
+        res, smap = shadows.render_with_shadows(
+            scene, key, shadows.ShadowSettings(size=int(r["size"])), backend="tiled",
+            collect_stats=True)
+    out = {k: np.asarray(getattr(res, k)) for k in ("color", "depth", "full_depth")}
+    out.update(map=np.asarray(smap), stats=stats_vector(res.stats))
+    return out
+
+
+def _jax_dense(r):
+    """``raster_pallas.rasterize_pallas`` and ``depth_resolve_pallas``
+    (``interpret=True``) on the JAX package's own bins of a setup; with
+    ``origin``, ``_pallas_call_jit(origin=...)`` on those bins, untiled
+    and cropped as ``rasterize_pallas`` does."""
+    import jax.numpy as jnp
+
+    from tinyrenderder_tpu.ops import raster_pallas, raster_tiled
+
+    setup = {k: jnp.asarray(r[k]) for k in ("valid", "screen", "ndc_z", "clip_w", "bbox")}
+    w, h, th = int(r["w"]), int(r["h"]), int(r["th"])
+    init = jnp.asarray(r["init"])
+    vary_corners = jnp.asarray(r["vary_corners"])
+    bins = raster_tiled.bin_triangles_csr(setup, w, h, 128, th)
+    out = {"counts": np.asarray(bins.counts)}
+    if "origin" in r:
+        ntx, nty, n_vary = bins.n_tiles_x, bins.n_tiles_y, int(vary_corners.shape[-1])
+        records = raster_pallas.build_pair_records(setup, bins.sorted_tri, vary_corners)
+        init_t = raster_pallas._tiles_jit(init, nty, ntx, th, 128)
+        d, wn, v = raster_pallas._pallas_call_jit(
+            bins.start[:-1].astype(jnp.int32), bins.counts.astype(jnp.int32), records, init_t,
+            ntx, nty, th, 128, n_vary, True, origin=jnp.asarray(r["origin"]))
+        out.update(depth=raster_pallas._untile_jit(d, nty, ntx, th, 128, h, w),
+                   winner=raster_pallas._untile_winner_jit(wn, nty, ntx, th, 128, h, w),
+                   vary=raster_pallas._untile_vary_jit(v, nty, ntx, th, 128, h, w))
+    else:
+        d, wn, v = raster_pallas.rasterize_pallas(setup, bins, init, h, w, vary_corners, th,
+                                                  128, interpret=True)
+        d0, w0 = raster_pallas.depth_resolve_pallas(setup, bins, init, h, w, th, 128,
+                                                    interpret=True)
+        out.update(depth=d, winner=wn, vary=v, depth_only=d0, winner_only=w0)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def _jax_post(r):
     from tinyrenderder_tpu.ops import post
     zimg, ao, final = post.postprocess_device(r["color"], r["depth"])
@@ -441,7 +525,8 @@ def _main(req_path, out_path):
     jax.config.update("jax_platforms", "cpu")
     ops = {"bins": _jax_bins, "raster": _jax_raster, "untile": _jax_untile,
            "untile3": _jax_untile3, "image": _jax_image, "scene": _jax_scene,
-           "post": _jax_post, "pre_fine": _jax_pre_fine, "pre_fine2": _jax_pre_fine2}
+           "post": _jax_post, "pre_fine": _jax_pre_fine, "pre_fine2": _jax_pre_fine2,
+           "shadows": _jax_shadows, "dense": _jax_dense}
     requests: dict = {}
     with np.load(req_path) as z:
         for key in z.files:

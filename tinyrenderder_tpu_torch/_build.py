@@ -34,9 +34,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
-    # tri_rec, rec_stride, sorted_tri, tile_ids, start, count, n_active,
-    # origin_x, origin_y, n_tiles_x, tile_h, tile_w, n_vary,
-    # init_depth, depth, winner, vary, ev_count, ev_maxz, stream
+    # tri_rec, rec_stride, sorted_tri, tile_ids (or null: every tile),
+    # start, count, n_active, origin_x, origin_y, n_tiles_x, tile_h, tile_w,
+    # n_vary, init_depth, depth, winner, vary, ev_count, ev_maxz, stream
     "trt_coarse_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P],
     # tri_rec, rec_stride, tri8, tile_ids, row_start, rows, n_active,

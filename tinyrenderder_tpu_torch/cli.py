@@ -2,15 +2,17 @@
 
     python -m tinyrenderder_tpu_torch.cli [model] --device cuda|cpu \\
         [--width W] [--height H] [--outdir DIR] [--no-cull] [--no-ssao] \\
-        [--image-only]
+        [--image-only] [--shadows [--shadow-size S]]
 
 Counterpart of ``tinyrenderder_tpu.cli`` on the port: the same default
 scene (``build_default_scene``: Sponza, head, eyes excluded from the
 output depth; deterministic procedural stand-ins where the OBJ assets
 are missing), rendered with exact stats by ``scene.render_scene`` on
 ``--device``, then z-visualization, SSAO and the composite on the same
-device, and the same four TGA files and log lines.  The JAX CLI's
-shadow, animation and profiler modes are not ported yet and are refused.
+device, and the same four TGA files and log lines.  ``--shadows`` renders
+the two-pass shadowed frame from the key light (``shadows.py``) in its
+place.  The JAX CLI's animation and profiler modes are not ported yet and
+are refused.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from tinyrenderder_tpu_torch import math3d
 from tinyrenderder_tpu_torch import scene as tscene
+from tinyrenderder_tpu_torch import shadows
 from tinyrenderder_tpu_torch.camera import Camera
 from tinyrenderder_tpu_torch.models import procedural
 from tinyrenderder_tpu_torch.models.manager import ModelManager
@@ -48,7 +51,7 @@ SPONZA_MODEL_PATH = "obj/sponza/sponza.obj"
 KEY_LIGHT_DIR = math3d.normalized(math3d.vec3(1.0, 1.4, 1.0))
 
 #: JAX CLI modes the port refuses, and the ROADMAP.md Queue 1 item that ports each
-UNPORTED = {"shadows": "item 10", "animate": "item 11", "profile": "item 11"}
+UNPORTED = {"animate": "item 11", "profile": "item 11"}
 
 
 def _load_or_procedural(manager: ModelManager, path: str, kind: str,
@@ -151,7 +154,9 @@ def run(argv=None) -> int:
     parser.add_argument("--no-ssao", action="store_true")
     parser.add_argument("--image-only", action="store_true",
                         help="write ONLY phong.tga")
-    parser.add_argument("--shadows", action="store_true", help="not ported yet")
+    parser.add_argument("--shadows", action="store_true",
+                        help="two-pass hard shadow mapping from the key light")
+    parser.add_argument("--shadow-size", type=int, default=1024)
     parser.add_argument("--animate", type=int, default=0, metavar="N",
                         help="not ported yet")
     parser.add_argument("--profile", action="store_true", help="not ported yet")
@@ -179,6 +184,8 @@ def _render_and_write(args, scene) -> int:
     cull = not args.no_cull
     os.makedirs(args.outdir, exist_ok=True)
     if args.image_only:
+        if args.shadows:
+            log.warning("--shadows is not supported with --image-only and is ignored")
         # a fully culled scene must not clobber an earlier phong.tga
         if not tscene._cull_passes(scene, cull, RenderStats()):
             log.warning("every model culled — phong.tga not written")
@@ -190,7 +197,13 @@ def _render_and_write(args, scene) -> int:
         log.info("Saved: phong.tga")
         return 0
 
-    result = tscene.render_scene(scene, args.device, cull)
+    if args.shadows:
+        # the scene's key light: the shadows track it
+        result, _ = shadows.render_with_shadows(
+            scene, KEY_LIGHT_DIR, shadows.ShadowSettings(size=args.shadow_size),
+            args.device, frustum_cull=cull)
+    else:
+        result = tscene.render_scene(scene, args.device, cull)
     log.info("Render time: %.3f s (%s)", time.perf_counter() - t0, args.device)
     for name, dt in result.pass_timings.items():
         log.info("  pass %-10s %.3f s", name, dt)

@@ -1,8 +1,11 @@
-// Coarse raster over compacted active tiles, for Hopper (sm_90a).
+// Coarse raster over compacted active tiles or over every tile, for Hopper
+// (sm_90a).
 //
 // Replaces: tinyrenderder_tpu/ops/raster_pallas.py::_tile_kernel, as
 // launched over active tiles by _pallas_call_sparse_jit, with and
-// without its collect_stats event planes.  Plain version and contract:
+// without its collect_stats event planes, and as launched over the dense
+// grid of every tile by _pallas_call_jit (rasterize_pallas,
+// depth_resolve_pallas).  Plain version and contract:
 // tinyrenderder_tpu_torch/ops/raster_coarse.py.
 //
 // What bounds it on this card: per-pixel arithmetic.  For every (pixel,
@@ -13,7 +16,10 @@
 // contraction is the price of bitwise parity with the reference.
 //
 // Design:
-//  * one block of 256 threads per active tile of TH x 128 pixels; thread
+//  * one block of 256 threads per active tile of TH x 128 pixels (block a
+//    rasters tile tile_ids[a]; with no tile_ids, the dense launch, block a
+//    is tile a, and a tile whose bin is empty returns its init depth,
+//    winner -1 and zero varyings); thread
 //    t owns the pixels t, t + 256, ... (column t % 128), so every store is
 //    a coalesced 128-float row segment;
 //  * loop 1 streams the tile's bin IN BIN ORDER through shared memory in
@@ -70,7 +76,7 @@ coarse_raster_kernel(const float* __restrict__ tri_rec, int rec_stride,
   __shared__ int s_tri[kChunk];
 
   const int a = blockIdx.x;
-  const int tile = tile_ids[a];
+  const int tile = tile_ids ? tile_ids[a] : a;
   const int seg = start[a];
   const int n = count[a];
   const int tid = threadIdx.x;
@@ -154,7 +160,9 @@ void launch(int n_active, cudaStream_t s, const float* tri_rec,
 
 }  // namespace
 
-// ev_count and ev_maxz: both null (no stats) or both (A, TH, 128)
+// tile_ids: (A,) tile of each block, or null for the dense launch over
+// tiles 0 .. A - 1; ev_count and ev_maxz: both null (no stats) or both
+// (A, TH, 128)
 extern "C" int trt_coarse_raster(const float* tri_rec, int rec_stride,
                                  const int* sorted_tri, const int* tile_ids,
                                  const int* start, const int* count, int n_active,

@@ -3,7 +3,7 @@ reference's assets (its obj/ directory is not shipped).
 
 Counterpart of ``tinyrenderder_tpu/models/procedural.py``, the meshes and
 textures the port's scenes and tests use: a UV sphere, the bumpy head
-(a displaced sphere), a cube, a random triangle soup, the bench's two
+(a displaced sphere), a ground plane, a cube, a random triangle soup, the bench's two
 246k-triangle meshes (a wall of heads, and the same inside a room), and
 the checker / normal / specular maps of the default head material.
 """
@@ -16,7 +16,7 @@ import numpy as np
 
 from tinyrenderder_tpu_torch.models.mesh import Material, Mesh
 
-__all__ = ["uv_sphere", "bumpy_head", "cube", "triangle_soup", "head_wall",
+__all__ = ["uv_sphere", "bumpy_head", "plane", "cube", "triangle_soup", "head_wall",
            "mixed_interior", "checker_texture", "gradient_specular_texture",
            "sphere_normal_texture", "default_head_material"]
 
@@ -71,6 +71,15 @@ def bumpy_head(n_lat: int = 24, n_lon: int = 32, radius: float = 1.0,
                 uvs=base.uvs.copy(), name=name)
     # normals left zero -> regenerated area-weighted (model.cpp:269-316 path)
     return mesh.finalize()
+
+
+def plane(size: float = 2.0, y: float = 0.0, name: str = "plane") -> Mesh:
+    """Ground plane facing +y (two triangles, CCW from above)."""
+    s = size / 2.0
+    pos = np.array([[-s, y, -s], [s, y, -s], [s, y, s], [-s, y, s]])
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], dtype=np.float64)
+    faces = np.array([[0, 2, 1], [0, 3, 2]], dtype=np.int32)
+    return Mesh(positions=pos, faces=faces, uvs=uv, name=name).finalize()
 
 
 def cube(size: float = 1.0, name: str = "cube") -> Mesh:

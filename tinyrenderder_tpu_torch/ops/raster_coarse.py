@@ -1,10 +1,13 @@
-"""Coarse raster over compacted active tiles: the CUDA kernel
-``csrc/raster_coarse.cu`` and its plain PyTorch version.
+"""Coarse raster over compacted active tiles or over every tile: the CUDA
+kernel ``csrc/raster_coarse.cu`` and its plain PyTorch version.
 
 Counterpart of ``tinyrenderder_tpu/ops/raster_pallas.py``
 (``build_pair_records`` and ``_tile_kernel`` as launched by
-``_pallas_call_sparse_jit``, with and without ``collect_stats``).  One
-program per active tile of tile_h x 128 pixels:
+``_pallas_call_sparse_jit``, with and without ``collect_stats``, and by
+``_pallas_call_jit`` over the dense grid of every tile, the launch of
+``rasterize_pallas`` and ``depth_resolve_pallas``: ``dense_raster``,
+``rasterize``, ``depth_resolve``).  One program per tile of tile_h x 128
+pixels:
 
   loop 1 — walk the tile's bin in bin order (= submission order) and keep,
            per pixel, the first pair with the smallest covered depth: the
@@ -18,6 +21,7 @@ Contract (shared by both versions, bitwise):
               f32), then the varying corners channel-major
   sorted_tri  (P,) i32 bin-ordered triangle ids
   tile_ids, start, count  (A,) i32 active tiles and their CSR segments
+              (the dense launch: every tile, tile_ids = 0 .. T - 1)
   origin      global pixel offset (x, y) of tile 0
   init_depth  (A, th, tw) f32 running depth per active tile
   -> depth (A, th, tw) f32, winner (A, th, tw) i32 (-1 = background),
@@ -40,10 +44,11 @@ import torch
 
 from tinyrenderder_tpu_torch import _build
 from tinyrenderder_tpu_torch.ops import semantics
+from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_H, TILE_W, Bins, to_tiles
 
-__all__ = ["GEOM", "MAX_VARY", "SUB", "LAUNCHES", "STATS_LAUNCHES",
+__all__ = ["GEOM", "MAX_VARY", "SUB", "LAUNCHES", "STATS_LAUNCHES", "DENSE_LAUNCHES",
            "build_tri_records", "check_inputs", "check_tensors", "coarse_raster",
-           "coarse_raster_plain",
+           "coarse_raster_plain", "dense_raster", "rasterize", "depth_resolve",
            "tile_pixels", "interpolate_winners"]
 
 GEOM = 16            # geometry columns before the varying corners
@@ -52,9 +57,11 @@ SUB = 16             # pairs per vector step of the plain version
 TILE_CHUNK = 64      # tiles per step of the plain version (bounds memory)
 
 #: kernel launches since the last reset (the CPU path does not count),
-#: without and with the event planes
+#: over active tiles without and with the event planes, and over every
+#: tile (``dense_raster``)
 LAUNCHES = 0
 STATS_LAUNCHES = 0
+DENSE_LAUNCHES = 0
 
 
 def build_tri_records(setup: dict, vary_corners=None) -> torch.Tensor:
@@ -123,12 +130,27 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
         return coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
                                    init_depth, n_tiles_x, tile_h, tile_w,
                                    n_vary, origin, collect_stats)
+    out = _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x,
+                  tile_h, tile_w, n_vary, origin, collect_stats)
+    if count.shape[0]:
+        if collect_stats:
+            STATS_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
+    return out
+
+
+def _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x: int,
+            tile_h: int, tile_w: int, n_vary: int, origin, collect_stats: bool):
+    """Launch the kernel on CUDA tensors: one block per entry of
+    ``count``, block a on tile ``tile_ids[a]`` or, with ``tile_ids``
+    None, on tile a.  No entries, no launch."""
     if tri_rec.device.type != "cuda":
         raise ValueError(f"no coarse raster for device {tri_rec.device}")
     if tile_w != 128 or tile_h not in (16, 32):
         raise ValueError(f"the CUDA kernel takes 16x128 or 32x128 tiles, "
                          f"not {tile_h}x{tile_w}")
-    a = tile_ids.shape[0]
+    a = count.shape[0]
     depth = torch.empty((a, tile_h, tile_w), dtype=torch.float32, device=tri_rec.device)
     winner = torch.empty((a, tile_h, tile_w), dtype=torch.int32, device=tri_rec.device)
     vary = torch.empty((a, n_vary, tile_h, tile_w), dtype=torch.float32,
@@ -143,18 +165,77 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.trt_coarse_raster(
             tri_rec.data_ptr(), tri_rec.shape[1], sorted_tri.data_ptr(),
-            tile_ids.data_ptr(), start.data_ptr(), count.data_ptr(), a,
-            int(origin[0]), int(origin[1]), n_tiles_x, tile_h, tile_w, n_vary,
-            init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
+            None if tile_ids is None else tile_ids.data_ptr(), start.data_ptr(),
+            count.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x, tile_h,
+            tile_w, n_vary, init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
             vary.data_ptr() if n_vary else None,
             ev[0].data_ptr() if ev else None, ev[1].data_ptr() if ev else None,
             stream)
     _build.check(rc, "trt_coarse_raster")
-    if collect_stats:
-        STATS_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
     return out
+
+
+def dense_raster(tri_rec, sorted_tri, start, count, init_tiles, n_tiles_x: int,
+                 tile_h: int, tile_w: int, n_vary: int, origin=(0, 0)):
+    """Raster EVERY tile of the grid (the launch of ``_pallas_call_jit``):
+    ``start``, ``count`` (T,) i32 each tile's CSR segment, ``init_tiles``
+    (T, th, tw) f32 each tile's running depth.  Returns (depth, winner,
+    vary) for all T tiles; an empty tile gives its init depth, winner -1
+    and zero varyings.  CPU tensors take the plain version over tile ids
+    0 .. T - 1; CUDA tensors launch the kernel with no tile list."""
+    global DENSE_LAUNCHES
+    t = count.shape[0]
+    check_tensors(tri_rec, n_vary, (
+        ("sorted_tri", sorted_tri, torch.int32, (sorted_tri.shape[0],)),
+        ("start", start, torch.int32, (t,)),
+        ("count", count, torch.int32, (t,)),
+        ("init_tiles", init_tiles, torch.float32, (t, tile_h, tile_w))))
+    if tri_rec.device.type == "cpu":
+        ids = torch.arange(t, dtype=torch.int32)
+        return coarse_raster_plain(tri_rec, sorted_tri, ids, start, count, init_tiles,
+                                   n_tiles_x, tile_h, tile_w, n_vary, origin)
+    out = _launch(tri_rec, sorted_tri, None, start, count, init_tiles, n_tiles_x,
+                  tile_h, tile_w, n_vary, origin, False)
+    if t:
+        DENSE_LAUNCHES += 1
+    return out
+
+
+def rasterize(setup: dict, bins: Bins, init_depth, height: int, width: int,
+              vary_corners=None, tile_h: int = TILE_H, tile_w: int = TILE_W,
+              origin=(0, 0)):
+    """Depth resolve and, with ``vary_corners`` (F, 3, V), the
+    perspective-correct varyings of every pixel's winner, over every tile
+    of ``bins``' grid (``rasterize_pallas``).  ``init_depth`` (H, W) f32
+    is the running depth (the ragged edge is padded with +inf);
+    ``origin`` is the global pixel offset of tile 0 (a band of a larger
+    frame).  Returns (depth (H, W) f32, winner (H, W) i32, -1 where no
+    triangle won, vary (V, H, W) f32 or None), each plane untiled with
+    ``untile_one`` and cropped."""
+    from tinyrenderder_tpu_torch.ops.raster_sparse import untile_one  # imports this module
+
+    ntx, nty = bins.n_tiles_x, bins.n_tiles_y
+    n_vary = 0 if vary_corners is None else vary_corners.shape[-1]
+    tri_rec = build_tri_records(setup, vary_corners)
+    init = to_tiles(init_depth, nty, ntx, tile_h, tile_w, torch.inf)
+    depth, winner, vary = dense_raster(tri_rec, bins.sorted_tri, bins.start[:-1], bins.counts,
+                                       init, ntx, tile_h, tile_w, n_vary, origin)
+
+    def plane(x):
+        return untile_one(x, ntx, nty, tile_h, tile_w)[:height, :width]
+
+    if n_vary:
+        vary = torch.stack([plane(v) for v in vary.transpose(0, 1).contiguous()])
+    return plane(depth), plane(winner), vary if n_vary else None
+
+
+def depth_resolve(setup: dict, bins: Bins, init_depth, height: int, width: int,
+                  tile_h: int = TILE_H, tile_w: int = TILE_W, origin=(0, 0)):
+    """``rasterize`` without varyings (``depth_resolve_pallas``, phase A
+    only) -> (depth (H, W) f32, winner (H, W) i32)."""
+    depth, winner, _ = rasterize(setup, bins, init_depth, height, width, None, tile_h,
+                                 tile_w, origin)
+    return depth, winner
 
 
 def tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, dtype):

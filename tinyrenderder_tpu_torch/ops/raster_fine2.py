@@ -280,7 +280,8 @@ def post_fine2(ft, pre: PreFine2, out, winner_offset: int, shade) -> None:
     the frame's; there depth and colour are the pass's and the winner is
     ``winner + winner_offset``.  ``shade(vary)`` packs (G, V, th, 128)
     varyings into (G, th, 128) int32 colours; it runs in group space and
-    only the colour is regrouped."""
+    only the colour is regrouped.  ``shade`` None (a depth-only pass)
+    keeps the frame's colour."""
     d_g, w_g, v_g = out[:3]
     idl = pre.ids.long()
     a, th = idl.shape[0], d_g.shape[1]
@@ -292,6 +293,8 @@ def post_fine2(ft, pre: PreFine2, out, winner_offset: int, shade) -> None:
     ft.depth.index_copy_(0, idl, _blocks(torch.where(won, d_new, d_old)))
     ft.winner.index_copy_(0, idl, torch.where(won_t, _blocks(_slabs(w_g, src)) + winner_offset,
                                               ft.winner[idl]))
+    if shade is None:
+        return
     ft.color.index_copy_(0, idl, torch.where(won_t, _blocks(_slabs(shade(v_g), src)),
                                              ft.color[idl]))
 

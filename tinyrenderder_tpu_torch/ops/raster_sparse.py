@@ -38,18 +38,17 @@ from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2
 from tinyrenderder_tpu_torch.ops.raster import BACKGROUND, FrameBuffers
 from tinyrenderder_tpu_torch.ops.raster_coarse import build_tri_records, coarse_raster
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids,
-                                                      build_bins, cdiv, shader_varyings,
-                                                      tile_pair_counts, tile_spans,
-                                                      vertex_stage)
+                                                      build_bins, cdiv, n_vary_of,
+                                                      shader_varyings, tile_pair_counts,
+                                                      tile_spans, vertex_stage)
 
 __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
            "untile_one_plain", "untile3", "untile3_plain", "FrameTiles",
            "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
            "shade_compact_fresh", "compact_to_image", "post_sparse",
-           "PassEvents", "reduce_events", "FINE_MODE", "decide_mode", "raster_pass",
-           "grouped_pass",
-           "render_frame_fused", "render_frame_fused_image", "LAUNCHES",
-           "UNTILE3_LAUNCHES"]
+           "PassEvents", "reduce_events", "FINE_MODE", "DEPTH_ONLY_MODE", "decide_mode",
+           "raster_pass", "grouped_pass", "render_frame_fused", "render_frame_fused_image",
+           "LAUNCHES", "UNTILE3_LAUNCHES"]
 
 #: untile kernel launches since the last reset (the CPU path does not
 #: count): the single-plane kernel and the three-plane kernel
@@ -263,12 +262,15 @@ def post_sparse(ft: FrameTiles, ids, depth_c, winner_c, vary_c, uniforms: dict,
     winner becomes ``winner_c + winner_offset`` and the colour its shaded
     fragment, elsewhere both keep the frame's.  Every active tile is
     shaded; the TPU's won-tile capacity only chose which tiles to shade,
-    never a pixel's value."""
+    never a pixel's value.  A depth-only pass shades nothing and keeps
+    the frame's colour."""
     idl = ids.long()
     won = winner_c >= 0
     ft.depth.index_copy_(0, idl, depth_c)
     ft.winner.index_copy_(0, idl, torch.where(won, winner_c + winner_offset,
                                               ft.winner[idl]))
+    if not shader.writes_color:
+        return
     out = _shade_packed(vary_c, uniforms, shader)
     ft.color.index_copy_(0, idl, torch.where(won, out, ft.color[idl]))
 
@@ -317,6 +319,10 @@ FINE_RATIO: float | None = None
 FINE2_RATIO: float | None = None
 #: passes below this many faces stay coarse (the reference's floor)
 FINE_MIN_FACES = 512
+#: which raster "auto" gives a depth-only pass (the shadow light pass):
+#: "coarse", or "probe" to weigh it as a colour pass is weighed (the strip
+#: rasters take depth-only passes too, with no varyings)
+DEPTH_ONLY_MODE = "coarse"
 #: "auto" decisions, per (faces, grid, shader kind)
 _FINE_DECISION: dict = {}
 
@@ -330,7 +336,8 @@ def decide_mode(attrs: dict, uniforms: dict, shader, width: int, height: int,
     "fine2" where grouped rows <= FINE2_RATIO x rows (and <= 0.45 x
     pairs, else coarse), otherwise "fine" where rows <=
     FINE_RATIO x pairs.  Passes under ``FINE_MIN_FACES`` faces or with more
-    than ``raster_fine.MAX_VARY`` varying channels stay coarse.  The
+    than ``raster_fine.MAX_VARY`` varying channels stay coarse, and so do
+    depth-only passes while ``DEPTH_ONLY_MODE`` is "coarse".  The
     reference's TPU-only clause and its 2^21 strip-pair cap (a workaround
     of the TPU's exact-f32 divmod) have no counterpart here."""
     if FINE_MODE in ("coarse", "fine", "fine2"):
@@ -338,15 +345,21 @@ def decide_mode(attrs: dict, uniforms: dict, shader, width: int, height: int,
     if FINE_MODE != "auto":
         raise ValueError(f"FINE_MODE must be 'auto', 'coarse', 'fine' or 'fine2', "
                          f"not {FINE_MODE!r}")
+    if DEPTH_ONLY_MODE not in ("coarse", "probe"):
+        raise ValueError(f"DEPTH_ONLY_MODE must be 'coarse' or 'probe', not "
+                         f"{DEPTH_ONLY_MODE!r}")
     f = attrs["position"].shape[0]
     n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
-    n_vary = sum(shader.varying_spec.values())
-    key = (f, n_tiles_x, n_tiles_y, tile_h, tile_w, shader.writes_color, n_vary)
+    n_vary = n_vary_of(shader)
+    depth_only = not shader.writes_color
+    key = (f, n_tiles_x, n_tiles_y, tile_h, tile_w, shader.writes_color, n_vary,
+           DEPTH_ONLY_MODE if depth_only else "")
     mode = _FINE_DECISION.get(key)
     if mode is None:
         mode = "coarse"
         if ((FINE_RATIO is not None or FINE2_RATIO is not None) and f >= FINE_MIN_FACES
-                and n_vary <= raster_fine.MAX_VARY and tile_w == TILE_W):
+                and n_vary <= raster_fine.MAX_VARY and tile_w == TILE_W
+                and not (depth_only and DEPTH_ONLY_MODE == "coarse")):
             p = raster_fine2.probe_rows(attrs, uniforms, shader, width, height, tile_h,
                                         tile_w)
             if FINE2_RATIO is not None and p.grouped_rows <= FINE2_RATIO * p.rows:
@@ -365,7 +378,7 @@ def raster_pass(mode: str, attrs: dict, uniforms: dict, shader, width: int, heig
     Returns (ids, setup, (depth, winner, vary[, ev])) in the raster
     contract both routes share."""
     n_tiles_x = cdiv(width, tile_w)
-    n_vary = sum(shader.varying_spec.values())
+    n_vary = n_vary_of(shader)
     if mode == "fine":
         pre = raster_fine.pre_fine(attrs, uniforms, shader, width, height, tile_h, tile_w)
         out = raster_fine.fine_raster(pre.tri_rec, pre.tri8, pre.ids, pre.row_start,
@@ -387,7 +400,7 @@ def grouped_pass(attrs: dict, uniforms: dict, shader, width: int, height: int,
     pre = raster_fine2.pre_fine2(attrs, uniforms, shader, width, height, tile_h)
     init = None if depth_tiles is None else raster_fine2.init_strips(depth_tiles, pre)
     out = raster_fine2.fine2_raster(pre.tri_rec, pre.tri8, pre.group_start, pre.group_rows,
-                                    pre.x0y0, tile_h, sum(shader.varying_spec.values()),
+                                    pre.x0y0, tile_h, n_vary_of(shader),
                                     init, collect_stats=collect_stats)
     return pre, out
 
@@ -479,7 +492,8 @@ def render_frame_fused(passes, width: int, height: int, device,
                                     ft.depth if collect_stats else None, collect_stats)
             setup = pre.setup
             raster_fine2.post_fine2(ft, pre, out, winner_offset,
-                                    lambda v: _shade_packed(v, uniforms, shader))
+                                    (lambda v: _shade_packed(v, uniforms, shader))
+                                    if shader.writes_color else None)
         else:
             ids, setup, out = raster_pass(mode, attrs, uniforms, shader, width, height,
                                           tile_h, tile_w, lambda ids: ft.depth[ids.long()],

@@ -2,7 +2,9 @@
 
 Counterpart of ``tinyrenderder_tpu/ops/raster_tiled.py``: the
 per-triangle vertex transform and setup, the per-triangle tile spans
-from the clamped bbox, and the (tile, triangle) pair bins in CSR form.
+from the clamped bbox, and the (tile, triangle) pair bins in CSR form
+(``Bins`` / ``bin_triangles_csr`` over every tile, for the dense raster
+entry ``raster_coarse.rasterize``).
 
 Everything is sized exactly from the true pair total, which the caller
 reads back once (``raster_sparse.pre_sparse``): there is no static
@@ -12,13 +14,16 @@ capacity, no padding and no overflow.  The TPU's exact-f32 divmod
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tinyrenderder_tpu_torch import math3d, shaders
 from tinyrenderder_tpu_torch.ops import semantics
 
 __all__ = ["TILE_H", "TILE_W", "cdiv", "vertex_stage", "tile_spans",
-           "tile_pair_counts", "build_bins", "flatten_varyings"]
+           "tile_pair_counts", "build_bins", "Bins", "bin_triangles_csr", "to_tiles",
+           "flatten_varyings", "n_vary_of", "shader_varyings"]
 
 TILE_H = 16
 TILE_W = 128
@@ -103,14 +108,58 @@ def build_bins(tx0, ty0, span_x, spans, total: int, n_tiles_x: int, n_tiles_y: i
     return sorted_tri, start, start[1:] - start[:-1]
 
 
+class Bins(NamedTuple):
+    """CSR bins over every tile of the grid: ``sorted_tri[start[t]:start[t
+    + 1]]`` are the triangles overlapping tile t in submission order
+    (``raster_tiled.Bins``, exact size: no padding, no capacity)."""
+
+    sorted_tri: torch.Tensor   # (total,) i32
+    start: torch.Tensor        # (T + 1,) i32
+    counts: torch.Tensor       # (T,) i32
+    n_tiles_x: int
+    n_tiles_y: int
+    total: int
+
+
+def bin_triangles_csr(setup: dict, width: int, height: int, tile_w: int = TILE_W,
+                      tile_h: int = TILE_H) -> Bins:
+    """Bin a pass's triangles to every screen tile (``bin_triangles_csr``),
+    sized from one readback of the pair total."""
+    n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
+    tx0, ty0, span_x, _, spans = tile_spans(setup, tile_w, tile_h)
+    total = int(spans.sum())
+    return Bins(*build_bins(tx0, ty0, span_x, spans, total, n_tiles_x, n_tiles_y),
+                n_tiles_x, n_tiles_y, total)
+
+
+def to_tiles(img, n_tiles_y: int, n_tiles_x: int, tile_h: int, tile_w: int, fill):
+    """(H, W) -> contiguous (T, tile_h, tile_w), the ragged edge padded
+    with ``fill`` (``_to_tiles``)."""
+    h, w = img.shape
+    ph, pw = n_tiles_y * tile_h, n_tiles_x * tile_w
+    if (ph, pw) != (h, w):
+        img = torch.nn.functional.pad(img, (0, pw - w, 0, ph - h), value=fill)
+    return (img.reshape(n_tiles_y, tile_h, n_tiles_x, tile_w).permute(0, 2, 1, 3)
+               .reshape(n_tiles_y * n_tiles_x, tile_h, tile_w).contiguous())
+
+
 def flatten_varyings(varyings: dict, spec) -> torch.Tensor:
     """{name: (F, 3, C)} -> (F, 3, V) in ``spec`` order."""
     return torch.cat([varyings[name] for name, _ in spec], dim=-1)
 
 
-def shader_varyings(varyings: dict, shader) -> torch.Tensor:
+def n_vary_of(shader) -> int:
+    """Varying channels a pass's raster interpolates: none for a
+    depth-only pass."""
+    return sum(shader.varying_spec.values()) if shader.writes_color else 0
+
+
+def shader_varyings(varyings: dict, shader):
     """The vertex stage's varyings as (F, 3, V) in the shader's
-    ``varying_spec`` order, checked against the spec."""
+    ``varying_spec`` order, checked against the spec; None for a
+    depth-only pass, whose records carry no varying corners."""
+    if not shader.writes_color:
+        return None
     spec = tuple(shader.varying_spec.items())
     if {name for name, _ in spec} != set(varyings):
         raise ValueError(f"{shader.name}.varying_spec {sorted(dict(spec))} != "

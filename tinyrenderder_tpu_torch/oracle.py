@@ -8,7 +8,8 @@ barycentric coverage (the NaN-tolerant ``not (b < 0)``), affine z, the
 z-test before shading with strict less-than, perspective-correct
 interpolation, shade, depth and colour write — with exact counters
 (overdraw included, our_gl.cpp:194).  A shader's ``vertex_np`` and
-``fragment_np`` shade.
+``fragment_np`` shade; a depth-only pass (``writes_color`` False) writes
+depth and counts, and shades nothing.
 
 This module imports no torch: the decision formulas below are its own
 NumPy copies of ``ops/semantics.py`` (same operation order), so a check
@@ -205,6 +206,11 @@ def render_pass(frame: OracleFrame, p: OraclePass, width: int, height: int,
             continue
         midx = np.nonzero(mask)
         zwin = z[midx]
+        if not p.shader.writes_color:        # a depth-only pass shades nothing
+            tile[midx] = zwin
+            st.fragments_drawn += int(mask.sum())
+            st.merge_z(float(zwin.min()), float(zwin.max()))
+            continue
         pb0, pb1, pb2 = perspective_correct_bary(b0, b1, b2, w[0], w[1], w[2])
         vary_pix = {}
         for name, vv in varyings.items():

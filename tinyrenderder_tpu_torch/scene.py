@@ -9,9 +9,10 @@ frame loop, ``_render_device_tiles`` + ``_finish_device_tiles``) and
 device and ``ops.raster_sparse`` renders.  ``oracle_render`` is the
 scene on the NumPy oracle (``_render_oracle``), the bitwise reference.
 
-A shader the port has no device half for raises ``NotImplementedError``
-naming the ROADMAP item that ports it; nothing falls back to another
-route.
+Every shader class of the JAX package has its device half here; a
+shader class the port does not know raises ``NotImplementedError``, and
+nothing falls back to another route.  A depth-only pass (the shadow
+map's light pass, ``shadows.py``) renders depth and shades nothing.
 """
 
 from __future__ import annotations
@@ -80,6 +81,9 @@ class Scene:
         self.passes.append(p)
         return p
 
+    def world_aabbs(self) -> list:
+        return [p.mesh.get_world_aabb(p.model_matrix) for p in self.passes]
+
     def describe(self) -> str:
         """Scene-analysis text in the spirit of main.cpp:545-579."""
         lines = ["=== Scene Analysis ==="]
@@ -139,8 +143,7 @@ def _pass_inputs(scene: Scene, p: ScenePass, dtype) -> tuple[dict, dict]:
 def _tensors(scene: Scene, p, device):
     if not shaders.supports(p.shader):
         raise NotImplementedError(
-            f"{type(p.shader).__name__} is not ported yet: ROADMAP.md Queue 1 "
-            "(depth-only and shadow-mapped passes: item 10)")
+            f"{type(p.shader).__name__} has no device half in the port")
     attrs, uniforms = _pass_inputs(scene, p, np.float32)
     attrs_t, uniforms_t = convert.pass_to_torch(attrs, uniforms, device)
     return attrs_t, p.shader, uniforms_t, p.exclude_from_output_depth
@@ -211,9 +214,9 @@ def render_passes(passes, width: int, height: int, device,
 def render_scene_image(scene: Scene, device, frustum_cull: bool = True):
     """Render ``scene`` to an (H, W, 3) uint8 image tensor on ``device``.
     A frame of one non-empty colour pass goes straight to the image
-    (``render_frame_fused_image``); any other goes through
-    ``render_scene`` and returns its colour, as the JAX package routes
-    it.  On a CUDA device every kernel runs on the card; on the CPU the
+    (``render_frame_fused_image``); any other, a depth-only pass
+    included, goes through ``render_scene`` and returns its colour, as
+    the JAX package routes it.  On a CUDA device every kernel runs on the card; on the CPU the
     kernels' plain versions run."""
     visible = _cull_passes(scene, frustum_cull, RenderStats())
     if (len(visible) == 1 and visible[0].mesh.nfaces > 0
