@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one GPU: the single-pass image route and
 the multi-pass tiled frame with exact stats, each on the coarse raster, the
 strip raster and the grouped strip raster, the post pass, the CLI, the
-bench's two 246k-triangle scenes, the two-pass shadowed frame and the
-dense-grid raster entry.
+bench's two 246k-triangle scenes, the two-pass shadowed frame, the
+dense-grid raster entry, the ports of the scripts' three experimental
+kernels and the orbit animation.
 
     python3 chip_smoke.py
 
@@ -28,16 +29,28 @@ Phases, one line each (any failure exits non-zero before the last line):
      varyings) and on the light pass of ``shadow_phong_800`` (1024²,
      16-row tiles, depth only), each entry driven once through its user
      function, and ``depth_resolve`` of the light pass equal to the
-     shadow map of the sparse route.  Each kernel's
-     time, its plain version's, the library call's where one PyTorch call
-     computes the same function, and its bound (bytes over 3.35 TB/s or
-     float operations over 67 TFLOP/s, from this run's data);
+     shadow map of the sparse route; [3 experimental] the ports of the
+     scripts' kernels (``tinyrenderder_tpu_torch/experimental``): the
+     prototype strip raster on the script's head, soup and cube Gouraud
+     passes at 128x64 (with the script's own check against
+     ``coarse_raster_plain`` over 8-row tiles) and on the headline head at
+     2048² (8-row tiles, through ``strip_rasterize``), the pair-rank kernel
+     on the script's 60,000 synthetic triangles and on 246,240 of the same
+     distribution (also against ``reference_ranks``), the in-place block
+     update on the probe's image and ids and at the headline's tile shape
+     (its 492 active tiles and a repeated id); [3 gouraud/textured 800]
+     the Gouraud and Textured head at 800² through ``render_scene_image``
+     and ``render_scene``, equal to the float32 oracle bitwise.  Each
+     kernel's time, its plain version's, the library call's where one
+     PyTorch call computes the same function, and its bound (bytes over
+     3.35 TB/s or float operations over 67 TFLOP/s, from this run's data);
   4. the image route end to end through ``scene.render_scene_image`` on
      the headline scene (the 27,360-face bumpy head, normal-mapped Phong,
      2048²) under ``FINE_MODE`` "coarse", "fine" and "fine2": every kernel
      of each route must have launched, and every image must equal the
      float32 NumPy oracle bitwise;
-  5. CUDA-event timing (3 warm-up frames, median of 20) on pre-uploaded
+  5. CUDA-event timing (3 warm-up frames, median of 20; the plain versions
+     and routes 1 and 5) on pre-uploaded
      inputs, the three rasters in turns: the headline (kernel and plain
      routes, per stage), the Gouraud head at 800², and the headline head
      at three tessellations (its strip rows and grouped rows against its
@@ -72,7 +85,15 @@ Phases, one line each (any failure exits non-zero before the last line):
      full depth equal to the oracle's lit frame fed that map, bitwise,
      equal ``RenderStats``, and every kernel of the route launched;
  13. CUDA-event timing of that frame on pre-uploaded inputs, the three
-     rasters in turns, per stage (light pass, untile, lit frame).
+     rasters in turns, per stage (light pass, untile, lit frame);
+ 15. the orbit of ``bench.py::bench_animation`` (the 3-pass scene at
+     2048², no frustum cull) through ``animation.render_animation``, 6
+     frames with the checkpoint on: a run stopped after 3 frames and
+     resumed writes the uninterrupted run's bytes, frames 0 and 5 equal
+     the float32 oracle at their eyes written by the Python encoder, and
+     the native encoder wrote every frame; the render-only orbit's
+     ms/frame, ms/frame with TGA writes, native against Python RLE encode;
+     the CLI's ``--animate 3`` and ``--profile`` at 1200x800.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -94,12 +115,18 @@ WIDTH = HEIGHT = 2048                 # the headline and the large 3-pass frame
 REF_W, REF_H = 1200, 800              # the reference's default frame (main.cpp:26-27)
 FRAME_SIZES = ((WIDTH, HEIGHT), (REF_W, REF_H))   # the 3-pass frame's two sizes
 WARMUP, FRAMES = 3, 20
+#: the plain versions and plain routes: no yardstick of speed, timed shorter
+PLAIN_WARMUP, PLAIN_FRAMES = 1, 5
 MODES = ("coarse", "fine", "fine2")
 #: the bench's 246k-triangle scenes (bench.py::bench_stress, bench_mixed)
 WALL_W, WALL_H = 1280, 800
 #: shadow_phong_800 (bench.py::bench_shadows): the frame and the map side
 SHADOW_W = SHADOW_H = 800
 SHADOW_SIZE = 1024
+#: the orbit's frames (bench.py::bench_animation_tga runs 120 at 2048²)
+ANIM_FRAMES = 6
+#: gouraud_800 and textured_800 (bench.py:568-579)
+SHADED_SIZE = 800
 #: the bound's peaks: NVIDIA's H100 SXM data sheet, float32 outside the
 #: tensor cores and HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -162,18 +189,25 @@ def bits_equal(a, b) -> tuple[int, float]:
     return diff, err
 
 
-def check_outputs(what: str, got, want) -> float:
-    """Fail unless every plane of ``got`` equals ``want`` bitwise (event
-    planes nested as a pair); returns the max abs error (0.0)."""
-    names = ("depth", "winner", "varyings", "event count", "event max z")
-    flat = lambda out: (*out[:3], *(out[3] if len(out) > 3 else ()))  # noqa: E731
+def same_planes(what: str, names, got, want) -> float:
+    """Fail unless each named plane of ``got`` equals ``want`` bitwise;
+    -> the max abs error (0.0)."""
     worst = 0.0
-    for name, a, b in zip(names, flat(got), flat(want)):
+    for name, a, b in zip(names, got, want, strict=True):
         diff, err = bits_equal(a, b)
         worst = max(worst, err)
         if diff:
             fail(f"{what} {name}: {diff} elements differ (max abs err {err})")
     return worst
+
+
+def check_outputs(what: str, got, want) -> float:
+    """Fail unless every plane of ``got`` equals ``want`` bitwise (event
+    planes nested as a pair); returns the max abs error (0.0)."""
+    names = ("depth", "winner", "varyings", "event count", "event max z")
+    flat = lambda out: (*out[:3], *(out[3] if len(out) > 3 else ()))  # noqa: E731
+    got, want = flat(got), flat(want)
+    return same_planes(what, names[:len(got)], got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -433,14 +467,22 @@ def ab_text(ms: dict) -> str:
     return " ".join(f"{m} {ms[m]:.3f}" for m in MODES) + f" ({ratios})"
 
 
-def stage_medians(run, stage_names):
-    """Median ms per stage over FRAMES frames after WARMUP, from ``run(marks)``."""
+def time_plain(fn) -> float:
+    """``event_ms`` of a plain version or route: median of PLAIN_FRAMES
+    after PLAIN_WARMUP."""
+    return event_ms(fn, PLAIN_WARMUP, PLAIN_FRAMES)
+
+
+def stage_medians(run, stage_names, plain: bool = False):
+    """Median ms per stage over FRAMES frames after WARMUP (PLAIN_FRAMES
+    after PLAIN_WARMUP for a plain route), from ``run(marks)``."""
     per = {s: [] for s in stage_names}
-    for i in range(WARMUP + FRAMES):
+    warmup, frames = (PLAIN_WARMUP, PLAIN_FRAMES) if plain else (WARMUP, FRAMES)
+    for i in range(warmup + frames):
         marks = []
         run(marks)
         marks[-1][1].synchronize()
-        if i < WARMUP:
+        if i < warmup:
             continue
         frame = dict.fromkeys(stage_names, 0.0)
         for (_, e0), (stage, e1) in zip(marks, marks[1:]):
@@ -466,6 +508,9 @@ class fine_mode:
 
 
 def launch_counts():
+    from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
+    from tinyrenderder_tpu_torch.experimental import inplace_blocks as xib
+    from tinyrenderder_tpu_torch.experimental import rank_kernel as xrk
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
@@ -474,10 +519,15 @@ def launch_counts():
             "dense_raster": rc.DENSE_LAUNCHES, "fine_raster": rf.LAUNCHES,
             "fine_raster_stats": rf.STATS_LAUNCHES,
             "fine2_raster": rf2.LAUNCHES, "fine2_raster_stats": rf2.STATS_LAUNCHES,
-            "untile_one": rs.LAUNCHES, "untile3": rs.UNTILE3_LAUNCHES}
+            "untile_one": rs.LAUNCHES, "untile3": rs.UNTILE3_LAUNCHES,
+            "strip_raster_proto": xfr.LAUNCHES, "rank_pairs": xrk.LAUNCHES,
+            "inplace_blocks": xib.LAUNCHES}
 
 
 def reset_counts():
+    from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
+    from tinyrenderder_tpu_torch.experimental import inplace_blocks as xib
+    from tinyrenderder_tpu_torch.experimental import rank_kernel as xrk
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
@@ -486,6 +536,7 @@ def reset_counts():
     rf.LAUNCHES = rf.STATS_LAUNCHES = 0
     rf2.LAUNCHES = rf2.STATS_LAUNCHES = 0
     rs.LAUNCHES = rs.UNTILE3_LAUNCHES = 0
+    xfr.LAUNCHES = xrk.LAUNCHES = xib.LAUNCHES = 0
 
 
 def counted(fn):
@@ -496,6 +547,347 @@ def counted(fn):
     result = fn()
     torch.cuda.synchronize()
     return result, launch_counts()
+
+
+def experimental_kernels(head_pass, active_ids, th: int, smi: str):
+    """[3 experimental]: the ports of the scripts' three kernels, each held
+    against its plain version on the card, bitwise, at the scripts' shapes
+    and at the headline's, driven once through its user function with
+    the counts zeroed.  -> ({name: kernels-line entry}, main-path
+    launches)."""
+    import numpy as np
+    import torch
+
+    from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
+    from tinyrenderder_tpu_torch.experimental import inplace_blocks as xib
+    from tinyrenderder_tpu_torch.experimental import rank_kernel as xrk
+    from tinyrenderder_tpu_torch.ops import raster_coarse as rc
+    from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_W, bin_triangles_csr,
+                                                          build_bins, to_tiles, vertex_stage)
+
+    entries, totals = {}, dict.fromkeys(launch_counts(), 0)
+
+    def main_path(name, fn):
+        result, counts = counted(fn)
+        if not counts[name]:
+            fail(f"{name} never launched on its main path: {counts}")
+        for k, v in counts.items():
+            totals[k] += v
+        return result, counts[name]
+
+    # #7 the prototype strip raster: the script's three Gouraud passes at
+    # 128x64 (and the script's own check against the production raster),
+    # then the headline head at 2048², 8-row tiles
+    w, h = 128, 64
+    for name, setup in xfr.script_setups(DEVICE, w, h).items():
+        recs, rows, ntx, _ = xfr.build_strip_records(setup, w, h)
+        init = torch.full((recs.shape[0], xfr.TILE_H, TILE_W), torch.inf, device=DEVICE)
+        same_planes(f"strip_raster_proto, script's {name}", ("depth", "winner"),
+                    xfr.strip_raster(recs, rows, init, ntx),
+                    xfr.strip_raster_plain(recs, rows, init, ntx))
+        cov_ok, win_ok, ulps, shape = xfr.check_against_coarse(setup, w, h)
+        if not cov_ok or ulps > 4:
+            fail(f"the script's check on {name}: coverage_ok={cov_ok} depth_ulps={ulps}")
+        say(f"[3 experimental] strip_raster_proto, script's {name} {w}x{h}: kernel == plain "
+            f"bitwise; the script's check against coarse_raster_plain over 8-row tiles: "
+            f"coverage_ok={cov_ok} winners_ok={win_ok} depth_ulps={ulps} recs={shape}")
+    h_attrs, h_shader, h_uniforms = head_pass
+    setup = vertex_stage(h_attrs, h_uniforms, h_shader, WIDTH, HEIGHT)[0]
+    init_img = torch.full((HEIGHT, WIDTH), torch.inf, device=DEVICE)
+    (d_img, w_img, shape), n7 = main_path(
+        "strip_raster_proto", lambda: xfr.strip_rasterize(setup, init_img, WIDTH, HEIGHT))
+    recs, rows, ntx, nty = xfr.build_strip_records(setup, WIDTH, HEIGHT)
+    init_t = to_tiles(init_img, nty, ntx, xfr.TILE_H, TILE_W, torch.inf)
+    k7 = xfr.strip_raster(recs, rows, init_t, ntx)
+    err7 = same_planes("strip_raster_proto, headline", ("depth", "winner"), k7,
+                       xfr.strip_raster_plain(recs, rows, init_t, ntx))
+    from tinyrenderder_tpu_torch.ops.raster_sparse import untile_one_plain
+    same_planes("strip_rasterize, headline", ("depth", "winner"), (d_img, w_img),
+                [untile_one_plain(x, ntx, nty, xfr.TILE_H, TILE_W)[:HEIGHT, :WIDTH]
+                 for x in k7])
+    ms7 = event_ms(lambda: xfr.strip_raster(recs, rows, init_t, ntx))
+    plain7 = time_plain(lambda: xfr.strip_raster_plain(recs, rows, init_t, ntx))
+    g = recs.shape[0]
+    pairs = int((recs.view(g, recs.shape[1], 8, 16)[..., 9] >= 0).sum())
+    row_sum = int(rows.sum())
+    b7 = bound(row_sum * TILE_W * 4 + g * 4 + 3 * g * xfr.TILE_H * TILE_W * 4,
+               pairs * xfr.TILE_H * 16 * OPS_TEST)
+    bins = bin_triangles_csr(setup, WIDTH, HEIGHT, TILE_W, th)
+    rec_d = rc.build_tri_records(setup)
+    init_d = to_tiles(init_img, bins.n_tiles_y, bins.n_tiles_x, th, TILE_W, torch.inf)
+    dense_ms = event_ms(lambda: rc.dense_raster(rec_d, bins.sorted_tri, bins.start[:-1],
+                                                bins.counts, init_d, bins.n_tiles_x, th,
+                                                TILE_W, 0))
+    say(f"[3 experimental] strip_raster_proto, headline head {WIDTH}x{HEIGHT} ({g} groups of "
+        f"8x128, recs {shape}, {pairs} strip pairs, {row_sum} rows walked, "
+        f"{int((w_img >= 0).sum())} pixels won): kernel == plain bitwise, strip_rasterize == "
+        f"the kernel's tiles untiled; kernel {ms7:.4f} ms, plain {plain7:.4f} ms, library none, "
+        f"bound {b7[0]:.4f} ms ({b7[1]}); yardstick: the depth-only dense coarse launch on "
+        f"the same pass ({th}-row tiles) {dense_ms:.4f} ms; launches {n7} | {smi}")
+    entries["strip_raster_proto"] = {
+        "name": "strip_raster_proto", "route": "cuda",
+        "source": "tinyrenderder_tpu_torch/csrc/fine_raster.cu",
+        "replaces": "scripts/experimental_fine_raster.py:73",
+        "max_abs_err": err7, "ms": ms7, "plain_ms": plain7, "bound_ms": b7[0],
+        "bound_by": b7[1], "library_ms": None}
+
+    # #8 the pair-rank kernel: the script's 60,000 synthetic triangles (seed
+    # 7, 80 x 50 strips) and 246,240 of the same distribution
+    nsx, nty = 80, 50
+    for f in (60000, 246240):
+        data = xrk.synthetic_set(f, nsx=nsx, nty=nty)
+        args = [torch.from_numpy(a).to(DEVICE) for a in data]
+        if f == 246240:
+            got, n8 = main_path("rank_pairs", lambda: xrk.rank_pairs_kernel(*args, nsx))
+        else:
+            got = xrk.rank_pairs_kernel(*args, nsx)
+        err8 = same_planes(f"rank_pairs, {f} triangles", ("strips", "ranks"), got,
+                           xrk.rank_pairs_plain(*args, nsx))
+        s_ref, r_ref = xrk.reference_ranks(*data, nsx, f)
+        s_k, r_k = (x.cpu().numpy() for x in got)
+        live = s_ref >= 0
+        if not ((s_k == s_ref).all() and (r_k[live] == r_ref[live]).all()
+                and not r_k[~live].any()):
+            fail(f"rank_pairs, {f} triangles: differs from reference_ranks")
+        total = int(data[3].sum())
+        ms8 = event_ms(lambda: xrk.rank_pairs_kernel(*args, nsx))
+        plain8 = time_plain(lambda: xrk.rank_pairs_plain(*args, nsx))
+        lib8 = event_ms(lambda: build_bins(*args, total, nsx, nty))
+        b8 = bound(f * 4 * 4 + 2 * f * xrk.S_CAP * 4, 0)
+        say(f"[3 experimental] rank_pairs, {f} synthetic triangles ({total} pairs, seed 7, "
+            f"{nsx}x{nty} strips): kernel == plain bitwise, == reference_ranks (padded ranks "
+            f"0); kernel {ms8:.4f} ms, plain {plain8:.4f} ms, library (build_bins: stable "
+            f"torch.sort + searchsorted) {lib8:.4f} ms, bound {b8[0]:.4f} ms ({b8[1]}) | {smi}")
+    entries["rank_pairs"] = {
+        "name": "rank_pairs", "route": "cuda", "source": "tinyrenderder_tpu_torch/csrc/rank_kernel.cu",
+        "replaces": "scripts/experimental_rank_kernel.py:64",
+        "max_abs_err": err8, "ms": ms8, "plain_ms": plain8, "bound_ms": b8[0],
+        "bound_by": b8[1], "library_ms": lib8}
+
+    # #9 the in-place block update: the probe's image and ids, then the
+    # headline's tile shape (2048², 32x128 blocks, its active tiles + a repeat)
+    img0 = np.arange(xib.H * xib.W, dtype=np.float32).reshape(xib.H, xib.W) * np.float32(0.001)
+    ids = torch.tensor([1, 3, 3, 6], dtype=torch.int32, device=DEVICE)
+    probe = torch.from_numpy(img0).to(DEVICE)
+    got = xib.run(probe.clone(), ids, 10.0, 4)
+    same_planes("inplace_blocks, the probe", ("image",), (got,),
+                (xib.run_plain(probe.clone(), ids, 10.0, 4),))
+    same_planes("inplace_blocks, the probe", ("expected image",), (got.cpu(),),
+                (torch.from_numpy(xib.expected_image(img0, [1, 3, 3, 6], 10.0)),))
+    blk3 = (got.cpu().numpy() - img0)[16:32, 128:256]
+    rng = np.random.default_rng(9)
+    big = torch.from_numpy(rng.standard_normal((HEIGHT, WIDTH)).astype(np.float32)).to(DEVICE)
+    ids9 = torch.cat([active_ids, active_ids[len(active_ids) // 2:][:1]])
+    n_ids = ids9.shape[0]
+    block = (th, TILE_W)
+    work, n9 = main_path("inplace_blocks",
+                         lambda: xib.run(big.clone(), ids9, 10.0, n_ids, block))
+    err9 = same_planes("inplace_blocks, headline tiles", ("image",), (work,),
+                       (xib.run_plain(big.clone(), ids9, 10.0, n_ids, block),))
+    unvisited = torch.ones(HEIGHT // th * (WIDTH // TILE_W), dtype=torch.bool, device=DEVICE)
+    unvisited[active_ids.long()] = False
+    tiles_of = lambda x: x.view(HEIGHT // th, th, WIDTH // TILE_W, TILE_W).transpose(1, 2)  # noqa: E731
+    if not torch.equal(tiles_of(work).reshape(-1, th, TILE_W)[unvisited].view(torch.int32),
+                       tiles_of(big).reshape(-1, th, TILE_W)[unvisited].view(torch.int32)):
+        fail("inplace_blocks: an unvisited block changed")
+    ms9 = event_ms(lambda: xib.run(work, ids9, 10.0, n_ids, block))
+    plain9 = time_plain(lambda: xib.run_plain(work, ids9, 10.0, n_ids, block))
+    tiles = torch.zeros((HEIGHT // th * (WIDTH // TILE_W), th, TILE_W), device=DEVICE)
+    upd = torch.ones((active_ids.shape[0], th, TILE_W), device=DEVICE)
+    lib9 = event_ms(lambda: tiles.index_copy_(0, active_ids.long(), upd))
+    b9 = bound(2 * active_ids.shape[0] * th * TILE_W * 4 + n_ids * 4, 0)
+    say(f"[3 experimental] inplace_blocks: the probe's ids [1, 3, 3, 6] == plain == the f32 "
+        f"expected image bitwise, block 3 + ({float(blk3.min())}, {float(blk3.max())}) = "
+        f"(x + 1.0 * 10) + 3, once; headline tile shape ({WIDTH}x{HEIGHT}, {th}x{TILE_W} "
+        f"blocks, {n_ids} ids = {active_ids.shape[0]} active tiles + 1 repeat): kernel == "
+        f"plain bitwise, unvisited blocks bit-unchanged; kernel {ms9:.4f} ms, plain "
+        f"{plain9:.4f} ms, library (index_copy_ of the updated blocks into a tiled plane) "
+        f"{lib9:.4f} ms, bound {b9[0]:.4f} ms ({b9[1]}); launches {n9} | {smi}")
+    entries["inplace_blocks"] = {
+        "name": "inplace_blocks", "route": "cuda",
+        "source": "tinyrenderder_tpu_torch/csrc/inplace_blocks.cu",
+        "replaces": "scripts/probe_inplace_blocks.py:31",
+        "max_abs_err": err9, "ms": ms9, "plain_ms": plain9, "bound_ms": b9[0],
+        "bound_by": b9[1], "library_ms": lib9}
+    return entries, totals
+
+
+def shaded_800(smi: str) -> dict:
+    """[3 gouraud/textured 800]: the Gouraud and Textured head at 800²
+    (``bench.py``'s gouraud_800 and textured_800) through
+    ``render_scene_image`` and ``render_scene``, each equal to the f32
+    oracle bitwise.  -> main-path launches."""
+    import numpy as np
+    import torch
+
+    from tinyrenderder_tpu_torch import scene as tscene
+
+    totals = dict.fromkeys(launch_counts(), 0)
+    for kind in ("gouraud", "textured"):
+        sc = tscene.headline_scene(SHADED_SIZE, SHADED_SIZE, kind)
+        t0 = time.perf_counter()
+        ref = tscene.oracle_render(sc)
+        oracle_s = time.perf_counter() - t0
+        (image, frame), counts = counted(lambda: (tscene.render_scene_image(sc, DEVICE),
+                                                  tscene.render_scene(sc, DEVICE)))
+        for k, v in counts.items():
+            totals[k] += v
+        if not (counts["untile_one"] and counts["untile3"]
+                and sum(counts[f"{m}_raster"] + counts[f"{m}_raster_stats"] for m in MODES)):
+            fail(f"a kernel of the {kind}_800 routes never launched: {counts}")
+        if not np.array_equal(image.cpu().numpy(), ref.color):
+            fail(f"{kind}_800: render_scene_image differs from the f32 oracle")
+        for plane in ("color", "depth", "full_depth"):
+            diff, err = bits_equal(getattr(frame, plane).cpu(),
+                                   torch.from_numpy(np.ascontiguousarray(getattr(ref, plane))))
+            if diff:
+                fail(f"{kind}_800 {plane}: {diff} elements differ from the f32 oracle "
+                     f"(max abs err {err})")
+        if frame.stats != ref.stats:
+            fail(f"{kind}_800 stats differ from the oracle's:\n  port   {frame.stats}\n"
+                 f"  oracle {ref.stats}")
+        say(f"[3 gouraud/textured 800] {kind}_{SHADED_SIZE} ({sc.passes[0].mesh.nfaces} faces, "
+            f"{type(sc.passes[0].shader).__name__}): render_scene_image and render_scene "
+            f"(colour, depth, full depth, stats) == float32 oracle bitwise "
+            f"({int(np.isfinite(ref.full_depth).sum())} covered; oracle {oracle_s:.1f} s on "
+            f"the host); launches {counts} | {smi}")
+    return totals
+
+
+def animation_phase(smi: str) -> dict:
+    """[15 animation]: the orbit of ``bench.py::bench_animation`` /
+    ``bench_animation_tga`` (the 3-mesh scene at 2048², no frustum cull)
+    through ``animation.render_animation``, the native TGA codec, and the
+    CLI's ``--animate`` and ``--profile``.  -> main-path launches."""
+    import math
+
+    import numpy as np
+
+    from tinyrenderder_tpu_torch import animation, cli
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch.utils import native, tga
+
+    totals = dict.fromkeys(launch_counts(), 0)
+
+    def count(fn, what, need):
+        result, counts = counted(fn)
+        for k, v in counts.items():
+            totals[k] += v
+        if not all(counts[k] for k in need):
+            fail(f"a kernel of {what} never launched: {counts}")
+        return result, counts
+
+    if not native.available():
+        fail(f"the native codec did not build: {native.BUILD_ERROR}")
+    real_encode, encodes = native.rle_encode, []
+
+    def counting_encode(flat, bpp):
+        encodes.append(flat.shape[0])
+        return real_encode(flat, bpp)
+
+    def files(d: Path) -> dict:
+        return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+
+    n, size = ANIM_FRAMES, WIDTH
+    native.rle_encode = counting_encode
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+
+            def cfg(d: str, frames: int = n):
+                return animation.AnimationConfig(frames=frames, device=DEVICE,
+                                                 outdir=str(tmp / d), frustum_cull=False)
+
+            sc = tscene.multimesh_scene(size, size)
+            eye0, target0 = sc.camera.params.eye.copy(), sc.camera.params.target.copy()
+            summary, counts = count(lambda: animation.render_animation(sc, cfg("full")),
+                                    "the orbit", ("coarse_raster", "untile3"))
+            if summary["frames_rendered"] != n or len(encodes) != n:
+                fail(f"the orbit wrote {summary['frames_rendered']} frames, {len(encodes)} "
+                     f"through the native encoder, of {n}")
+            first = animation.render_animation(tscene.multimesh_scene(size, size),
+                                               cfg("resumed"), stop_after=3)
+            second = animation.render_animation(tscene.multimesh_scene(size, size),
+                                                cfg("resumed"))
+            if ((first["frames_rendered"], first["resumed_at"], second["frames_rendered"],
+                 second["resumed_at"]) != (3, 0, n - 3, 3)):
+                fail(f"stop_after=3 then resume: {first}, {second}")
+            if files(tmp / "full") != files(tmp / "resumed"):
+                fail("the killed-and-resumed orbit's files differ from the uninterrupted run's")
+            native_available = native.available
+            oracle_s = time.perf_counter()
+            for i in (0, n - 1):
+                sc.camera.set_eye(animation.orbit_eye(eye0, target0, 2 * math.pi * i / n))
+                ref = tscene.oracle_render(sc, frustum_cull=False)
+                native.available = lambda: False            # the port's Python encoder
+                try:
+                    tga.TGAImage.from_rgb(ref.color).write_tga_file(str(tmp / f"oracle{i}.tga"))
+                finally:
+                    native.available = native_available
+                if (tmp / f"oracle{i}.tga").read_bytes() != \
+                        (tmp / "full" / f"frame_{i:04d}.tga").read_bytes():
+                    fail(f"orbit frame {i} differs from the f32 oracle's at its eye")
+            oracle_s = time.perf_counter() - oracle_s
+            sc.camera.set_eye(eye0)
+            say(f"[15 animation] multimesh {size}x{size} orbit, {n} frames, checkpoint on, "
+                f"no cull: {n} TGAs through the native encoder; stop_after=3 + resume == the "
+                f"uninterrupted run byte for byte ({len(files(tmp / 'full'))} files with "
+                f"checkpoint.json); frames 0 and {n - 1} == the f32 oracle at their eyes "
+                f"written by the Python encoder (oracle {oracle_s:.1f} s on the host); "
+                f"launches {counts} | {smi}")
+
+            # bench_animation's work: render-only orbit steps, CUDA events
+            step = iter(range(10 ** 6))
+
+            def render_at():
+                i = next(step)
+                sc.camera.set_eye(animation.orbit_eye(eye0, target0, 2 * math.pi * i / 120))
+                return tscene.render_scene(sc, DEVICE, frustum_cull=False,
+                                           collect_stats=False).color
+
+            orbit_ms = event_ms(render_at)
+            sc.camera.set_eye(eye0)
+            # bench_animation_tga's: seconds / frames_rendered of a written orbit
+            timed = animation.render_animation(sc, cfg("timed", 2 * n))
+            tga_ms = timed["seconds"] / timed["frames_rendered"] * 1e3
+            flat = tga.TGAImage.from_rgb(ref.color).data.reshape(-1, 3)
+            t0 = time.perf_counter()
+            enc_native = real_encode(flat, 3)
+            native_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            enc_py = tga._encode_rle_py(flat, 3)
+            py_ms = (time.perf_counter() - t0) * 1e3
+            if enc_native != enc_py:
+                fail("the native RLE encoder's bytes differ from the Python encoder's")
+            say(f"[15 animation] timing: render-only orbit {orbit_ms:.3f} ms/frame "
+                f"(render_scene, CUDA events, {WARMUP} warm-up + median of {FRAMES}); with "
+                f"TGA writes {tga_ms:.3f} ms/frame ({timed['frames_rendered']} frames, "
+                f"{timed['seconds']:.3f} s); RLE encode of one {size}² frame: native "
+                f"{native_ms:.3f} ms, Python {py_ms:.3f} ms ({len(enc_native)} bytes) | {smi}")
+
+            # the CLI: --animate 3 at 1200x800, then --profile once
+            code, counts = count(lambda: cli.run(
+                ["--device", DEVICE, "--width", str(REF_W), "--height", str(REF_H),
+                 "--outdir", str(tmp / "cli"), "--animate", "3"]),
+                "the CLI's --animate", ("untile3",))
+            got = sorted(p.name for p in (tmp / "cli").iterdir())
+            if code != 0 or got != ["checkpoint.json", "frame_0000.tga", "frame_0001.tga",
+                                    "frame_0002.tga"]:
+                fail(f"the CLI with --animate 3 exited {code}, wrote {got}")
+            code, pcounts = count(lambda: cli.run(
+                ["--device", DEVICE, "--width", str(REF_W), "--height", str(REF_H),
+                 "--outdir", str(tmp / "prof"), "--profile"]),
+                "the CLI's --profile", ("untile3",))
+            trace = tmp / "prof" / "trace"
+            traces = sorted(trace.iterdir()) if trace.is_dir() else []
+            if code != 0 or not traces or not traces[0].stat().st_size:
+                fail(f"the CLI with --profile exited {code}, trace {traces}")
+            say(f"[15 animation] cli --animate 3 at {REF_W}x{REF_H}: {got}; launches {counts}; "
+                f"cli --profile: {traces[0].name} {traces[0].stat().st_size} bytes; launches "
+                f"{pcounts}")
+    finally:
+        native.rle_encode = real_encode
+    return totals
 
 
 def main() -> int:
@@ -566,9 +958,9 @@ def main() -> int:
     fine_err = check_outputs("strip raster vs plain", kf, rf.fine_raster_plain(*args_f))
     torch.cuda.synchronize()
     raster_ms, raster_plain_ms = (event_ms(lambda: rc.coarse_raster(*args)),
-                                  event_ms(lambda: rc.coarse_raster_plain(*args)))
+                                  time_plain(lambda: rc.coarse_raster_plain(*args)))
     fine_ms, fine_plain_ms = (event_ms(lambda: rf.fine_raster(*args_f)),
-                              event_ms(lambda: rf.fine_raster_plain(*args_f)))
+                              time_plain(lambda: rf.fine_raster_plain(*args_f)))
     coarse_bound = raster_bound("coarse", pre, kc, th, ntx, n_vary, False)
     fine_bound = raster_bound("fine", pre_f, kf, th, ntx, n_vary, False)
     say(f"[3 raster] headline pass: coarse kernel == plain bitwise (depth, winner, "
@@ -622,10 +1014,10 @@ def main() -> int:
     if not finite_2 or not events_2:
         fail(f"fine2_raster_stats: {finite_2} finite init depths, {events_2} events")
     f2_ms, f2_plain_ms = (event_ms(lambda: rf2.fine2_raster(*args_2)),
-                          event_ms(lambda: rf2.fine2_raster_plain(*args_2)))
+                          time_plain(lambda: rf2.fine2_raster_plain(*args_2)))
     f2s_ms = event_ms(lambda: rf2.fine2_raster(*args_2, init_2, collect_stats=True))
-    f2s_plain_ms = event_ms(lambda: rf2.fine2_raster_plain(*args_2, init_2,
-                                                          collect_stats=True))
+    f2s_plain_ms = time_plain(lambda: rf2.fine2_raster_plain(*args_2, init_2,
+                                                            collect_stats=True))
     f2_seeded_ms = event_ms(lambda: rf2.fine2_raster(*args_2, init_2))
     f2_bound = raster_bound("fine2", pre_2, k2, th_w, ntx_w, nv_w, False, seeded=False)
     f2s_bound = raster_bound("fine2", pre_2, k2s, th_w, ntx_w, nv_w, True)
@@ -674,7 +1066,7 @@ def main() -> int:
     if diff:
         fail(f"untile: {diff} words differ from the plain version")
     untile_ms = event_ms(lambda: rs.untile_one(tiles, ntx, nty, th, TILE_W))
-    untile_plain_ms = event_ms(lambda: rs.untile_one_plain(tiles, ntx, nty, th, TILE_W))
+    untile_plain_ms = time_plain(lambda: rs.untile_one_plain(tiles, ntx, nty, th, TILE_W))
     untile_lib_ms = event_ms(lambda: tiles.view(nty, ntx, th, TILE_W)
                              .permute(0, 2, 1, 3).contiguous())
     untile_bound = bound(2 * tiles.numel() * 4, 0)
@@ -706,7 +1098,7 @@ def main() -> int:
             if diff:
                 fail(f"untile3 {name} at {w}x{h}: {diff} words differ from the plain version")
         k_ms = event_ms(lambda: rs.untile3(*ft, *n3))
-        p_ms = event_ms(lambda: rs.untile3_plain(*ft, *n3))
+        p_ms = time_plain(lambda: rs.untile3_plain(*ft, *n3))
         lib_ms = event_ms(lambda: [x.view(n3[1], n3[0], th3, TILE_W).permute(0, 2, 1, 3)
                                    .contiguous() for x in ft])
         b3 = bound(2 * 3 * ft.color.numel() * 4, 0)
@@ -758,7 +1150,7 @@ def main() -> int:
         if not finite_init or not n_events:
             fail(f"{name}: {finite_init} finite init depths, {n_events} events")
         s_ms = event_ms(lambda: kernel(*sargs, collect_stats=True))
-        sp_ms = event_ms(lambda: plain(*sargs, collect_stats=True))
+        sp_ms = time_plain(lambda: plain(*sargs, collect_stats=True))
         n_ms = event_ms(lambda: kernel(*sargs))
         sb = raster_bound(mode, pp, ks, th3, cdiv(w, TILE_W), nv, True)
         say(f"[3 raster stats] {name}, {what} at {w}x{h} (active {pp.n_active}, "
@@ -814,7 +1206,7 @@ def main() -> int:
         pargs = dargs[:2] + (every,) + dargs[2:]
         kd = rc.dense_raster(*dargs)
         d_err = check_outputs(f"dense raster vs plain, {name}", kd, rc.coarse_raster_plain(*pargs))
-        d_ms, dp_ms = event_ms(lambda: rc.dense_raster(*dargs)), event_ms(
+        d_ms, dp_ms = event_ms(lambda: rc.dense_raster(*dargs)), time_plain(
             lambda: rc.coarse_raster_plain(*pargs))
         d_bound = raster_bound("coarse", SimpleNamespace(ids=every, counts=bins.counts,
                                                          sorted_tri=bins.sorted_tri,
@@ -856,6 +1248,12 @@ def main() -> int:
             record["dense_raster"]["max_abs_err"] = max(record["dense_raster"]["max_abs_err"],
                                                         d_err)
 
+    # the ports of the scripts' kernels, and the 800² Gouraud and Textured frames
+    entries, exp_launches = experimental_kernels((attrs, shader, uniforms), pre.ids, th, smi)
+    record.update(entries)
+    add_launches(exp_launches)
+    add_launches(shaded_800(smi))
+
     # ---- 4. the image route end to end, counted, on each raster ----
     images = {}
     for mode in MODES:
@@ -896,11 +1294,11 @@ def main() -> int:
     for mode in MODES:
         for plain in (False, True):
             route = "plain" if plain else "kernel"
-            ms = (event_ms(lambda: staged_frame(attrs, shader, uniforms, WIDTH, HEIGHT, th,
-                                                mode, True)) if plain else frame_ms[mode])
+            ms = (time_plain(lambda: staged_frame(attrs, shader, uniforms, WIDTH, HEIGHT, th,
+                                                  mode, True)) if plain else frame_ms[mode])
             st = stage_medians(lambda m: staged_frame(attrs, shader, uniforms, WIDTH,
                                                       HEIGHT, th, mode, plain, m),
-                               stage_names)
+                               stage_names, plain)
             say(f"[5 timing] head_phong_{WIDTH} {mode} {route} route: {ms:.3f} ms/frame, "
                 f"{WIDTH * HEIGHT / ms / 1e3:.1f} Mpix/s (screen pixels); stages ms: "
                 + " ".join(f"{s} {v:.3f}" for s, v in st.items()) + f" | {smi}")
@@ -1048,10 +1446,10 @@ def main() -> int:
         frame_ms = ab_ms(lambda mode: kernel_run())
         for mode in MODES:
             for plain in (False, True):
-                ms = (event_ms(lambda: staged_multipass(passes, w, h, mode, True, with_post))
+                ms = (time_plain(lambda: staged_multipass(passes, w, h, mode, True, with_post))
                       if plain else frame_ms[mode])
                 st = stage_medians(lambda m: staged_multipass(passes, w, h, mode, plain,
-                                                              with_post, m), names)
+                                                              with_post, m), names, plain)
                 say(f"[8 timing] {cell} {mode} {'plain' if plain else 'kernel'} route: "
                     f"{ms:.3f} ms/frame, {w * h / ms / 1e3:.1f} Mpix/s; stages ms: "
                     + " ".join(f"{k} {v:.3f}" for k, v in st.items())
@@ -1210,10 +1608,14 @@ def main() -> int:
     say(f"[13 a/b] shadow_phong_{SHADOW_W}: ms/frame in turns, pre-uploaded "
         f"{ab_text(frame_ms)}; with the host layer {ab_text(e2e_ms)} | {smi}")
 
+    # ---- 15. the orbit animation, the native codec, --animate and --profile ----
+    add_launches(animation_phase(smi))
+
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
     order = ("coarse_raster", "coarse_raster_stats", "dense_raster", "fine_raster",
-             "fine_raster_stats", "fine2_raster", "fine2_raster_stats", "untile_one", "untile3")
+             "fine_raster_stats", "fine2_raster", "fine2_raster_stats", "untile_one", "untile3",
+             "strip_raster_proto", "rank_pairs", "inplace_blocks")
     kernels = []
     for name in order:
         entry = dict(record[name])

@@ -7,8 +7,11 @@
 (c) the port's CLI on the CPU: its TGA files equal, byte for byte, those
     written from the float32 oracle's colour and depth through the JAX
     package's NumPy post and TGA writer, as the JAX CLI writes them,
-    with and without ``--shadows`` (the shadowed oracle frame); refused
-    modes exit non-zero.  The scenes are the port's own."""
+    with and without ``--shadows`` (the shadowed oracle frame);
+    ``--animate`` writes the oracle's orbit frames and ``--profile`` a
+    trace.  The scenes are the port's own."""
+
+import math
 
 import numpy as np
 import pytest
@@ -17,7 +20,7 @@ import torch
 from torch_parity import assert_bits, frame_scene, run_jax
 from tinyrenderder_tpu.ops import post as ref
 from tinyrenderder_tpu.utils import tga
-from tinyrenderder_tpu_torch import cli
+from tinyrenderder_tpu_torch import animation, cli
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch import shadows
 from tinyrenderder_tpu_torch.ops import post
@@ -179,11 +182,37 @@ def test_cli_shadows_writes_the_oracle_files(oracle_files, tmp_path, caplog):
         (oracle_files[0] / "phong.tga").read_bytes()
 
 
-@pytest.mark.parametrize("flags,item", [(["--animate", "4"], "item 11"),
-                                        (["--profile"], "item 11")])
-def test_cli_refuses_unported_modes(flags, item, tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        cli.run(["--device", "cpu", "--outdir", str(tmp_path), *flags])
-    assert exc.value.code != 0
-    assert item in capsys.readouterr().err
-    assert not any(tmp_path.iterdir())
+def test_cli_animate_writes_frames(tmp_path, caplog):
+    """--animate N: N orbit frames and the checkpoint; each frame equals
+    the oracle's at its orbit eye, written by the JAX package's TGA
+    writer; --shadows and --profile are ignored with a warning, as in the
+    JAX CLI."""
+    caplog.set_level("INFO")
+    assert cli.run(["--device", "cpu", "--width", str(W), "--height", str(H), "--outdir",
+                    str(tmp_path), "--animate", "2", "--shadows", "--profile"]) == 0
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "checkpoint.json", "frame_0000.tga", "frame_0001.tga"]
+    assert (tmp_path / "checkpoint.json").read_text() == \
+        '{"next_frame": 2, "frames": 2, "orbit_degrees": 360.0}'
+    for flag in ("--shadows", "--profile"):
+        assert f"{flag} is not supported with --animate" in caplog.text
+    sc = cli.build_default_scene(width=W, height=H)
+    eye, target = sc.camera.params.eye.copy(), sc.camera.params.target.copy()
+    for i in range(2):
+        sc.camera.set_eye(animation.orbit_eye(eye, target, math.pi * i))
+        want = tmp_path / f"want{i}.tga"
+        tga.TGAImage.from_rgb(tscene.oracle_render(sc).color).write_tga_file(str(want))
+        assert (tmp_path / f"frame_{i:04d}.tga").read_bytes() == want.read_bytes(), i
+
+
+def test_cli_profile_writes_a_trace(oracle_files, tmp_path):
+    """--profile: the same four files, and a torch.profiler trace of the
+    render in <outdir>/trace."""
+    want, _ = oracle_files
+    assert cli.run(["--device", "cpu", "--width", str(W), "--height", str(H), "--outdir",
+                    str(tmp_path), "--profile"]) == 0
+    for name in ("phong", "zbuffer", "ao", "final"):
+        assert (tmp_path / f"{name}.tga").read_bytes() == \
+            (want / f"{name}.tga").read_bytes(), name
+    trace = tmp_path / "trace" / "trace.json"
+    assert trace.stat().st_size > 0 and '"traceEvents"' in trace.read_text()

@@ -520,13 +520,64 @@ def _jax_post(r):
     return {"zimg": np.asarray(zimg), "ao": np.asarray(ao), "final": np.asarray(final)}
 
 
+def _script(name: str):
+    """A module of ``scripts/`` loaded from its file (they are not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "scripts",
+                                                                     f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _jax_strip_proto(r):
+    """``scripts/experimental_fine_raster.py``: ``build_strip_records`` and
+    ``strip_rasterize(interpret=True)`` on a setup."""
+    import jax.numpy as jnp
+
+    mod = _script("experimental_fine_raster")
+    setup = {k: jnp.asarray(r[k]) for k in ("valid", "screen", "ndc_z", "clip_w", "bbox")}
+    w, h = int(r["w"]), int(r["h"])
+    recs, rows, _, _ = mod.build_strip_records(setup, w, h)
+    depth, winner, _ = mod.strip_rasterize(setup, jnp.asarray(r["init"]), w, h,
+                                           interpret=True)
+    return {"recs": recs, "rows": rows, "depth": np.asarray(depth),
+            "winner": np.asarray(winner)}
+
+
+def _jax_rank(r):
+    """``scripts/experimental_rank_kernel.py::rank_pairs_kernel(interpret=True)``."""
+    import jax.numpy as jnp
+
+    mod = _script("experimental_rank_kernel")
+    strips, ranks = mod.rank_pairs_kernel(
+        *(jnp.asarray(r[k]) for k in ("tx0", "ty0", "span_x", "spans")), int(r["nsx"]), True)
+    return {"strips": np.asarray(strips), "ranks": np.asarray(ranks)}
+
+
+def _jax_inplace(r):
+    """``scripts/probe_inplace_blocks.py``: the probe runs when loaded (it
+    has no main guard; interpret mode, as its argv is not "tpu"), then its
+    ``run`` on the request's image and ids."""
+    import runpy
+
+    import jax.numpy as jnp
+
+    g = runpy.run_path(os.path.join(ROOT, "scripts", "probe_inplace_blocks.py"))
+    out = g["run"](jnp.asarray(r["img"]), jnp.asarray(r["ids"]), float(r["add"]),
+                   int(r["a_cap"]))
+    return {"probe_img": np.asarray(g["img"]), "probe_out": np.asarray(g["out"]),
+            "out": np.asarray(out)}
+
+
 def _main(req_path, out_path):
     import jax
     jax.config.update("jax_platforms", "cpu")
     ops = {"bins": _jax_bins, "raster": _jax_raster, "untile": _jax_untile,
            "untile3": _jax_untile3, "image": _jax_image, "scene": _jax_scene,
            "post": _jax_post, "pre_fine": _jax_pre_fine, "pre_fine2": _jax_pre_fine2,
-           "shadows": _jax_shadows, "dense": _jax_dense}
+           "shadows": _jax_shadows, "dense": _jax_dense, "strip_proto": _jax_strip_proto,
+           "rank": _jax_rank, "inplace": _jax_inplace}
     requests: dict = {}
     with np.load(req_path) as z:
         for key in z.files:

@@ -2,8 +2,9 @@
 CUDA kernels for NVIDIA Hopper (sm_90a): the single-pass image route, the
 multi-pass tiled frame with exact render stats, each pass on the coarse,
 the strip or the grouped strip raster, depth-only passes and the
-two-pass shadowed frame, the dense-grid raster entry, the post pass and
-the CLI.
+two-pass shadowed frame, the dense-grid raster entry, the post pass, the
+orbit animation and the CLI, and the JAX repository's three experimental
+kernels of ``scripts/``.
 
 The JAX package ``tinyrenderder_tpu`` is the reference this package is
 held against.  Module names mirror it so each counterpart is easy to
@@ -13,7 +14,8 @@ find:
   math3d.py, camera.py          ->  math3d.py, camera.py
   models/ (mesh, procedural,    ->  models/ (the same four; the other
     obj, manager)                     formats are not ported yet)
-  utils/ (tga, stats)           ->  utils/ (tga, stats)
+  utils/ (tga, stats, native)   ->  utils/ (tga, stats, native: builds
+                                      native/*.cpp with g++ on first use)
   ops/semantics.py              ->  ops/semantics.py
   shaders.py                    ->  shaders.py (host classes + device half)
   ops/raster_tiled.py           ->  ops/raster_tiled.py
@@ -27,7 +29,12 @@ find:
   oracle.py                     ->  oracle.py (NumPy, imports no torch)
   scene.py (Scene, cull, tiled) ->  scene.py
   shadows.py                    ->  shadows.py
+  animation.py                  ->  animation.py
   cli.py                        ->  cli.py
+  scripts/experimental_fine_raster.py,  experimental/ (fine_raster,
+    experimental_rank_kernel.py,          rank_kernel, inplace_blocks)
+    probe_inplace_blocks.py       ->      + csrc/{fine_raster,rank_kernel,
+                                          inplace_blocks}.cu
 
 The host layer (scene description, cull, ``build_uniforms``, meshes,
 the NumPy oracle and post) is the port's own NumPy copy of the JAX

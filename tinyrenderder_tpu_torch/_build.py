@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
-SOURCES = ("raster_coarse.cu", "raster_fine.cu", "raster_fine2.cu", "untile.cu")
+SOURCES = ("raster_coarse.cu", "raster_fine.cu", "raster_fine2.cu", "untile.cu",
+           "fine_raster.cu", "rank_kernel.cu", "inplace_blocks.cu")
 HEADERS = ("raster_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,6 +55,12 @@ SIGNATURES = {
     # color, depth, winner, color_out, depth_out, winner_out,
     # n_tiles_x, n_tiles_y, tile_h, tile_w, stream
     "trt_untile3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # recs, rows, n_groups, max_rows, init, depth, winner, n_tiles_x, stream
+    "trt_strip_proto": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+    # tx0, ty0, span_x, spans, n_tri, nsx, strips, ranks, stream
+    "trt_rank_pairs": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # img, ids, add, n_ids, height, width, block_h, block_w, stream
+    "trt_inplace_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

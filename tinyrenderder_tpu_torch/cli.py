@@ -2,7 +2,7 @@
 
     python -m tinyrenderder_tpu_torch.cli [model] --device cuda|cpu \\
         [--width W] [--height H] [--outdir DIR] [--no-cull] [--no-ssao] \\
-        [--image-only] [--shadows [--shadow-size S]]
+        [--image-only] [--shadows [--shadow-size S]] [--animate N] [--profile]
 
 Counterpart of ``tinyrenderder_tpu.cli`` on the port: the same default
 scene (``build_default_scene``: Sponza, head, eyes excluded from the
@@ -11,8 +11,10 @@ are missing), rendered with exact stats by ``scene.render_scene`` on
 ``--device``, then z-visualization, SSAO and the composite on the same
 device, and the same four TGA files and log lines.  ``--shadows`` renders
 the two-pass shadowed frame from the key light (``shadows.py``) in its
-place.  The JAX CLI's animation and profiler modes are not ported yet and
-are refused.
+place.  ``--animate N`` renders an N-frame orbit of the scene instead
+(``animation.py``, resumable from ``<outdir>/checkpoint.json``);
+``--profile`` records a ``torch.profiler`` trace of the render (CPU, and
+CUDA on a CUDA device) into ``<outdir>/trace/trace.json``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from tinyrenderder_tpu_torch import math3d
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch import shadows
+from tinyrenderder_tpu_torch.animation import AnimationConfig, render_animation
 from tinyrenderder_tpu_torch.camera import Camera
 from tinyrenderder_tpu_torch.models import procedural
 from tinyrenderder_tpu_torch.models.manager import ModelManager
@@ -49,10 +52,6 @@ EYES_MODEL_PATH = "obj/african_head/african_head_eye_inner.obj"
 SPONZA_MODEL_PATH = "obj/sponza/sponza.obj"
 #: the default scene's key light (main.cpp:615)
 KEY_LIGHT_DIR = math3d.normalized(math3d.vec3(1.0, 1.4, 1.0))
-
-#: JAX CLI modes the port refuses, and the ROADMAP.md Queue 1 item that ports each
-UNPORTED = {"animate": "item 11", "profile": "item 11"}
-
 
 def _load_or_procedural(manager: ModelManager, path: str, kind: str,
                         explicit: bool = False) -> Mesh:
@@ -158,14 +157,12 @@ def run(argv=None) -> int:
                         help="two-pass hard shadow mapping from the key light")
     parser.add_argument("--shadow-size", type=int, default=1024)
     parser.add_argument("--animate", type=int, default=0, metavar="N",
-                        help="not ported yet")
-    parser.add_argument("--profile", action="store_true", help="not ported yet")
+                        help="render an N-frame orbit animation "
+                             "(resumable via <outdir>/checkpoint.json)")
+    parser.add_argument("--profile", action="store_true",
+                        help="write a torch.profiler trace to <outdir>/trace")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag):
-            parser.error(f"--{flag} is not ported to tinyrenderder_tpu_torch yet "
-                         f"(ROADMAP.md Queue 1 {item})")
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
 
@@ -176,7 +173,37 @@ def run(argv=None) -> int:
     scene = build_default_scene(args.model, args.width, args.height)
     log.info("%s", scene.describe())
     scene.camera.print_info()
-    return _render_and_write(args, scene)
+
+    if args.animate:
+        for flag, on in (("--shadows", args.shadows), ("--profile", args.profile)):
+            if on:
+                log.warning("%s is not supported with --animate and is ignored", flag)
+        cfg = AnimationConfig(frames=args.animate, device=args.device, outdir=args.outdir,
+                              frustum_cull=not args.no_cull)
+        summary = render_animation(scene, cfg)
+        log.info("animation: %d frames in %.1f s (%.2f fps), resumed at %d",
+                 summary["frames_rendered"], summary["seconds"], summary["fps"],
+                 summary["resumed_at"])
+        return 0
+
+    profiler = None
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if args.device == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+    try:
+        return _render_and_write(args, scene)
+    finally:
+        # finalize the trace even when the render raises: the trace of a
+        # failing run is exactly the artifact worth keeping
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            trace_dir = os.path.join(args.outdir, "trace")
+            os.makedirs(trace_dir, exist_ok=True)
+            profiler.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            log.info("Saved profiler trace to %s", trace_dir)
 
 
 def _render_and_write(args, scene) -> int:

@@ -12,6 +12,11 @@ model.cpp:91-99; this loader implements the subset its OBJ scenes need:
   * per-material textures with the reference's fallback names
     ``<stem>_diffuse.tga`` / ``_nm.tga`` / ``_spec.tga`` / ``_emission.tga``
     (model.cpp:207-267); only TGA payloads parse, as in the reference.
+
+The tokenizing loop goes through the C++ tokenizer of ``native/``
+(``utils/native.py``) when it builds, as the JAX package's does
+(``models/obj.py:146-151``); the Python loop is the plain version, with
+the same meshes.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import os
 import numpy as np
 
 from tinyrenderder_tpu_torch.models.mesh import Material, Mesh, SubMesh
-from tinyrenderder_tpu_torch.utils import tga
+from tinyrenderder_tpu_torch.utils import native, tga
 
 log = logging.getLogger("tinyrenderder_tpu_torch.obj")
 
@@ -115,10 +120,51 @@ def load_material_textures(name: str, maps: dict[str, str],
                     specular=loaded["specular"], emission=loaded["emission"])
 
 
-def load_obj(path: str, load_textures: bool = True) -> Mesh:
-    """Load an OBJ file into a finalized Mesh."""
+def _materials(material_names: list[str], mtl_maps: dict, load_textures: bool,
+               directory: str, stem: str) -> list[Material]:
+    if not material_names:
+        material_names = [""]
+    if load_textures:
+        return [load_material_textures(name, mtl_maps.get(name, {}), directory, stem)
+                for name in material_names]
+    return [Material(name=n) for n in material_names]
+
+
+def _load_obj_native(path: str, load_textures: bool, directory: str, stem: str) -> Mesh:
+    parsed = native.parse_obj(os.path.abspath(path), stem)
+    if parsed is None:
+        raise OSError(f"cannot open OBJ: {path}")
+    (pos, uv, nrm, faces, sub_table, material_names, group_names, mtllibs, any_uv,
+     any_norm) = parsed
+    submeshes = [SubMesh(name=group_names[i] if i < len(group_names) else stem,
+                         start_index=int(sub_table[i, 0]), index_count=int(sub_table[i, 1]),
+                         material_index=int(sub_table[i, 2]), has_texcoords=any_uv,
+                         has_normals=any_norm)
+                 for i in range(sub_table.shape[0])]
+    mtl_maps: dict[str, dict[str, str]] = {}
+    for raw in mtllibs:
+        for rel in _mtllib_paths(raw, directory):
+            mtl_maps.update(load_mtl(os.path.join(directory, rel)))
+    mesh = Mesh(positions=pos, faces=faces, uvs=uv, normals=nrm, submeshes=submeshes,
+                materials=_materials(material_names, mtl_maps, load_textures, directory,
+                                     stem),
+                name=stem)
+    mesh.finalize()
+    log.info("Model loaded (native): %s (vertices: %d, faces: %d, submeshes: %d, "
+             "materials: %d)", path, mesh.nverts, mesh.nfaces, len(mesh.submeshes),
+             len(mesh.materials))
+    return mesh
+
+
+def load_obj(path: str, load_textures: bool = True, use_native: bool | None = None) -> Mesh:
+    """Load an OBJ file into a finalized Mesh.  ``use_native=None`` takes
+    the C++ tokenizer when it builds (the same mesh as the Python path)."""
     directory = os.path.dirname(os.path.abspath(path))
     stem = os.path.splitext(os.path.basename(path))[0]
+    if use_native is None:
+        use_native = native.available()
+    if use_native:
+        return _load_obj_native(path, load_textures, directory, stem)
 
     positions: list[tuple[float, float, float]] = []
     texcoords: list[tuple[float, float]] = []
@@ -228,14 +274,7 @@ def load_obj(path: str, load_textures: bool = True) -> Mesh:
         sm.has_texcoords = any_uv
         sm.has_normals = any_norm
 
-    if not material_names:
-        material_names = [""]
-    if load_textures:
-        materials = [load_material_textures(name, mtl_maps.get(name, {}), directory, stem)
-                     for name in material_names]
-    else:
-        materials = [Material(name=n) for n in material_names]
-
+    materials = _materials(material_names, mtl_maps, load_textures, directory, stem)
     mesh = Mesh(
         positions=np.array(out_pos, dtype=np.float64).reshape(-1, 3),
         faces=np.array(face_indices, dtype=np.int32).reshape(-1, 3),

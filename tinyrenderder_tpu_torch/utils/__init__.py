@@ -1,1 +1,1 @@
-"""Host utilities: the TGA codec and the render counters."""
+"""Host utilities: the TGA codec, its native C++ path and the render counters."""

@@ -8,7 +8,10 @@ in the reference's in-memory order (**B, G, R[, A]**, raw TGA bytes),
 row 0 the top row after ``read``'s flips; ``to_rgb`` / ``from_rgb``
 convert at the boundary.  Writing defaults to vflip=True, rle=True like
 tgaimage.h:75-77, byte-identical to the reference encoder's greedy RLE
-(tgaimage.cpp:193-242).
+(tgaimage.cpp:193-242).  RLE encode and decode go through the C++ codec
+of ``native/`` (``utils/native.py``) when it builds; the Python loops
+(``_encode_rle_py``, ``_decode_rle_py``) are the plain versions, byte
+for byte the same.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import struct
 from dataclasses import dataclass
 
 import numpy as np
+
+from tinyrenderder_tpu_torch.utils import native
 
 __all__ = ["TGAImage", "read", "write"]
 
@@ -53,6 +58,13 @@ class _Header:
 
 def _decode_rle(raw: bytes, w: int, h: int, bpp: int) -> np.ndarray:
     """RLE decode (tgaimage.cpp:124-157). Returns flat (h*w, bpp) bytes."""
+    if native.available():
+        return native.rle_decode(raw, w, h, bpp)
+    return _decode_rle_py(raw, w, h, bpp)
+
+
+def _decode_rle_py(raw: bytes, w: int, h: int, bpp: int) -> np.ndarray:
+    """``_decode_rle`` in Python."""
     out = np.empty((h * w, bpp), dtype=np.uint8)
     buf = np.frombuffer(raw, dtype=np.uint8)
     pos = 0
@@ -87,6 +99,13 @@ def _encode_rle(flat: np.ndarray, bpp: int) -> bytes:
     position measure the run of pixels equal to the current one (max
     128); a run of 2 or more becomes an RLE packet, otherwise a raw
     packet extends until the next two pixels are equal (max 128)."""
+    if native.available():
+        return native.rle_encode(flat, bpp)
+    return _encode_rle_py(flat, bpp)
+
+
+def _encode_rle_py(flat: np.ndarray, bpp: int) -> bytes:
+    """``_encode_rle`` in Python."""
     n = flat.shape[0]
     # eq_prev[i] = pixel i equals pixel i-1 (False for i == 0)
     eq_prev = np.zeros(n, dtype=bool)
