@@ -35,10 +35,13 @@ Phases, one line each (any failure exits non-zero before the last line):
      passes at 128x64 (with the script's own check against
      ``coarse_raster_plain`` over 8-row tiles) and on the headline head at
      2048² (8-row tiles, through ``strip_rasterize``), the pair-rank kernel
-     on the script's 60,000 synthetic triangles and on 246,240 of the same
-     distribution (also against ``reference_ranks``), the in-place block
-     update on the probe's image and ids and at the headline's tile shape
-     (its 492 active tiles and a repeated id); [3 gouraud/textured 800]
+     on the script's 60,000 synthetic triangles, on 246,240 of the same
+     distribution and on a one-strip pile of 246,240 (also against
+     ``reference_ranks``), the in-place block update on the probe's image
+     and ids and at the headline's tile shape (its 492 active tiles with a
+     repeated id, and each of them four times, shuffled), these two also
+     timed as their launches alone and as device time from a
+     ``torch.profiler`` trace; [3 gouraud/textured 800]
      the Gouraud and Textured head at 800² through ``render_scene_image``
      and ``render_scene``, equal to the float32 oracle bitwise.  Each
      kernel's time, its plain version's, the library call's where one
@@ -130,6 +133,12 @@ SHADED_SIZE = 800
 #: the bound's peaks: NVIDIA's H100 SXM data sheet, float32 outside the
 #: tensor cores and HBM3
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+#: the replaced designs' times through the user function (PERF.md §6,
+#: NVIDIA H100 80GB HBM3 at 700 W): the rank kernel's one block walking its
+#: 128-triangle chunks in order, and the block update's on-device
+#: deduplication launches before its kernel; printed as "before"
+SERIAL_MS = {"rank_pairs 60000 synthetic": 2.3708, "rank_pairs 246240 synthetic": 8.3540,
+             "inplace_blocks": 0.3364}
 #: float operations of one raster test of a pixel inside a triangle's bbox
 #: (barycentric: 15 products and differences, 1 sum, 3 divisions, 1
 #: difference; affine z: 5) and of one winner's varyings (barycentric 20,
@@ -172,6 +181,48 @@ def event_ms(fn, warmup: int = WARMUP, reps: int = FRAMES) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms(fn, names) -> dict[str, float]:
+    """Mean device time of one call of ``fn``, in ms, for each of ``names``
+    that a CUDA kernel's name holds, from a ``torch.profiler`` trace of
+    FRAMES calls after WARMUP; a name no kernel of the trace holds is
+    left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(FRAMES):
+            fn()
+        torch.cuda.synchronize()
+    ms: dict[str, float] = {}
+    for e in prof.events():
+        hit = [n for n in names if n in e.name]
+        if e.device_type == DeviceType.CUDA and hit:
+            ms[hit[0]] = ms.get(hit[0], 0.0) + e.time_range.elapsed_us() / FRAMES / 1e3
+    return ms
+
+
+def in_turns(fn_a, fn_b) -> tuple[float, float]:
+    """``event_ms`` of ``fn_a`` and ``fn_b`` in turns (a, b, b, a): the mean
+    of each one's two medians."""
+    a0, b0, b1, a1 = (event_ms(fn) for fn in (fn_a, fn_b, fn_b, fn_a))
+    return (a0 + a1) / 2, (b0 + b1) / 2
+
+
+def ms_text(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def device_text(ms: dict[str, float]) -> str:
+    """'t ms (a x ms + b y ms)' from ``device_ms``, or 'not measured'."""
+    if not ms:
+        return "not measured"
+    parts = " + ".join(f"{k} {v:.4f}" for k, v in ms.items())
+    return f"{sum(ms.values()):.4f} ms" + (f" ({parts})" if len(ms) > 1 else "")
 
 
 def bits_equal(a, b) -> tuple[int, float]:
@@ -632,40 +683,56 @@ def experimental_kernels(head_pass, active_ids, th: int, smi: str):
         "bound_by": b7[1], "library_ms": None}
 
     # #8 the pair-rank kernel: the script's 60,000 synthetic triangles (seed
-    # 7, 80 x 50 strips) and 246,240 of the same distribution
+    # 7, 80 x 50 strips), 246,240 of the same distribution (its main path)
+    # and a one-strip pile of 246,240
     nsx, nty = 80, 50
-    for f in (60000, 246240):
-        data = xrk.synthetic_set(f, nsx=nsx, nty=nty)
+    rank_sets = {"60000 synthetic": xrk.synthetic_set(60000, nsx=nsx, nty=nty),
+                 "246240 synthetic": xrk.synthetic_set(246240, nsx=nsx, nty=nty),
+                 "246240 one-strip pile": xrk.pile_set(246240)}
+    err8 = 0.0
+    for label, data in rank_sets.items():
+        f = len(data[0])
         args = [torch.from_numpy(a).to(DEVICE) for a in data]
-        if f == 246240:
+        if label == "246240 synthetic":
             got, n8 = main_path("rank_pairs", lambda: xrk.rank_pairs_kernel(*args, nsx))
         else:
             got = xrk.rank_pairs_kernel(*args, nsx)
-        err8 = same_planes(f"rank_pairs, {f} triangles", ("strips", "ranks"), got,
-                           xrk.rank_pairs_plain(*args, nsx))
+        err8 = max(err8, same_planes(f"rank_pairs, {label}", ("strips", "ranks"), got,
+                                     xrk.rank_pairs_plain(*args, nsx)))
         s_ref, r_ref = xrk.reference_ranks(*data, nsx, f)
         s_k, r_k = (x.cpu().numpy() for x in got)
         live = s_ref >= 0
         if not ((s_k == s_ref).all() and (r_k[live] == r_ref[live]).all()
                 and not r_k[~live].any()):
-            fail(f"rank_pairs, {f} triangles: differs from reference_ranks")
+            fail(f"rank_pairs, {label}: differs from reference_ranks")
         total = int(data[3].sum())
         ms8 = event_ms(lambda: xrk.rank_pairs_kernel(*args, nsx))
+        launch8 = event_ms(lambda: xrk.launch(*args, nsx))
+        dev8 = device_ms(lambda: xrk.launch(*args, nsx), ("rank_hist", "rank_scan", "rank_walk"))
         plain8 = time_plain(lambda: xrk.rank_pairs_plain(*args, nsx))
         lib8 = event_ms(lambda: build_bins(*args, total, nsx, nty))
         b8 = bound(f * 4 * 4 + 2 * f * xrk.S_CAP * 4, 0)
-        say(f"[3 experimental] rank_pairs, {f} synthetic triangles ({total} pairs, seed 7, "
-            f"{nsx}x{nty} strips): kernel == plain bitwise, == reference_ranks (padded ranks "
-            f"0); kernel {ms8:.4f} ms, plain {plain8:.4f} ms, library (build_bins: stable "
-            f"torch.sort + searchsorted) {lib8:.4f} ms, bound {b8[0]:.4f} ms ({b8[1]}) | {smi}")
-    entries["rank_pairs"] = {
-        "name": "rank_pairs", "route": "cuda", "source": "tinyrenderder_tpu_torch/csrc/rank_kernel.cu",
-        "replaces": "scripts/experimental_rank_kernel.py:64",
-        "max_abs_err": err8, "ms": ms8, "plain_ms": plain8, "bound_ms": b8[0],
-        "bound_by": b8[1], "library_ms": lib8}
+        g8, r8 = xrk.ranges(f * xrk.S_CAP,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+        before = SERIAL_MS.get(f"rank_pairs {label}")
+        say(f"[3 experimental] rank_pairs, {label} triangles ({total} pairs; {g8} ranges of "
+            f"{r8} slots): kernel == plain bitwise, == reference_ranks (padded ranks 0); "
+            f"rank_pairs_kernel {ms8:.4f} ms, its launches alone {launch8:.4f} ms, device "
+            f"{device_text(dev8)}, plain {plain8:.4f} ms, library (build_bins: stable torch.sort + "
+            f"searchsorted) {lib8:.4f} ms, bound {b8[0]:.4f} ms ({b8[1]}); the serial kernel "
+            f"before: {ms_text(before)} | {smi}")
+        if label == "246240 synthetic":
+            entries["rank_pairs"] = {
+                "name": "rank_pairs", "route": "cuda",
+                "source": "tinyrenderder_tpu_torch/csrc/rank_kernel.cu",
+                "replaces": "scripts/experimental_rank_kernel.py:64",
+                "ms": ms8, "plain_ms": plain8, "bound_ms": b8[0], "bound_by": b8[1],
+                "library_ms": lib8}
+    entries["rank_pairs"]["max_abs_err"] = err8
 
     # #9 the in-place block update: the probe's image and ids, then the
-    # headline's tile shape (2048², 32x128 blocks, its active tiles + a repeat)
+    # headline's tile shape (2048², 32x128 blocks): its active tiles + a
+    # repeat (the main path), and every active tile four times, shuffled
     img0 = np.arange(xib.H * xib.W, dtype=np.float32).reshape(xib.H, xib.W) * np.float32(0.001)
     ids = torch.tensor([1, 3, 3, 6], dtype=torch.int32, device=DEVICE)
     probe = torch.from_numpy(img0).to(DEVICE)
@@ -675,40 +742,65 @@ def experimental_kernels(head_pass, active_ids, th: int, smi: str):
     same_planes("inplace_blocks, the probe", ("expected image",), (got.cpu(),),
                 (torch.from_numpy(xib.expected_image(img0, [1, 3, 3, 6], 10.0)),))
     blk3 = (got.cpu().numpy() - img0)[16:32, 128:256]
-    rng = np.random.default_rng(9)
-    big = torch.from_numpy(rng.standard_normal((HEIGHT, WIDTH)).astype(np.float32)).to(DEVICE)
-    ids9 = torch.cat([active_ids, active_ids[len(active_ids) // 2:][:1]])
-    n_ids = ids9.shape[0]
-    block = (th, TILE_W)
-    work, n9 = main_path("inplace_blocks",
-                         lambda: xib.run(big.clone(), ids9, 10.0, n_ids, block))
-    err9 = same_planes("inplace_blocks, headline tiles", ("image",), (work,),
-                       (xib.run_plain(big.clone(), ids9, 10.0, n_ids, block),))
-    unvisited = torch.ones(HEIGHT // th * (WIDTH // TILE_W), dtype=torch.bool, device=DEVICE)
-    unvisited[active_ids.long()] = False
-    tiles_of = lambda x: x.view(HEIGHT // th, th, WIDTH // TILE_W, TILE_W).transpose(1, 2)  # noqa: E731
-    if not torch.equal(tiles_of(work).reshape(-1, th, TILE_W)[unvisited].view(torch.int32),
-                       tiles_of(big).reshape(-1, th, TILE_W)[unvisited].view(torch.int32)):
-        fail("inplace_blocks: an unvisited block changed")
-    ms9 = event_ms(lambda: xib.run(work, ids9, 10.0, n_ids, block))
-    plain9 = time_plain(lambda: xib.run_plain(work, ids9, 10.0, n_ids, block))
-    tiles = torch.zeros((HEIGHT // th * (WIDTH // TILE_W), th, TILE_W), device=DEVICE)
-    upd = torch.ones((active_ids.shape[0], th, TILE_W), device=DEVICE)
-    lib9 = event_ms(lambda: tiles.index_copy_(0, active_ids.long(), upd))
-    b9 = bound(2 * active_ids.shape[0] * th * TILE_W * 4 + n_ids * 4, 0)
     say(f"[3 experimental] inplace_blocks: the probe's ids [1, 3, 3, 6] == plain == the f32 "
         f"expected image bitwise, block 3 + ({float(blk3.min())}, {float(blk3.max())}) = "
-        f"(x + 1.0 * 10) + 3, once; headline tile shape ({WIDTH}x{HEIGHT}, {th}x{TILE_W} "
-        f"blocks, {n_ids} ids = {active_ids.shape[0]} active tiles + 1 repeat): kernel == "
-        f"plain bitwise, unvisited blocks bit-unchanged; kernel {ms9:.4f} ms, plain "
-        f"{plain9:.4f} ms, library (index_copy_ of the updated blocks into a tiled plane) "
-        f"{lib9:.4f} ms, bound {b9[0]:.4f} ms ({b9[1]}); launches {n9} | {smi}")
-    entries["inplace_blocks"] = {
-        "name": "inplace_blocks", "route": "cuda",
-        "source": "tinyrenderder_tpu_torch/csrc/inplace_blocks.cu",
-        "replaces": "scripts/probe_inplace_blocks.py:31",
-        "max_abs_err": err9, "ms": ms9, "plain_ms": plain9, "bound_ms": b9[0],
-        "bound_by": b9[1], "library_ms": lib9}
+        f"(x + 1.0 * 10) + 3, once")
+    rng = np.random.default_rng(9)
+    big = torch.from_numpy(rng.standard_normal((HEIGHT, WIDTH)).astype(np.float32)).to(DEVICE)
+    n_act = active_ids.shape[0]
+    perm = torch.from_numpy(np.random.default_rng(4).permutation(4 * n_act)).to(DEVICE)
+    id_lists = {f"{n_act} active tiles + 1 repeat":
+                torch.cat([active_ids, active_ids[n_act // 2:][:1]]),
+                f"{n_act} active tiles x 4, shuffled": active_ids.repeat(4)[perm].contiguous()}
+    block = (th, TILE_W)
+    n_blk = HEIGHT // th * (WIDTH // TILE_W)
+
+    def tiles_of(x):
+        return x.view(HEIGHT // th, th, WIDTH // TILE_W, TILE_W).transpose(1, 2)
+    unvisited = torch.ones(n_blk, dtype=torch.bool, device=DEVICE)
+    unvisited[active_ids.long()] = False
+    tiles = torch.zeros((n_blk, th, TILE_W), device=DEVICE)
+    upd = torch.ones((n_act, th, TILE_W), device=DEVICE)
+    err9 = 0.0
+    for k, (label, ids9) in enumerate(id_lists.items()):
+        n_ids = ids9.shape[0]
+        if k == 0:
+            work, n9 = main_path("inplace_blocks",
+                                 lambda: xib.run(big.clone(), ids9, 10.0, n_ids, block))
+        else:
+            work = xib.run(big.clone(), ids9, 10.0, n_ids, block)
+        err9 = max(err9, same_planes(f"inplace_blocks, headline tiles, {label}", ("image",),
+                                     (work,),
+                                     (xib.run_plain(big.clone(), ids9, 10.0, n_ids, block),)))
+        if not torch.equal(tiles_of(work).reshape(-1, th, TILE_W)[unvisited].view(torch.int32),
+                           tiles_of(big).reshape(-1, th, TILE_W)[unvisited].view(torch.int32)):
+            fail(f"inplace_blocks, {label}: an unvisited block changed")
+        # run and index_copy_ (on the kernel's int32 ids: it takes int64
+        # only) in turns, run first and last: both are a few host µs apart
+        # and the host drifts between measurements
+        ms9, lib9 = in_turns(lambda: xib.run(work, ids9, 10.0, n_ids, block),
+                             lambda: tiles.index_copy_(0, active_ids.long(), upd))
+        launch9 = event_ms(lambda: xib.launch(work, ids9, 10.0, n_ids, th, TILE_W))
+        dev9 = device_ms(lambda: xib.launch(work, ids9, 10.0, n_ids, th, TILE_W),
+                         ("inplace_blocks_kernel",))
+        plain9 = time_plain(lambda: xib.run_plain(work, ids9, 10.0, n_ids, block))
+        b9 = bound(2 * n_act * th * TILE_W * 4 + n_ids * 4, 0)
+        say(f"[3 experimental] inplace_blocks, headline tile shape ({WIDTH}x{HEIGHT}, "
+            f"{th}x{TILE_W} blocks, {n_ids} ids = {label}): kernel == plain bitwise, unvisited "
+            f"blocks bit-unchanged; run {ms9:.4f} ms (in turns with the library), its launch "
+            f"alone {launch9:.4f} ms, device {device_text(dev9)}, plain {plain9:.4f} ms, library (index_copy_ of the {n_act} "
+            f"updated blocks into a tiled plane) {lib9:.4f} ms, bound {b9[0]:.4f} ms "
+            f"({b9[1]}); the kernel before (dedup launches + one kernel): "
+            f"{ms_text(SERIAL_MS['inplace_blocks'] if k == 0 else None)} | {smi}")
+        if k == 0:
+            entries["inplace_blocks"] = {
+                "name": "inplace_blocks", "route": "cuda",
+                "source": "tinyrenderder_tpu_torch/csrc/inplace_blocks.cu",
+                "replaces": "scripts/probe_inplace_blocks.py:31",
+                "ms": ms9, "plain_ms": plain9, "bound_ms": b9[0], "bound_by": b9[1],
+                "library_ms": lib9}
+    entries["inplace_blocks"]["max_abs_err"] = err9
+    say(f"[3 experimental] main-path launches: rank_pairs {n8}, inplace_blocks {n9}")
     return entries, totals
 
 

@@ -26,11 +26,45 @@ SETUP_KEYS = ("valid", "screen", "ndc_z", "clip_w", "bbox")
 #: init seed or None for +inf); the last is ragged on both axes
 STRIP = {"head_128x64": ("head", 128, 64, None), "soup_128x64": ("soup", 128, 64, None),
          "cube_128x64": ("cube", 128, 64, None), "head_200x60": ("head", 200, 60, 5)}
-#: rank cases: triangles of the script's synthetic set (80 x 50 strips)
-RANK = {"f2000": 2000, "f60000": 60000}
 NSX = 80
-#: block-update case beside the probe's own: ids with repeats, out of order
-INPLACE_IDS, INPLACE_ADD = [7, 0, 7, 2, 5, 0], 2.5
+
+
+def _dead_chunks():
+    """768 synthetic triangles whose 128 .. 511 have spans 0: three of the
+    TPU's 128-triangle chunks, and a whole range of the CUDA kernel's,
+    hold no live slot."""
+    data = [a.copy() for a in rank_kernel.synthetic_set(768, nsx=NSX)]
+    data[3][128:512] = 0
+    return tuple(data)
+
+
+def _four_strips(f: int = 300):
+    """``f`` triangles of span_x 2 and spans 4 on one 2 x 2 block of
+    strips: every triangle counts in all four, no slot is padded."""
+    full = lambda v: np.full(f, v, np.int32)  # noqa: E731
+    return full(7), full(3), full(2), full(4)
+
+
+#: rank cases -> (tx0, ty0, span_x, spans): the script's synthetic set (80 x
+#: 50 strips) and the shapes the CUDA kernel's ranges stress: a one-strip
+#: pile across three 128-triangle chunks (ranks 0 .. 299), a partial chunk,
+#: one triangle, chunks with no live slot, every slot live
+RANK = {"f2000": lambda: rank_kernel.synthetic_set(2000, nsx=NSX),
+        "f60000": lambda: rank_kernel.synthetic_set(60000, nsx=NSX),
+        "pile300": lambda: rank_kernel.pile_set(300),
+        "f129": lambda: rank_kernel.synthetic_set(129, nsx=NSX),
+        "f1": lambda: rank_kernel.synthetic_set(1, nsx=NSX),
+        "dead_chunks": _dead_chunks,
+        "four_strips": _four_strips}
+#: rank cases for the card only, at the stress scene's 246,240 triangles
+RANK_CUDA = {"pile246240": lambda: rank_kernel.pile_set(246240),
+             "f246240": lambda: rank_kernel.synthetic_set(246240, nsx=NSX)}
+#: block-update cases on the probe's image -> (ids, add, a_cap): repeats out
+#: of order, all eight ids in reverse order plus repeats, and an a_cap
+#: shorter than the list (the tail is not visited)
+INPLACE = {"repeats": ([7, 0, 7, 2, 5, 0], 2.5, 6),
+           "reverse": ([7, 6, 5, 4, 3, 2, 1, 0, 0, 4, 7, 1], -1.75, 12),
+           "a_cap_short": ([4, 1, 6, 1, 2, 7, 0, 3], 0.625, 4)}
 
 
 def _strip_inputs(scene, w, h, seed):
@@ -50,7 +84,7 @@ def strip_inputs():
 
 @pytest.fixture(scope="module")
 def rank_inputs():
-    return {name: rank_kernel.synthetic_set(f, nsx=NSX) for name, f in RANK.items()}
+    return {name: make() for name, make in RANK.items()}
 
 
 def _probe_image():
@@ -68,9 +102,9 @@ def jax_out(strip_inputs, rank_inputs, tmp_path_factory):
     for name, data in rank_inputs.items():
         req[name] = {"op": "rank", "nsx": NSX,
                      **dict(zip(("tx0", "ty0", "span_x", "spans"), data))}
-    req["inplace"] = {"op": "inplace", "img": _probe_image(),
-                      "ids": np.array(INPLACE_IDS, np.int32), "add": INPLACE_ADD,
-                      "a_cap": len(INPLACE_IDS)}
+    for name, (ids, add, a_cap) in INPLACE.items():
+        req[f"inplace_{name}"] = {"op": "inplace", "img": _probe_image(),
+                                  "ids": np.array(ids, np.int32), "add": add, "a_cap": a_cap}
     return run_jax(req, tmp_path_factory.mktemp("jax_experimental"))
 
 
@@ -131,17 +165,22 @@ def test_rank_pairs_match_script(rank_inputs, jax_out, name):
     assert rank_kernel.LAUNCHES == 0
     assert_bits(strips.numpy(), jax_out[name]["strips"], "strips")
     assert_bits(ranks.numpy(), jax_out[name]["ranks"], "ranks")
-    s_ref, r_ref = rank_kernel.reference_ranks(*data, NSX, RANK[name])
+    _assert_reference_ranks(data, strips, ranks)
+    # padded slots exist wherever a triangle spans fewer than 4 strips
+    assert (strips.numpy() < 0).any() == bool((data[3] < rank_kernel.S_CAP).any())
+
+
+def _assert_reference_ranks(data, strips, ranks):
+    """strips and ranks (CPU tensors) equal the script's sort-free ground
+    truth on live slots, and padded slots have rank 0."""
+    s_ref, r_ref = rank_kernel.reference_ranks(*data, NSX, len(data[0]))
     live = s_ref >= 0
     assert_bits(strips.numpy().astype(np.int64), s_ref, "strips vs reference_ranks")
     assert_bits(ranks.numpy()[live].astype(np.int64), r_ref[live], "ranks vs reference_ranks")
-    assert (~live).any() and not ranks.numpy()[~live].any()     # padded slots: rank 0
+    assert not ranks.numpy()[~live].any()                         # padded slots: rank 0
 
 
-@pytest.mark.parametrize("bad,match", [("spans", "slots a triangle"),
-                                       ("rows", "counter table"),
-                                       ("cols", "counter table")])
-def test_rank_pairs_refuse_what_the_tpu_kernel_cannot_count(bad, match):
+def _bad_rank_input(bad):
     tx0, ty0, span_x, spans = (torch.from_numpy(a.copy())
                                for a in rank_kernel.synthetic_set(300, nsx=NSX))
     if bad == "spans":
@@ -152,8 +191,29 @@ def test_rank_pairs_refuse_what_the_tpu_kernel_cannot_count(bad, match):
     else:
         tx0[13] = rank_kernel.COLS_PAD - 1
         spans[13], span_x[13] = 2, 2                 # the second slot's column is 128
+    return tx0, ty0, span_x, spans
+
+
+REFUSALS = [("spans", "slots a triangle"), ("rows", "counter table"),
+            ("cols", "counter table")]
+
+
+@pytest.mark.parametrize("bad,match", REFUSALS)
+def test_rank_pairs_refuse_what_the_tpu_kernel_cannot_count(bad, match):
     with pytest.raises(ValueError, match=match):
-        rank_kernel.rank_pairs_kernel(tx0, ty0, span_x, spans, NSX)
+        rank_kernel.rank_pairs_kernel(*_bad_rank_input(bad), NSX)
+
+
+@pytest.mark.parametrize("n_slots", [1, 4, 516, 1024, 1025, 4 * 60000, 4 * 246240, 1 << 23])
+@pytest.mark.parametrize("sm_count", [1, 132])
+def test_rank_ranges_cover_the_slots(n_slots, sm_count):
+    """The CUDA kernel's ranges: R a multiple of its batch (and so of a
+    warp's 32 slots), G * R covers the slots and (G - 1) * R does not, G
+    within its caps."""
+    g, r = rank_kernel.ranges(n_slots, sm_count)
+    assert r % rank_kernel.RANGE_ALIGN == 0 and rank_kernel.RANGE_ALIGN % 32 == 0
+    assert g * r >= n_slots > (g - 1) * r
+    assert 1 <= g <= min(rank_kernel.RANGES_PER_SM * sm_count, rank_kernel.MAX_RANGES)
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +221,7 @@ def test_rank_pairs_refuse_what_the_tpu_kernel_cannot_count(bad, match):
 # ---------------------------------------------------------------------------
 
 def test_inplace_blocks_match_the_probe(jax_out):
-    r = jax_out["inplace"]
+    r = jax_out["inplace_repeats"]
     img0 = _probe_image()
     assert_bits(r["probe_img"], img0, "the probe's image")
     inplace_blocks.LAUNCHES = 0
@@ -173,10 +233,17 @@ def test_inplace_blocks_match_the_probe(jax_out):
                 "expected image")
     blk3 = out.numpy()[16:32, 128:256] - img0[16:32, 128:256]
     assert 12.99 < blk3.min() <= blk3.max() < 13.01                # applied once, not 26
+
+
+@pytest.mark.parametrize("name", list(INPLACE))
+def test_inplace_blocks_match_script_run(jax_out, name):
+    ids, add, a_cap = INPLACE[name]
+    img0 = _probe_image()
     img = torch.from_numpy(img0.copy())
-    inplace_blocks.run(img, torch.tensor(INPLACE_IDS, dtype=torch.int32), INPLACE_ADD,
-                       len(INPLACE_IDS))
-    assert_bits(img.numpy(), r["out"], "repeated ids")
+    inplace_blocks.run(img, torch.tensor(ids, dtype=torch.int32), add, a_cap)
+    assert_bits(img.numpy(), jax_out[f"inplace_{name}"]["out"], "the script's run")
+    assert_bits(img.numpy(), inplace_blocks.expected_image(img0, ids[:a_cap], add),
+                "expected image")
 
 
 def test_inplace_blocks_skip_ids_outside_the_image():
@@ -216,22 +283,112 @@ def test_cuda_strip_raster_matches_plain(strip_inputs, cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(RANK))
-def test_cuda_rank_kernel_matches_plain(rank_inputs, cuda_device, name):
-    args = [torch.from_numpy(a).to(cuda_device) for a in rank_inputs[name]]
+@pytest.mark.parametrize("name", list(RANK) + list(RANK_CUDA))
+def test_cuda_rank_kernel_matches_plain(cuda_device, name):
+    data = {**RANK, **RANK_CUDA}[name]()
+    args = [torch.from_numpy(a).to(cuda_device) for a in data]
     rank_kernel.LAUNCHES = 0
     got = rank_kernel.rank_pairs_kernel(*args, NSX)
     assert rank_kernel.LAUNCHES == 1
     for g, p in zip(got, rank_kernel.rank_pairs_plain(*args, NSX)):
         assert_bits(g.cpu().numpy(), p.cpu().numpy(), name)
+    _assert_reference_ranks(data, *(g.cpu() for g in got))
 
 
 @pytest.mark.cuda
-def test_cuda_inplace_blocks_match_plain(cuda_device):
-    img0 = torch.from_numpy(_probe_image()).to(cuda_device)
-    ids = torch.tensor(INPLACE_IDS + [3, 3, 1], dtype=torch.int32, device=cuda_device)
+@pytest.mark.parametrize("bad,match", REFUSALS)
+def test_cuda_rank_kernel_refuses_from_the_device(cuda_device, bad, match):
+    """The device's domain word refuses what the CPU check refuses, with
+    the same message, after the one launch."""
+    args = _bad_rank_input(bad)
+    with pytest.raises(ValueError, match=match) as on_cpu:
+        rank_kernel.rank_pairs_kernel(*args, NSX)
+    rank_kernel.LAUNCHES = 0
+    with pytest.raises(ValueError, match=match) as on_card:
+        rank_kernel.rank_pairs_kernel(*(a.to(cuda_device) for a in args), NSX)
+    assert rank_kernel.LAUNCHES == 1
+    assert str(on_card.value) == str(on_cpu.value)
+
+
+def _device_kernels(fn):
+    """Names of the CUDA kernels ``fn`` launches, from torch.profiler."""
+    fn()                                                           # built, warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "emcpy" not in e.name]
+
+
+@pytest.mark.cuda
+def test_cuda_rank_kernel_launches_its_three_phases(cuda_device):
+    args = [torch.from_numpy(a).to(cuda_device) for a in RANK["f2000"]()]
+    names = _device_kernels(lambda: rank_kernel.rank_pairs_kernel(*args, NSX))
+    assert len(names) == 3, names
+    for phase, name in zip(("rank_hist", "rank_scan", "rank_walk"), names):
+        assert phase in name, names
+
+
+#: block-update cases on the card beside INPLACE: ids outside the image
+INPLACE_CUDA = {"outside": ([-1, 8, 2, 99, 2, 5, -7], 1.0, 7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(INPLACE) + list(INPLACE_CUDA))
+@pytest.mark.parametrize("add_tensor", [False, True])
+def test_cuda_inplace_blocks_match_plain(cuda_device, name, add_tensor):
+    ids, add, a_cap = {**INPLACE, **INPLACE_CUDA}[name]
+    img0 = _probe_image()
+    img = torch.from_numpy(img0).to(cuda_device)
+    ids_t = torch.tensor(ids, dtype=torch.int32, device=cuda_device)
+    add_arg = torch.tensor([add], device=cuda_device) if add_tensor else add
     inplace_blocks.LAUNCHES = 0
-    got = inplace_blocks.run(img0.clone(), ids, INPLACE_ADD, ids.shape[0])
+    got = inplace_blocks.run(img.clone(), ids_t, add_arg, a_cap)
     assert inplace_blocks.LAUNCHES == 1
-    want = inplace_blocks.run_plain(img0.clone(), ids, INPLACE_ADD, ids.shape[0])
+    want = inplace_blocks.run_plain(img.clone(), ids_t, add_arg, a_cap)
     assert_bits(got.cpu().numpy(), want.cpu().numpy(), "image")
+    assert_bits(got.cpu().numpy(), inplace_blocks.expected_image(img0, ids[:a_cap], add),
+                "expected image")
+
+
+@pytest.fixture(scope="module")
+def headline_tiles(cuda_device):
+    """(active tile ids, tile height) of the headline head at 2048²."""
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    sc = tscene.headline_scene(2048, 2048, "phong")
+    attrs, shader, uniforms, _ = tscene.pass_tensors(sc, cuda_device)[0]
+    th = rs.pick_tile_h(2048, 2048)
+    return rs.pre_sparse(attrs, uniforms, shader, 2048, 2048, th, 128).ids, th
+
+
+@pytest.mark.cuda
+def test_cuda_inplace_blocks_headline_tiles_repeated(cuda_device, headline_tiles):
+    """Every headline active tile id four times, shuffled: each block
+    updated once, every other block bit-unchanged."""
+    ids, th = headline_tiles
+    perm = torch.from_numpy(np.random.default_rng(4).permutation(4 * ids.shape[0]))
+    ids4 = ids.repeat(4)[perm.to(cuda_device)].contiguous()
+    rng = np.random.default_rng(9)
+    img = torch.from_numpy(rng.standard_normal((2048, 2048)).astype(np.float32)).to(cuda_device)
+    inplace_blocks.LAUNCHES = 0
+    got = inplace_blocks.run(img.clone(), ids4, 10.0, ids4.shape[0], (th, 128))
+    assert inplace_blocks.LAUNCHES == 1
+    want = inplace_blocks.run_plain(img.clone(), ids4, 10.0, ids4.shape[0], (th, 128))
+    assert_bits(got.cpu().numpy(), want.cpu().numpy(), "image")
+    def tiles(x):
+        return x.view(2048 // th, th, 16, 128).transpose(1, 2).reshape(-1, th, 128)
+    unvisited = torch.ones(tiles(img).shape[0], dtype=torch.bool, device=cuda_device)
+    unvisited[ids.long()] = False
+    assert torch.equal(tiles(got)[unvisited].view(torch.int32),
+                       tiles(img)[unvisited].view(torch.int32))
+    assert not torch.equal(tiles(got)[~unvisited], tiles(img)[~unvisited])
+
+
+@pytest.mark.cuda
+def test_cuda_inplace_blocks_run_is_one_launch(cuda_device):
+    img = torch.from_numpy(_probe_image()).to(cuda_device)
+    ids = torch.tensor(INPLACE["reverse"][0], dtype=torch.int32, device=cuda_device)
+    names = _device_kernels(lambda: inplace_blocks.run(img, ids, 2.0, ids.shape[0]))
+    assert len(names) == 1 and "inplace_blocks_kernel" in names[0], names

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
     # tri_rec, rec_stride, sorted_tri, tile_ids (or null: every tile),
@@ -57,10 +58,12 @@ SIGNATURES = {
     "trt_untile3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # recs, rows, n_groups, max_rows, init, depth, winner, n_tiles_x, stream
     "trt_strip_proto": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
-    # tx0, ty0, span_x, spans, n_tri, nsx, strips, ranks, stream
-    "trt_rank_pairs": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
-    # img, ids, add, n_ids, height, width, block_h, block_w, stream
-    "trt_inplace_blocks": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # tx0, ty0, span_x, spans, n_tri, nsx, n_ranges, range, work, strips,
+    # ranks, stream
+    "trt_rank_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # img, ids, id_stride, add_ptr (or null), add_val, n_ids, height, width,
+    # block_h, block_w, stream
+    "trt_inplace_blocks": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -135,6 +138,25 @@ def library() -> ctypes.CDLL:
         lib.trt_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def call(name: str, device, *args) -> None:
+    """Call C entry point ``name`` with ``args`` and the current stream of
+    CUDA ``device`` appended, with that device current, and raise on a
+    non-zero cudaError_t.  The stream is the raw handle
+    (``torch._C._cuda_getCurrentRawStream``), and the device is switched
+    only when it is not the current one: ``torch.cuda.current_stream()``
+    and ``torch.cuda.device`` each take more host time than the launch."""
+    import torch
+    fn = getattr(library(), name)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(rc, name)
 
 
 def check(rc: int, name: str) -> None:

@@ -120,12 +120,9 @@ def strip_raster(recs, rows, init_tiles, n_tiles_x: int):
     winner = torch.empty(init_tiles.shape, dtype=torch.int32, device=recs.device)
     if g == 0:
         return depth, winner
-    lib = _build.library()
-    with torch.cuda.device(recs.device):
-        rc = lib.trt_strip_proto(recs.data_ptr(), rows.data_ptr(), g, max_rows,
-                                 init_tiles.data_ptr(), depth.data_ptr(), winner.data_ptr(),
-                                 n_tiles_x, torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "trt_strip_proto")
+    _build.call("trt_strip_proto", recs.device,
+                recs.data_ptr(), rows.data_ptr(), g, max_rows, init_tiles.data_ptr(),
+                depth.data_ptr(), winner.data_ptr(), n_tiles_x)
     LAUNCHES += 1
     return depth, winner
 

@@ -21,12 +21,14 @@ Contract (both versions, bitwise):
      keeps its bits.  An id outside [0, n_blocks) is skipped (the TPU's
      block index map leaves it undefined).
 
-The CUDA wrapper deduplicates the ids on the device before the launch,
-keeping first occurrences (``dedup_ids``, no host readback), so no two CUDA
-blocks write one image block.  The plain version gathers the listed
-blocks, computes their new values and scatters them back with
-``index_copy_`` over the block axis (the pattern of
-``raster_sparse.post_sparse``), the repeats into a discarded block.
+On CUDA, ``run`` is one launch: each CUDA block looks through the ids
+before its own and leaves a repeat to the first occurrence, so no two
+CUDA blocks write one image block (``csrc/inplace_blocks.cu``); a Python
+``add`` goes by value.  The plain version deduplicates the ids first
+(``dedup_ids``, keeping first occurrences), gathers the listed blocks,
+computes their new values and scatters them back with ``index_copy_``
+over the block axis (the pattern of ``raster_sparse.post_sparse``), the
+repeats into a discarded block.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ import torch
 
 from tinyrenderder_tpu_torch import _build
 
-__all__ = ["LAUNCHES", "TH", "TW", "H", "W", "run", "run_plain", "dedup_ids", "main"]
+__all__ = ["LAUNCHES", "TH", "TW", "H", "W", "run", "launch", "run_plain", "dedup_ids",
+           "expected_image", "main"]
 
 #: the probe's blocks and image: 8 blocks of 16 x 128 in a 64 x 256 image
 TH, TW = 16, 128
@@ -94,25 +97,27 @@ def _add_tensor(add, device):
 def run(img, ids, add, a_cap: int, block=(TH, TW)):
     """Update the first ``a_cap`` listed blocks of ``img`` in place and
     return it (contract in the module docstring).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
-    global LAUNCHES
+    plain version; CUDA tensors launch the kernel, once."""
     _check(img, ids, a_cap)
-    bh, bw, nby, nbx = _grid(img, block)
-    add = _add_tensor(add, img.device)
-    ids = ids[:a_cap]
+    bh, bw, _, _ = _grid(img, block)
     if img.device.type == "cpu":
         return run_plain(img, ids, add, a_cap, block)
     if img.device.type != "cuda":
         raise ValueError(f"no block update for device {img.device}")
-    ids = dedup_ids(ids, nby * nbx).contiguous()
-    lib = _build.library()
-    with torch.cuda.device(img.device):
-        rc = lib.trt_inplace_blocks(img.data_ptr(), ids.data_ptr(), add.data_ptr(), a_cap,
-                                    img.shape[0], img.shape[1], bh, bw,
-                                    torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "trt_inplace_blocks")
-    LAUNCHES += 1
+    launch(img, ids, add, a_cap, bh, bw)
     return img
+
+
+def launch(img, ids, add, a_cap: int, bh: int, bw: int) -> None:
+    """The kernel's launch alone on CUDA tensors ``run`` has checked: a
+    Python ``add`` by value, a tensor one through its pointer."""
+    global LAUNCHES
+    add_t = _add_tensor(add, img.device) if isinstance(add, torch.Tensor) else None
+    _build.call("trt_inplace_blocks", img.device, img.data_ptr(), ids.data_ptr(), ids.stride(0),
+                None if add_t is None else add_t.data_ptr(),
+                0.0 if add_t is not None else float(add), a_cap, img.shape[0], img.shape[1],
+                bh, bw)
+    LAUNCHES += 1
 
 
 def run_plain(img, ids, add, a_cap: int, block=(TH, TW)):

@@ -23,13 +23,22 @@ triangle.  Outside that it is silently wrong: a triangle with more than 4
 pairs loses the rest (the script only asserts, ``:185``), and a pair whose
 strip row is not in [0, 64) or column not in [0, 128) misses the table's
 one-hot and takes rank 0 without counting.  ``rank_pairs_kernel`` refuses
-such input with ``ValueError`` (one readback of five numbers).  Its f32
-counts are exact below 2^24, so 4 F < 2^24 is required too.
+such input with ``ValueError``.  Its f32 counts are exact below 2^24, so
+4 F < 2^24 is required too.  On the CPU, ``check_domain`` reduces the
+slots before the plain version runs; on CUDA the kernel's first phase
+reduces the same five numbers into a domain word, which the wrapper
+reads back once, after the launches, and refuses with the same messages.
+
+The CUDA kernel is a parallel stable counting rank (``csrc/rank_kernel.cu``
+says how): the slots are cut into ``ranges`` contiguous ranges, each
+counted per key, the counts prefix-summed over the ranges, and each range
+walked in order from its prefix.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 
 import numpy as np
@@ -38,13 +47,20 @@ import torch
 from tinyrenderder_tpu_torch import _build
 
 __all__ = ["LAUNCHES", "S_CAP", "CHUNK", "ROWS_PAD", "COLS_PAD", "expand_slots",
-           "check_domain", "rank_pairs_kernel", "rank_pairs_plain", "reference_ranks",
-           "synthetic_set", "main"]
+           "check_domain", "ranges", "launch", "rank_pairs_kernel", "rank_pairs_plain",
+           "reference_ranks", "synthetic_set", "pile_set", "main"]
 
 S_CAP = 4          # strip slots per triangle
 CHUNK = 128        # triangles per step of the TPU's sequential grid
 ROWS_PAD = 64      # counter table rows (strip-grid rows)
 COLS_PAD = 128     # counter table columns (strip-grid columns)
+#: the CUDA kernel's ranges: at least MIN_RANGE slots each, a multiple of
+#: RANGE_ALIGN (its batches of 8 warp steps), at most RANGES_PER_SM a
+#: streaming multiprocessor and MAX_RANGES in all; per range
+#: WORK_PER_RANGE ints of scratch (8,192 key counts and a domain part),
+#: then DOMAIN_WORDS for the domain word
+MIN_RANGE, RANGE_ALIGN, RANGES_PER_SM, MAX_RANGES = 1024, 256, 3, 512
+WORK_PER_RANGE, DOMAIN_WORDS = ROWS_PAD * COLS_PAD + 8, 8
 
 #: kernel launches since the last reset (the CPU path does not count)
 LAUNCHES = 0
@@ -59,10 +75,9 @@ def expand_slots(tx0, ty0, span_x, spans):
     return ty0[:, None] + q, tx0[:, None] + (j - q * sx), j < spans[:, None]
 
 
-def check_domain(tx0, ty0, span_x, spans, nsx: int) -> None:
+def _check_args(tx0, ty0, span_x, spans, nsx: int) -> int:
     """Raise ValueError unless the four vectors are (F,) int32 on one
-    device and every pair lies in the TPU kernel's domain (module
-    docstring)."""
+    device, 4 F < 2^24 and nsx > 0; -> F."""
     f = tx0.shape[0]
     for name, t in (("tx0", tx0), ("ty0", ty0), ("span_x", span_x), ("spans", spans)):
         if t.dtype != torch.int32 or tuple(t.shape) != (f,) or t.device != tx0.device:
@@ -72,46 +87,85 @@ def check_domain(tx0, ty0, span_x, spans, nsx: int) -> None:
                          f"below 2^24 slots")
     if nsx <= 0:
         raise ValueError(f"nsx must be positive, got {nsx}")
-    if f == 0:
-        return
-    sy, sc, live = expand_slots(tx0, ty0, span_x, spans)
-    zero = torch.zeros_like(sy)
-    most, *rng = torch.stack([
-        spans.max(), torch.where(live, sy, zero).min(), torch.where(live, sy, zero).max(),
-        torch.where(live, sc, zero).min(), torch.where(live, sc, zero).max()]).tolist()
+    return f
+
+
+def _refuse_outside(most: int, row_lo: int, row_hi: int, col_lo: int, col_hi: int) -> None:
+    """Raise ValueError unless the domain word (the largest spans, the
+    least and largest strip row and column, a padded slot counting 0) lies
+    in the TPU kernel's domain."""
     if most > S_CAP:
         raise ValueError(f"a triangle spans {most} strips: the TPU kernel has {S_CAP} "
                          f"slots a triangle and drops the rest")
-    if rng[0] < 0 or rng[1] >= ROWS_PAD:
-        raise ValueError(f"strip rows {rng[0]} .. {rng[1]} outside the TPU kernel's "
+    if row_lo < 0 or row_hi >= ROWS_PAD:
+        raise ValueError(f"strip rows {row_lo} .. {row_hi} outside the TPU kernel's "
                          f"{ROWS_PAD}-row counter table")
-    if rng[2] < 0 or rng[3] >= COLS_PAD:
-        raise ValueError(f"strip columns {rng[2]} .. {rng[3]} outside the TPU kernel's "
+    if col_lo < 0 or col_hi >= COLS_PAD:
+        raise ValueError(f"strip columns {col_lo} .. {col_hi} outside the TPU kernel's "
                          f"{COLS_PAD}-column counter table")
+
+
+def check_domain(tx0, ty0, span_x, spans, nsx: int) -> None:
+    """Raise ValueError unless the four vectors are (F,) int32 on one
+    device and every pair lies in the TPU kernel's domain (module
+    docstring)."""
+    if _check_args(tx0, ty0, span_x, spans, nsx) == 0:
+        return
+    sy, sc, live = expand_slots(tx0, ty0, span_x, spans)
+    zero = torch.zeros_like(sy)
+    _refuse_outside(*torch.stack([
+        spans.max(), torch.where(live, sy, zero).min(), torch.where(live, sy, zero).max(),
+        torch.where(live, sc, zero).min(), torch.where(live, sc, zero).max()]).tolist())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def ranges(n_slots: int, sm_count: int) -> tuple[int, int]:
+    """(G, R): the CUDA kernel's G contiguous ranges of R slots, R a
+    multiple of RANGE_ALIGN, G * R >= n_slots > (G - 1) * R.  G grows with
+    the slots (MIN_RANGE a range) up to RANGES_PER_SM a multiprocessor:
+    more ranges shorten each range's serial walk and add 32 KB of counts
+    each."""
+    g = max(1, min(-(-n_slots // MIN_RANGE), RANGES_PER_SM * sm_count, MAX_RANGES))
+    r = -(-n_slots // g)
+    r = -(-r // RANGE_ALIGN) * RANGE_ALIGN
+    return -(-n_slots // r), r
+
+
+def launch(tx0, ty0, span_x, spans, nsx: int):
+    """The kernel's launches alone on CUDA tensors the caller has checked
+    with ``_check_args`` (F > 0): -> (strips, ranks, domain), ``domain``
+    the device's five-int domain word, not yet read."""
+    global LAUNCHES
+    f, dev = tx0.shape[0], tx0.device
+    g, r = ranges(f * S_CAP, _sm_count(dev))
+    strips, ranks = torch.empty((2, f, S_CAP), dtype=torch.int32, device=dev)
+    work = torch.empty(g * WORK_PER_RANGE + DOMAIN_WORDS, dtype=torch.int32, device=dev)
+    args = [t.contiguous() for t in (tx0, ty0, span_x, spans)]
+    _build.call("trt_rank_pairs", dev, *(t.data_ptr() for t in args), f, nsx, g, r,
+                work.data_ptr(), strips.data_ptr(), ranks.data_ptr())
+    LAUNCHES += 1
+    return strips, ranks, work[g * WORK_PER_RANGE:g * WORK_PER_RANGE + 5]
 
 
 def rank_pairs_kernel(tx0, ty0, span_x, spans, nsx: int):
     """(strips, ranks), each (F, S_CAP) int32 (contract in the module
     docstring).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
-    global LAUNCHES
-    check_domain(tx0, ty0, span_x, spans, nsx)
+    the kernel and read its domain word back once."""
     if tx0.device.type == "cpu":
+        check_domain(tx0, ty0, span_x, spans, nsx)
         return rank_pairs_plain(tx0, ty0, span_x, spans, nsx)
+    f = _check_args(tx0, ty0, span_x, spans, nsx)
     if tx0.device.type != "cuda":
         raise ValueError(f"no rank kernel for device {tx0.device}")
-    f = tx0.shape[0]
-    strips = torch.empty((f, S_CAP), dtype=torch.int32, device=tx0.device)
-    ranks = torch.empty_like(strips)
     if f == 0:
-        return strips, ranks
-    args = [t.contiguous() for t in (tx0, ty0, span_x, spans)]
-    lib = _build.library()
-    with torch.cuda.device(tx0.device):
-        rc = lib.trt_rank_pairs(*(t.data_ptr() for t in args), f, nsx, strips.data_ptr(),
-                                ranks.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "trt_rank_pairs")
-    LAUNCHES += 1
+        strips = torch.empty((0, S_CAP), dtype=torch.int32, device=tx0.device)
+        return strips, torch.empty_like(strips)
+    strips, ranks, domain = launch(tx0, ty0, span_x, spans, nsx)
+    _refuse_outside(*domain.tolist())
     return strips, ranks
 
 
@@ -157,6 +211,14 @@ def synthetic_set(f: int = 60000, seed: int = 7, nsx: int = 80, nty: int = 50):
     span_x = rng.integers(1, 3, f).astype(np.int32)
     span_y = rng.integers(1, 3, f).astype(np.int32)
     return tx0, ty0, span_x, (span_x * span_y).astype(np.int32)
+
+
+def pile_set(f: int, row: int = 25, col: int = 40):
+    """``f`` triangles piled on one strip (row, col), span 1 each: the live
+    slots share one key and rank 0 .. f-1.  -> (tx0, ty0, span_x, spans)
+    int32 NumPy."""
+    full = lambda v: np.full(f, v, np.int32)  # noqa: E731
+    return full(col), full(row), full(1), full(1)
 
 
 def main(argv=None) -> int:

@@ -160,18 +160,13 @@ def _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x: 
     out = (depth, winner, vary) + ((ev,) if collect_stats else ())
     if a == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(tri_rec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.trt_coarse_raster(
-            tri_rec.data_ptr(), tri_rec.shape[1], sorted_tri.data_ptr(),
-            None if tile_ids is None else tile_ids.data_ptr(), start.data_ptr(),
-            count.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x, tile_h,
-            tile_w, n_vary, init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
-            vary.data_ptr() if n_vary else None,
-            ev[0].data_ptr() if ev else None, ev[1].data_ptr() if ev else None,
-            stream)
-    _build.check(rc, "trt_coarse_raster")
+    _build.call("trt_coarse_raster", tri_rec.device,
+                tri_rec.data_ptr(), tri_rec.shape[1], sorted_tri.data_ptr(),
+                None if tile_ids is None else tile_ids.data_ptr(), start.data_ptr(),
+                count.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x, tile_h, tile_w,
+                n_vary, init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
+                vary.data_ptr() if n_vary else None, ev[0].data_ptr() if ev else None,
+                ev[1].data_ptr() if ev else None)
     return out
 
 

@@ -150,16 +150,12 @@ def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x:
     out = (depth, winner, vary) + ((ev,) if collect_stats else ())
     if a == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.trt_fine_raster(
-            tri_rec.data_ptr(), tri_rec.shape[1], tri8.data_ptr(), tile_ids.data_ptr(),
-            row_start.data_ptr(), rows.data_ptr(), a, int(origin[0]), int(origin[1]),
-            n_tiles_x, tile_h, tile_w, n_vary, init_depth.data_ptr(), depth.data_ptr(),
-            winner.data_ptr(), vary.data_ptr() if n_vary else None,
-            ev[0].data_ptr() if ev else None, ev[1].data_ptr() if ev else None,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "trt_fine_raster")
+    _build.call("trt_fine_raster", dev,
+                tri_rec.data_ptr(), tri_rec.shape[1], tri8.data_ptr(), tile_ids.data_ptr(),
+                row_start.data_ptr(), rows.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x,
+                tile_h, tile_w, n_vary, init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
+                vary.data_ptr() if n_vary else None, ev[0].data_ptr() if ev else None,
+                ev[1].data_ptr() if ev else None)
     if collect_stats:
         STATS_LAUNCHES += 1
     else:

@@ -210,16 +210,12 @@ def fine2_raster(tri_rec, tri8, group_start, group_rows, x0y0, tile_h: int, n_va
     out = (depth, winner, vary) + ((ev,) if collect_stats else ())
     if g == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.trt_fine2_raster(
-            tri_rec.data_ptr(), tri_rec.shape[1], tri8.data_ptr(), group_start.data_ptr(),
-            group_rows.data_ptr(), x0y0.data_ptr(), g, int(origin[0]), int(origin[1]),
-            tile_h, TILE_W, n_vary, None if init_depth is None else init_depth.data_ptr(),
-            depth.data_ptr(), winner.data_ptr(), vary.data_ptr() if n_vary else None,
-            ev[0].data_ptr() if ev else None, ev[1].data_ptr() if ev else None,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "trt_fine2_raster")
+    _build.call("trt_fine2_raster", dev,
+                tri_rec.data_ptr(), tri_rec.shape[1], tri8.data_ptr(), group_start.data_ptr(),
+                group_rows.data_ptr(), x0y0.data_ptr(), g, int(origin[0]), int(origin[1]), tile_h,
+                TILE_W, n_vary, None if init_depth is None else init_depth.data_ptr(),
+                depth.data_ptr(), winner.data_ptr(), vary.data_ptr() if n_vary else None,
+                ev[0].data_ptr() if ev else None, ev[1].data_ptr() if ev else None)
     if collect_stats:
         STATS_LAUNCHES += 1
     else:

@@ -109,11 +109,8 @@ def untile_one(x, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int):
                          "a multiple of 4 and the tiles 16-byte aligned")
     out = torch.empty((n_tiles_y * tile_h, n_tiles_x * tile_w), dtype=x.dtype,
                       device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.trt_untile32(x.data_ptr(), out.data_ptr(), n_tiles_x, n_tiles_y,
-                              tile_h, tile_w, torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "trt_untile32")
+    _build.call("trt_untile32", x.device,
+                x.data_ptr(), out.data_ptr(), n_tiles_x, n_tiles_y, tile_h, tile_w)
     LAUNCHES += 1
     return out
 
@@ -147,12 +144,9 @@ def untile3(color, depth, winner, n_tiles_x: int, n_tiles_y: int, tile_h: int,
                          "a multiple of 4 and the tiles 16-byte aligned")
     outs = tuple(torch.empty((n_tiles_y * tile_h, n_tiles_x * tile_w), dtype=x.dtype,
                              device=x.device) for x in (color, depth, winner))
-    lib = _build.library()
-    with torch.cuda.device(color.device):
-        rc = lib.trt_untile3(color.data_ptr(), depth.data_ptr(), winner.data_ptr(),
-                             *(o.data_ptr() for o in outs), n_tiles_x, n_tiles_y,
-                             tile_h, tile_w, torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "trt_untile3")
+    _build.call("trt_untile3", color.device,
+                color.data_ptr(), depth.data_ptr(), winner.data_ptr(),
+                *(o.data_ptr() for o in outs), n_tiles_x, n_tiles_y, tile_h, tile_w)
     UNTILE3_LAUNCHES += 1
     return outs
 
