@@ -13,12 +13,19 @@ Phases, one line each (any failure exits non-zero before the last line):
      line), torch's device name;
   2. the kernel build from ``tinyrenderder_tpu_torch/csrc`` with nvcc;
   3. each kernel against its plain PyTorch version on the card, bitwise:
-     the coarse and the strip raster and the single-plane untile at the
-     headline shapes (2048², 32-row tiles, Phong with 8 varyings); the
+     the coarse and the strip raster at the headline shapes (2048², 32-row
+     tiles, Phong with 8 varyings); the single-plane untile on the
+     headline's tile frame and its image store (``untile_image``) on the
+     headline's compact tiles and ids, the three-plane untile and its
+     image store (``untile3_image``) on the tiled 3-pass frame at 2048²,
+     1200x800 and 1000x600 (a width that is not a multiple of 16), and
+     ``untile_image`` on that frame's active tiles (RGB, depth with +inf
+     fill) and on every tile (the snapshot's crop), each untile timed in
+     turns with the library call or the eager composition it replaces,
+     warm, with a cold L2 and as profiler device time; the
      grouped strip raster at the stress scene's (1280x800, 16-row tiles,
      Phong with 8 varyings), pass-local and seeded with the depth of the
-     1200x800 3-pass scene's room at 1280x800; the three-plane untile on the
-     tiled 3-pass frame at 2048² and at ragged 1200x800; the coarse raster's
+     1200x800 3-pass scene's room at 1280x800; the coarse raster's
      event planes on the room pass of the 3-pass scene at 2048², rendered
      after the head, and the strip and grouped strip rasters' on the head
      pass, rendered after the room (so each running depth is not all
@@ -57,7 +64,8 @@ Phases, one line each (any failure exits non-zero before the last line):
      inputs, the three rasters in turns: the headline (kernel and plain
      routes, per stage), the Gouraud head at 800², and the headline head
      at three tessellations (its strip rows and grouped rows against its
-     coarse pairs);
+     coarse pairs); [5 untile a/b] the headline's placement stage and
+     frame with the eager composition and with ``untile_image``, in turns;
   6. the tiled frame through ``scene.render_scene`` with exact stats, on
      the bench's 3-pass scene (eyes excluded in the middle) and the CLI's
      default scene (eyes excluded last), both 1200x800, on each raster:
@@ -70,7 +78,9 @@ Phases, one line each (any failure exits non-zero before the last line):
      oracle's depth;
   8. CUDA-event timing, the three rasters in turns, of the reference
      pipeline (the 3-pass scene at 1200x800 plus the post pass) and of the
-     3-pass frame at 2048², kernel route and plain route, per stage;
+     3-pass frame at 2048², kernel route and plain route, per stage; [8
+     untile a/b] each frame's untile stage composed and through
+     ``untile3_image``, in turns;
   9. the bench's stress scene (``head_wall(3)``, 246,240 faces) and mixed
      scene (``mixed_interior(3)``, 246,252) at 1280x800 through
      ``scene.render_scene`` with exact stats and ``render_scene_image``
@@ -80,7 +90,7 @@ Phases, one line each (any failure exits non-zero before the last line):
  10. CUDA-event timing, the three rasters in turns (coarse, fine, fine2,
      fine2, fine, coarse), of both scenes' tiled frames as the bench runs
      them (``render_frame_fused`` + ``tiles_to_buffers(...).color``), per
-     stage;
+     stage, and [10 untile a/b] as in [8];
  12. ``shadow_phong_800`` (``bench.py::bench_shadows``): the 3-mesh scene
      at 800², its key light, a 1024² map, no frustum cull, through
      ``shadows.render_with_shadows`` under "coarse", "fine" and "fine2":
@@ -139,6 +149,11 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 #: deduplication launches before its kernel; printed as "before"
 SERIAL_MS = {"rank_pairs 60000 synthetic": 2.3708, "rank_pairs 246240 synthetic": 8.3540,
              "inplace_blocks": 0.3364}
+#: bytes written before a cold-L2 timing: twice the H100's 50 MB L2
+FLUSH_BYTES = 128 << 20
+#: a 3-pass frame whose width is not a multiple of 16 (nor its height of
+#: the 16-row tile): the untile's narrow stores
+RAGGED_SIZE = (1000, 600)
 #: float operations of one raster test of a pixel inside a triangle's bbox
 #: (barycentric: 15 products and differences, 1 sum, 3 divisions, 1
 #: difference; affine z: 5) and of one winner's varyings (barycentric 20,
@@ -165,14 +180,17 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, warmup: int = WARMUP, reps: int = FRAMES) -> float:
-    """Median CUDA-event time of ``fn`` in ms."""
+def event_ms(fn, warmup: int = WARMUP, reps: int = FRAMES, before=None) -> float:
+    """Median CUDA-event time of ``fn`` in ms; ``before()`` runs ahead of
+    each call, outside the timed interval."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if before is not None:
+            before()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -206,11 +224,48 @@ def device_ms(fn, names) -> dict[str, float]:
     return ms
 
 
-def in_turns(fn_a, fn_b) -> tuple[float, float]:
+def in_turns(fn_a, fn_b, before=None) -> tuple[float, float]:
     """``event_ms`` of ``fn_a`` and ``fn_b`` in turns (a, b, b, a): the mean
     of each one's two medians."""
-    a0, b0, b1, a1 = (event_ms(fn) for fn in (fn_a, fn_b, fn_b, fn_a))
+    a0, b0, b1, a1 = (event_ms(fn, before=before) for fn in (fn_a, fn_b, fn_b, fn_a))
     return (a0 + a1) / 2, (b0 + b1) / 2
+
+
+def cold_l2():
+    """-> flush(): reads and writes FLUSH_BYTES of random words on the card,
+    more than its 50 MB L2 holds, so that the next call reads its inputs
+    from device memory.  The host prepares the timed call while the flush
+    runs, so an event time taken after it holds little of the host's
+    launch cost."""
+    import torch
+    buf = torch.randint(-2**31, 2**31 - 1, (FLUSH_BYTES // 4,), dtype=torch.int32,
+                        device=DEVICE)
+    return lambda: buf.add_(1)
+
+
+def device_total(fn) -> float:
+    """Device time of one call of ``fn`` in ms: every CUDA kernel, copy and
+    fill of a ``torch.profiler`` trace (``device_ms``), summed."""
+    return sum(device_ms(fn, ("",)).values())
+
+
+def untile_ab(kernel, other, flush) -> dict:
+    """The untile wrapper ``kernel`` against ``other`` (the library call or
+    the composition it replaces): CUDA-event times in turns (a, b, b, a),
+    warm and with a cold L2 (``flush`` before each call), and profiler
+    device times; keys ms, cold, device and other_ms, other_cold,
+    other_device."""
+    out = dict(zip(("ms", "other_ms"), in_turns(kernel, other)))
+    out.update(zip(("cold", "other_cold"), in_turns(kernel, other, before=flush)))
+    out.update(device=device_total(kernel), other_device=device_total(other))
+    return out
+
+
+def untile_text(t: dict, other: str) -> str:
+    return (f"kernel {t['ms']:.4f} ms (cold L2 {t['cold']:.4f}, device {t['device']:.4f}), "
+            f"{other} {t['other_ms']:.4f} ms (cold L2 {t['other_cold']:.4f}, device "
+            f"{t['other_device']:.4f}); kernel/{other.split(' ')[0]} "
+            f"{t['ms'] / t['other_ms']:.3f}, cold {t['cold'] / t['other_cold']:.3f}")
 
 
 def ms_text(ms: float | None) -> str:
@@ -375,9 +430,12 @@ def marker(marks):
     return mark
 
 
-def staged_frame(attrs, shader, uniforms, w, h, th, mode, plain, marks=None):
+def staged_frame(attrs, shader, uniforms, w, h, th, mode, plain, marks=None,
+                 composed=False):
     """One frame of the image route from its stage functions (the body of
-    ``raster_sparse.render_frame_fused_image``)."""
+    ``raster_sparse.render_frame_fused_image``); ``composed``: the
+    placement as it was composed before ``untile_image`` (a full-frame
+    fill and scatter, ``untile_one``, the crop and ``unpack_rgb``)."""
     import torch
 
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
@@ -396,19 +454,25 @@ def staged_frame(attrs, shader, uniforms, w, h, th, mode, plain, marks=None):
     else:
         c_img = rs.shade_compact_fresh(out[1], out[2], uniforms, shader)
     mark("shade")
-    untile = (lambda *a: rs.untile_one_plain(*a).contiguous()) if plain else rs.untile_one
-    img = rs.compact_to_image(c_img, pre.ids, ntx, nty, th, TILE_W, untile=untile)
-    image = rs.unpack_rgb(img[:h, :w])
+    if plain:
+        image = rs.untile_image_plain(c_img, pre.ids, ntx, nty, th, TILE_W, h, w, rgb=True)
+    elif composed:
+        image = rs.unpack_rgb(rs.compact_to_image(c_img, pre.ids, ntx, nty, th, TILE_W)[:h, :w])
+    else:
+        image = rs.untile_image(c_img, pre.ids, ntx, nty, th, TILE_W, h, w, rgb=True)
     mark("placement")
     return image
 
 
-def staged_multipass(passes, width, height, mode, plain, with_post, marks=None):
+def staged_multipass(passes, width, height, mode, plain, with_post, marks=None,
+                     composed=False):
     """One tiled frame from its stage functions (the bodies of
     ``raster_sparse.render_frame_fused`` and ``scene.render_passes``),
     plus the post pass when ``with_post``; with ``marks`` it appends
     (stage, CUDA event) after each stage, the stage naming the interval
-    that ends at the event."""
+    that ends at the event.  ``composed``: the untile stage as it was
+    composed before ``untile3_image`` (``untile3``, the crops and
+    ``unpack_rgb``; ``untile_one`` and a crop for the snapshot)."""
     from tinyrenderder_tpu_torch.ops import post
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
@@ -435,14 +499,18 @@ def staged_multipass(passes, width, height, mode, plain, with_post, marks=None):
             rs.post_sparse(ft, pre.ids, *out, uniforms, shader, offset)
         mark("merge+shade")
         offset += attrs["position"].shape[0]
-    if plain:
-        color, depth, _ = rs.untile3_plain(*ft, ntx, nty, th, TILE_W)
+    n = (ntx, nty, th, TILE_W)
+    if composed:
+        color, depth, _ = rs.untile3(*ft, *n)
+        if in_excluded:
+            depth = rs.untile_one(snapshot, *n)
+        image, depth = rs.unpack_rgb(color[:height, :width]), depth[:height, :width]
     else:
-        color, depth, _ = rs.untile3(*ft, ntx, nty, th, TILE_W)
-    if in_excluded:
-        depth = (rs.untile_one_plain(snapshot, ntx, nty, th, TILE_W).contiguous() if plain
-                 else rs.untile_one(snapshot, ntx, nty, th, TILE_W))
-    image, depth = rs.unpack_rgb(color[:height, :width]), depth[:height, :width]
+        image, depth, _ = (rs.untile3_image_plain if plain else rs.untile3_image)(
+            *ft, *n, height, width)
+        if in_excluded:
+            depth = (rs.untile_image_plain if plain else rs.untile_image)(
+                snapshot, None, *n, height, width)
     mark("untile")
     if not with_post:
         return image, depth
@@ -472,6 +540,22 @@ def staged_shadow_frame(light_passes, lit_passes, width, height, size, marks=Non
     fb, _, _ = tscene.render_passes(passes, width, height, DEVICE)
     mark("lit frame")
     return fb.color
+
+
+def placement_ab(run, stage_names, stage: str) -> str:
+    """``run(marks, composed)`` with the untile stage composed as before the
+    image stores (``composed`` True) and through them, in turns (store,
+    composed, composed, store): ``stage``'s median and the frame's ms, each
+    the mean of its arm's two turns."""
+    st, ms = {True: [], False: []}, {True: [], False: []}
+    for composed in (False, True, True, False):
+        st[composed].append(stage_medians(lambda m: run(m, composed), stage_names)[stage])
+        ms[composed].append(event_ms(lambda: run(None, composed)))
+    def arm(v):
+        return f"{statistics.fmean(v):.3f} ({v[0]:.3f}, {v[1]:.3f})"
+    return (f"{stage} ms (mean (turns)) composed {arm(st[True])} -> image store "
+            f"{arm(st[False])}; ms/frame composed {arm(ms[True])} -> image store "
+            f"{arm(ms[False])}")
 
 
 def write_oracle_files(out: Path, ref) -> None:
@@ -559,6 +643,9 @@ class fine_mode:
 
 
 def launch_counts():
+    """Every kernel's launches by entry point: ``untile_one`` and ``untile3``
+    count the plain-layout entries, ``untile_image`` and ``untile3_image``
+    the image stores of the same two kernels."""
     from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
     from tinyrenderder_tpu_torch.experimental import inplace_blocks as xib
     from tinyrenderder_tpu_torch.experimental import rank_kernel as xrk
@@ -570,7 +657,7 @@ def launch_counts():
             "dense_raster": rc.DENSE_LAUNCHES, "fine_raster": rf.LAUNCHES,
             "fine_raster_stats": rf.STATS_LAUNCHES,
             "fine2_raster": rf2.LAUNCHES, "fine2_raster_stats": rf2.STATS_LAUNCHES,
-            "untile_one": rs.LAUNCHES, "untile3": rs.UNTILE3_LAUNCHES,
+            **rs.VARIANT_LAUNCHES,
             "strip_raster_proto": xfr.LAUNCHES, "rank_pairs": xrk.LAUNCHES,
             "inplace_blocks": xib.LAUNCHES}
 
@@ -587,6 +674,7 @@ def reset_counts():
     rf.LAUNCHES = rf.STATS_LAUNCHES = 0
     rf2.LAUNCHES = rf2.STATS_LAUNCHES = 0
     rs.LAUNCHES = rs.UNTILE3_LAUNCHES = 0
+    rs.VARIANT_LAUNCHES.update(dict.fromkeys(rs.VARIANT_LAUNCHES, 0))
     xfr.LAUNCHES = xrk.LAUNCHES = xib.LAUNCHES = 0
 
 
@@ -598,6 +686,160 @@ def counted(fn):
     result = fn()
     torch.cuda.synchronize()
     return result, launch_counts()
+
+
+def untile_sass(lib: Path) -> dict:
+    """{untile kernel: counts} from ``cuobjdump -sass`` of the built library:
+    its 16-byte loads (all, and those before the first store: the loads a
+    thread has in flight) and stores, and its MUFU.RCP (the reciprocal of
+    an integer division); {} where the toolkit has no cuobjdump."""
+    import re
+
+    from tinyrenderder_tpu_torch import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"(untile3?2?_kernel)ILi(\d+)E", ln)
+            cur = None
+            if m:
+                th = m.group(2)
+                cur = counts[f"{m.group(1)}<{'any' if th == '0' else th}>"] = dict.fromkeys(
+                    ("ldg", "ahead", "stg", "rcp"), 0)
+        elif cur is not None:
+            if "LDG" in ln and ".128" in ln:
+                cur["ldg"] += 1
+                cur["ahead"] += cur["stg"] == 0
+            elif "STG" in ln and ".128" in ln:
+                cur["stg"] += 1
+            elif "MUFU.RCP" in ln:
+                cur["rcp"] += 1
+    return counts
+
+
+def untile_kernels(smi: str, c_img, ids, th: int, mm_passes) -> dict:
+    """[3 untile], [3 untile3], [3 untile image]: both untile kernels and
+    their image stores against their plain versions on the card, bitwise,
+    and timed in turns with the library call or the composition each
+    replaces (warm, cold L2, profiler device time).  #2 on the headline's
+    tile frame (its compact colour tiles scattered, 2048², 32-row tiles);
+    #2i on those compact tiles and ids; #3 and #3i on the 3-pass frame's
+    tiles at 2048², 1200x800 and RAGGED_SIZE, #2i also on that frame's
+    active tiles.  -> {name: kernels-line entry}."""
+    import torch
+
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_W, cdiv
+
+    flush = cold_l2()
+    entries = {}
+
+    def entry(name, replaces, err, t, plain_ms, b, library):
+        entries[name] = {
+            "name": name, "route": "cuda", "source": "tinyrenderder_tpu_torch/csrc/untile.cu",
+            "replaces": replaces, "max_abs_err": err, "ms": t["ms"], "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": t["other_ms"] if library else None}
+
+    # #2: one plane in the plain layout, against permute().contiguous()
+    ntx, nty = cdiv(WIDTH, TILE_W), cdiv(HEIGHT, th)
+    n = (ntx, nty, th, TILE_W)
+    tiles = torch.zeros((ntx * nty, th, TILE_W), dtype=torch.int32, device=DEVICE)
+    tiles.index_copy_(0, ids.long(), c_img)
+    diff, err = bits_equal(rs.untile_one(tiles, *n),
+                           rs.untile_one_plain(tiles, *n).contiguous())
+    if diff:
+        fail(f"untile: {diff} words differ from the plain version")
+    t = untile_ab(lambda: rs.untile_one(tiles, *n),
+                  lambda: tiles.view(nty, ntx, th, TILE_W).permute(0, 2, 1, 3).contiguous(),
+                  flush)
+    plain_ms = time_plain(lambda: rs.untile_one_plain(tiles, *n))
+    copy_cold = event_ms(lambda: tiles.clone(), before=flush)
+    b = bound(2 * tiles.numel() * 4, 0)
+    say(f"[3 untile] #2 {nty * th}x{ntx * TILE_W} int32 ({th}-row tiles): kernel == plain "
+        f"bitwise; in turns {untile_text(t, 'library (permute + contiguous)')}; plain "
+        f"{plain_ms:.4f} ms, bound {b[0]:.4f} ms; yardstick: a copy of the same bytes "
+        f"(clone) with a cold L2 {copy_cold:.4f} ms | {smi}")
+    entry("untile_one", "tinyrenderder_tpu/ops/raster_sparse.py:194", err, t, plain_ms, b,
+          True)
+
+    # #2i: the headline's compact tiles by id -> the (H, W, 3) image, against
+    # the composition it replaces (fill + scatter, #2, crop, unpack_rgb)
+    img = rs.untile_image(c_img, ids, *n, HEIGHT, WIDTH, rgb=True)
+    diff, err2i = bits_equal(img, rs.untile_image_plain(c_img, ids, *n, HEIGHT, WIDTH,
+                                                        rgb=True))
+    if diff:
+        fail(f"untile_image: {diff} bytes differ from the plain version")
+    t = untile_ab(lambda: rs.untile_image(c_img, ids, *n, HEIGHT, WIDTH, rgb=True),
+                  lambda: rs.unpack_rgb(rs.compact_to_image(c_img, ids, *n)[:HEIGHT, :WIDTH]),
+                  flush)
+    plain_ms = time_plain(lambda: rs.untile_image_plain(c_img, ids, *n, HEIGHT, WIDTH,
+                                                        rgb=True))
+    b2i = bound(c_img.numel() * 4 + ids.numel() * 4 + img.numel(), 0)
+    say(f"[3 untile image] #2i headline {ids.numel()} compact {th}x{TILE_W} tiles -> "
+        f"{HEIGHT}x{WIDTH}x3 uint8: kernel == plain bitwise; in turns "
+        f"{untile_text(t, 'composition (fill + index_copy_ + #2 + crop + unpack_rgb)')}; plain "
+        f"{plain_ms:.4f} ms, library none, bound {b2i[0]:.4f} ms | {smi}")
+    entry("untile_image", "tinyrenderder_tpu/ops/raster_sparse.py:194", err2i, t, plain_ms,
+          b2i, False)
+
+    # #3 and #3i on the 3-pass frame's tiles; #2i on its active tiles
+    frames = dict(mm_passes)
+    frames[RAGGED_SIZE] = tscene.pass_tensors(tscene.multimesh_scene(*RAGGED_SIZE), DEVICE)
+    err3 = err3i = 0.0
+    for (w, h), passes in frames.items():
+        th3 = rs.pick_tile_h(w, h)
+        n3 = (cdiv(w, TILE_W), cdiv(h, th3), th3, TILE_W)
+        ft, _, _ = rs.render_frame_fused(passes, w, h, DEVICE, tile_h=th3)
+        what = f"{w}x{h} ({th3}-row tiles, {n3[0] * n3[1]} a plane)"
+        err3 = max(err3, same_planes(f"untile3 {what}", ("colour", "depth", "winner"),
+                                     rs.untile3(*ft, *n3), rs.untile3_plain(*ft, *n3)))
+        err3i = max(err3i, same_planes(f"untile3_image {what}", ("rgb", "depth", "winner"),
+                                       rs.untile3_image(*ft, *n3, h, w),
+                                       rs.untile3_image_plain(*ft, *n3, h, w)))
+        act = torch.nonzero((ft.winner >= 0).flatten(1).any(1))[:, 0].to(torch.int32)
+        cc, cd = ft.color[act.long()], ft.depth[act.long()]
+        for name, args, kw in (("rgb", (cc, act), {"rgb": True}),
+                               ("depth, +inf where absent", (cd, act), {"fill": torch.inf}),
+                               ("every tile's depth", (ft.depth, None), {})):
+            diff, e = bits_equal(rs.untile_image(*args, *n3, h, w, **kw),
+                                 rs.untile_image_plain(*args, *n3, h, w, **kw))
+            err2i = max(err2i, e)
+            if diff:
+                fail(f"untile_image {name} at {what}: {diff} elements differ from plain")
+        t3 = untile_ab(lambda: rs.untile3(*ft, *n3),
+                       lambda: [x.view(n3[1], n3[0], th3, TILE_W).permute(0, 2, 1, 3)
+                                .contiguous() for x in ft], flush)
+        t3i = untile_ab(lambda: rs.untile3_image(*ft, *n3, h, w),
+                        lambda: (lambda c, d, wn: (rs.unpack_rgb(c[:h, :w]), d[:h, :w],
+                                                   wn[:h, :w]))(*rs.untile3(*ft, *n3)),
+                        flush)
+        copy3_cold = event_ms(lambda: [x.clone() for x in ft], before=flush)
+        p3 = time_plain(lambda: rs.untile3_plain(*ft, *n3))
+        p3i = time_plain(lambda: rs.untile3_image_plain(*ft, *n3, h, w))
+        b3 = bound(2 * 3 * ft.color.numel() * 4, 0)
+        b3i = bound(3 * ft.color.numel() * 4 + h * w * (3 + 4 + 4), 0)
+        say(f"[3 untile3] #3 {what}: kernel == plain bitwise; in turns "
+            f"{untile_text(t3, 'library (3x permute + contiguous)')}; plain {p3:.4f} ms, "
+            f"bound {b3[0]:.4f} ms; yardstick: a copy of the three planes (3 clones) with "
+            f"a cold L2 {copy3_cold:.4f} ms | {smi}")
+        say(f"[3 untile image] #3i {what} -> rgb, depth, winner cropped: kernel == plain "
+            f"bitwise; in turns {untile_text(t3i, 'composition (#3 + crops + unpack_rgb)')}; "
+            f"plain {p3i:.4f} ms, library none, bound {b3i[0]:.4f} ms; #2i == plain on its "
+            f"{act.numel()} active tiles (rgb, depth) and the crop of every tile | {smi}")
+        if (w, h) == FRAME_SIZES[0]:
+            entry("untile3", "tinyrenderder_tpu/ops/raster_sparse.py:150", 0.0, t3, p3, b3,
+                  True)
+            entry("untile3_image", "tinyrenderder_tpu/ops/raster_sparse.py:150", 0.0, t3i,
+                  p3i, b3i, False)
+    entries["untile3"]["max_abs_err"] = err3
+    entries["untile3_image"]["max_abs_err"] = err3i
+    entries["untile_image"]["max_abs_err"] = err2i
+    return entries
 
 
 def experimental_kernels(head_pass, active_ids, th: int, smi: str):
@@ -824,7 +1066,7 @@ def shaded_800(smi: str) -> dict:
                                                   tscene.render_scene(sc, DEVICE)))
         for k, v in counts.items():
             totals[k] += v
-        if not (counts["untile_one"] and counts["untile3"]
+        if not (counts["untile_image"] and counts["untile3_image"]
                 and sum(counts[f"{m}_raster"] + counts[f"{m}_raster_stats"] for m in MODES)):
             fail(f"a kernel of the {kind}_800 routes never launched: {counts}")
         if not np.array_equal(image.cpu().numpy(), ref.color):
@@ -893,7 +1135,7 @@ def animation_phase(smi: str) -> dict:
             sc = tscene.multimesh_scene(size, size)
             eye0, target0 = sc.camera.params.eye.copy(), sc.camera.params.target.copy()
             summary, counts = count(lambda: animation.render_animation(sc, cfg("full")),
-                                    "the orbit", ("coarse_raster", "untile3"))
+                                    "the orbit", ("coarse_raster", "untile3_image"))
             if summary["frames_rendered"] != n or len(encodes) != n:
                 fail(f"the orbit wrote {summary['frames_rendered']} frames, {len(encodes)} "
                      f"through the native encoder, of {n}")
@@ -961,7 +1203,7 @@ def animation_phase(smi: str) -> dict:
             code, counts = count(lambda: cli.run(
                 ["--device", DEVICE, "--width", str(REF_W), "--height", str(REF_H),
                  "--outdir", str(tmp / "cli"), "--animate", "3"]),
-                "the CLI's --animate", ("untile3",))
+                "the CLI's --animate", ("untile3_image",))
             got = sorted(p.name for p in (tmp / "cli").iterdir())
             if code != 0 or got != ["checkpoint.json", "frame_0000.tga", "frame_0001.tga",
                                     "frame_0002.tga"]:
@@ -969,7 +1211,7 @@ def animation_phase(smi: str) -> dict:
             code, pcounts = count(lambda: cli.run(
                 ["--device", DEVICE, "--width", str(REF_W), "--height", str(REF_H),
                  "--outdir", str(tmp / "prof"), "--profile"]),
-                "the CLI's --profile", ("untile3",))
+                "the CLI's --profile", ("untile3_image",))
             trace = tmp / "prof" / "trace"
             traces = sorted(trace.iterdir()) if trace.is_dir() else []
             if code != 0 or not traces or not traces[0].stat().st_size:
@@ -1025,6 +1267,9 @@ def main() -> int:
         f"one process per source) -> {lib.name}")
     for ln in ptxas:
         say(f"    ptxas: {ln}")
+    for name, c in untile_sass(lib).items():
+        say(f"    sass: {name}: {c['ldg']} 16-byte loads, {c['ahead']} of them before the "
+            f"first store; {c['stg']} 16-byte stores; {c['rcp']} MUFU.RCP (integer division)")
 
     # ---- 3. kernels against their plain versions at the headline shapes ----
     scene = tscene.headline_scene(WIDTH, HEIGHT, "phong")
@@ -1148,64 +1393,12 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
             "bound_by": b[1], "library_ms": None}
 
+    # the untile kernels: the headline's compact colour tiles, and the tiled
+    # 3-pass frame at 2048², 1200x800 and a width that is not a multiple of 16
     c_img = rs.shade_compact_fresh(kc[1], kc[2], uniforms, shader)
-    tiles = torch.zeros((ntx * nty, th, TILE_W), dtype=torch.int32, device=DEVICE)
-    tiles.index_copy_(0, pre.ids.long(), c_img)
-    uk = rs.untile_one(tiles, ntx, nty, th, TILE_W)
-    up = rs.untile_one_plain(tiles, ntx, nty, th, TILE_W).contiguous()
-    torch.cuda.synchronize()
-    diff, untile_err = bits_equal(uk, up)
-    if diff:
-        fail(f"untile: {diff} words differ from the plain version")
-    untile_ms = event_ms(lambda: rs.untile_one(tiles, ntx, nty, th, TILE_W))
-    untile_plain_ms = time_plain(lambda: rs.untile_one_plain(tiles, ntx, nty, th, TILE_W))
-    untile_lib_ms = event_ms(lambda: tiles.view(nty, ntx, th, TILE_W)
-                             .permute(0, 2, 1, 3).contiguous())
-    untile_bound = bound(2 * tiles.numel() * 4, 0)
-    say(f"[3 untile] kernel == plain bitwise ({uk.shape[0]}x{uk.shape[1]} int32); "
-        f"kernel {untile_ms:.4f} ms, plain {untile_plain_ms:.4f} ms, library "
-        f"(permute + contiguous) {untile_lib_ms:.4f} ms, bound {untile_bound[0]:.4f} ms")
-    record["untile_one"] = {
-        "name": "untile_one", "route": "cuda",
-        "source": "tinyrenderder_tpu_torch/csrc/untile.cu",
-        "replaces": "tinyrenderder_tpu/ops/raster_sparse.py:194",
-        "max_abs_err": untile_err, "ms": untile_ms, "plain_ms": untile_plain_ms,
-        "bound_ms": untile_bound[0], "bound_by": untile_bound[1],
-        "library_ms": untile_lib_ms}
-
-    # the three-plane untile on the tiled 3-pass frame, both sizes
     mm_passes = {size: tscene.pass_tensors(tscene.multimesh_scene(*size), DEVICE)
                  for size in FRAME_SIZES}
-    untile3_err = 0.0
-    for (w, h), passes in mm_passes.items():
-        th3 = rs.pick_tile_h(w, h)
-        n3 = (cdiv(w, TILE_W), cdiv(h, th3), th3, TILE_W)
-        ft, _, _ = rs.render_frame_fused(passes, w, h, DEVICE, tile_h=th3)
-        got = rs.untile3(*ft, *n3)
-        want = rs.untile3_plain(*ft, *n3)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("colour", "depth", "winner"), got, want):
-            diff, err = bits_equal(a, b)
-            untile3_err = max(untile3_err, err)
-            if diff:
-                fail(f"untile3 {name} at {w}x{h}: {diff} words differ from the plain version")
-        k_ms = event_ms(lambda: rs.untile3(*ft, *n3))
-        p_ms = time_plain(lambda: rs.untile3_plain(*ft, *n3))
-        lib_ms = event_ms(lambda: [x.view(n3[1], n3[0], th3, TILE_W).permute(0, 2, 1, 3)
-                                   .contiguous() for x in ft])
-        b3 = bound(2 * 3 * ft.color.numel() * 4, 0)
-        say(f"[3 untile3] {w}x{h}: kernel == plain bitwise (3 planes of {n3[0] * n3[1]} "
-            f"{th3}x{TILE_W} tiles, {3 * ft.color.numel() * 4 / 1e6:.1f} MB); kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library (3x permute + contiguous) "
-            f"{lib_ms:.4f} ms, bound {b3[0]:.4f} ms")
-        if (w, h) == FRAME_SIZES[0]:
-            record["untile3"] = {
-                "name": "untile3", "route": "cuda",
-                "source": "tinyrenderder_tpu_torch/csrc/untile.cu",
-                "replaces": "tinyrenderder_tpu/ops/raster_sparse.py:150",
-                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b3[0], "bound_by": b3[1],
-                "library_ms": lib_ms}
-    record["untile3"]["max_abs_err"] = untile3_err
+    record.update(untile_kernels(smi, c_img, pre.ids, th, mm_passes))
 
     # the event planes: the coarse raster on the room pass after the head,
     # the strip raster on the head pass after the room (finite init depths)
@@ -1355,7 +1548,7 @@ def main() -> int:
         image = images[mode]
         say(f"[4 route] FINE_MODE={mode!r}: render_scene_image -> {tuple(image.shape)} "
             f"{image.dtype} on {image.device}; launches {launches}")
-        if not (launches[f"{mode}_raster"] and launches["untile_one"]):
+        if not (launches[f"{mode}_raster"] and launches["untile_image"]):
             fail(f"a kernel of the {mode} route never launched: {launches}")
         if tuple(image.shape) != (HEIGHT, WIDTH, 3) or image.dtype != torch.uint8:
             fail(f"image is {tuple(image.shape)} {image.dtype}")
@@ -1377,10 +1570,12 @@ def main() -> int:
     # ---- 5. timing on pre-uploaded inputs, the three rasters in turns ----
     stage_names = ("pre", "raster", "shade", "placement")
     for mode in MODES:
-        for plain in (False, True):      # the staged copy has not drifted
+        for plain, composed in ((False, False), (True, False), (False, True)):
+            # the staged copy has not drifted, and the composed placement agrees
             if not torch.equal(staged_frame(attrs, shader, uniforms, WIDTH, HEIGHT, th,
-                                            mode, plain), images[mode]):
-                fail(f"the staged {mode} frame (plain={plain}) differs from the image route")
+                                            mode, plain, composed=composed), images[mode]):
+                fail(f"the staged {mode} frame (plain={plain}, composed={composed}) differs "
+                     f"from the image route")
     frame_ms = ab_ms(lambda mode: rs.render_frame_fused_image(
         [(attrs, shader, uniforms, False)], WIDTH, HEIGHT, tile_h=th))
     for mode in MODES:
@@ -1396,6 +1591,9 @@ def main() -> int:
                 + " ".join(f"{s} {v:.3f}" for s, v in st.items()) + f" | {smi}")
     say(f"[5 a/b] head_phong_{WIDTH}: kernel route ms/frame in turns, {ab_text(frame_ms)} "
         f"| {smi}")
+    say(f"[5 untile a/b] head_phong_{WIDTH} coarse, staged, in turns: " + placement_ab(
+        lambda m, c: staged_frame(attrs, shader, uniforms, WIDTH, HEIGHT, th, "coarse", False,
+                                  m, composed=c), stage_names, "placement") + f" | {smi}")
 
     # the A/B on more single-pass frames: the Gouraud head at 800², and the
     # headline head at three tessellations
@@ -1447,7 +1645,9 @@ def main() -> int:
         add_launches(frame_launches)
         say(f"[6 frame] FINE_MODE={mode!r}: render_scene at {REF_W}x{REF_H} on "
             f"{list(frames)}; launches {frame_launches}")
-        for k in (f"{mode}_raster", f"{mode}_raster_stats", "untile3", "untile_one"):
+        # the CLI scene ends in an excluded pass: its output depth is the
+        # snapshot's image store
+        for k in (f"{mode}_raster", f"{mode}_raster_stats", "untile3_image", "untile_image"):
             if not frame_launches[k]:
                 fail(f"{k} never launched in the {mode} frames: {frame_launches}")
         for name in frames:
@@ -1483,7 +1683,7 @@ def main() -> int:
             fail(f"the CLI exited {code}")
         write_oracle_files(want_dir, oracles["cli_default"])
         sizes = same_files(out, want_dir, "CLI")
-        if not (cli_launches["untile3"] and cli_launches["untile_one"]
+        if not (cli_launches["untile3_image"] and cli_launches["untile_image"]
                 and sum(cli_launches[f"{m}_raster_stats"] for m in MODES)):
             fail(f"a kernel of the CLI's frame never launched: {cli_launches}")
         say(f"[7 cli] tinyrenderder_tpu_torch.cli {REF_W}x{REF_H} on {DEVICE} "
@@ -1506,7 +1706,8 @@ def main() -> int:
         sizes = same_files(out_s, Path(tmp) / "oracle_shadows", "CLI --shadows")
         if (out_s / "phong.tga").read_bytes() == (out / "phong.tga").read_bytes():
             fail("the CLI's --shadows phong.tga equals the one without shadows")
-        if not (cli_s_launches["untile3"] and cli_s_launches["untile_one"]
+        if not (cli_s_launches["untile3_image"] and cli_s_launches["untile_image"]
+                and cli_s_launches["untile_one"]
                 and sum(cli_s_launches[f"{m}_raster"] for m in MODES)
                 and sum(cli_s_launches[f"{m}_raster_stats"] for m in MODES)):
             fail(f"a kernel of the CLI's shadowed frame never launched: {cli_s_launches}")
@@ -1547,6 +1748,13 @@ def main() -> int:
                     + " ".join(f"{k} {v:.3f}" for k, v in st.items())
                     + f" | {len(passes)} passes, one readback each | {smi}")
         say(f"[8 a/b] {cell}: kernel route ms/frame in turns, {ab_text(frame_ms)} | {smi}")
+        if not torch.equal(staged_multipass(passes, w, h, "coarse", False, with_post,
+                                            composed=True)[-1 if with_post else 0],
+                           kernel_run()):
+            fail(f"{cell}: the staged frame with the composed untile differs")
+        say(f"[8 untile a/b] {cell} coarse, staged, in turns: " + placement_ab(
+            lambda m, c: staged_multipass(passes, w, h, "coarse", False, with_post, m,
+                                          composed=c), names, "untile") + f" | {smi}")
 
     # ---- 9. the bench's 246k-triangle scenes, against the oracle ----
     for name, sc in walls.items():
@@ -1561,7 +1769,8 @@ def main() -> int:
                     tscene.render_scene(sc, DEVICE, collect_stats=True),
                     tscene.render_scene_image(sc, DEVICE)))
             add_launches(wl)
-            for k in (f"{mode}_raster", f"{mode}_raster_stats", "untile3", "untile_one"):
+            for k in (f"{mode}_raster", f"{mode}_raster_stats", "untile3_image",
+                      "untile_image"):
                 if not wl[k]:
                     fail(f"{k} never launched on the {name} scene under {mode}: {wl}")
             r, image = frames_w[mode]
@@ -1617,6 +1826,10 @@ def main() -> int:
                 f"Mpix/s, {p_attrs['position'].shape[0] / frame_ms[mode] / 1e3:.2f} Mtri/s; "
                 f"stages ms: " + " ".join(f"{k} {v:.3f}" for k, v in st[mode].items())
                 + f" | {smi}")
+        say(f"[10 untile a/b] {name}_{WALL_W}x{WALL_H} coarse, staged, in turns: "
+            + placement_ab(lambda m, c: staged_multipass(passes, WALL_W, WALL_H, "coarse",
+                                                         False, False, m, composed=c),
+                           frame_stages, "untile") + f" | {smi}")
         say(f"[10 a/b] {name}_{WALL_W}x{WALL_H}: per-tile rows {probe.rows}, grouped rows "
             f"{probe.grouped_rows} ({probe.grouped_rows / probe.rows:.3f}), groups "
             f"{probe.groups}, active {probe.active}, coarse pairs {probe.pairs}; kernel route "
@@ -1647,7 +1860,9 @@ def main() -> int:
             res0, smap0 = shadows.render_with_shadows(sh_scene, sh_key, sh_settings, DEVICE,
                                                       frustum_cull=False, collect_stats=False)
         add_launches(sl)
-        for k in (f"{mode}_raster", f"{mode}_raster_stats", "untile_one", "untile3"):
+        # the light pass's map is the plain-layout untile, the lit frame's
+        # buffers the three-plane image store
+        for k in (f"{mode}_raster", f"{mode}_raster_stats", "untile_one", "untile3_image"):
             if not sl[k]:
                 fail(f"{k} never launched in the {mode} shadowed frame: {sl}")
         diff, err = bits_equal(smap.cpu(), torch.from_numpy(ref_map))
@@ -1706,12 +1921,15 @@ def main() -> int:
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
     order = ("coarse_raster", "coarse_raster_stats", "dense_raster", "fine_raster",
-             "fine_raster_stats", "fine2_raster", "fine2_raster_stats", "untile_one", "untile3",
-             "strip_raster_proto", "rank_pairs", "inplace_blocks")
+             "fine_raster_stats", "fine2_raster", "fine2_raster_stats", "untile_one",
+             "untile_image", "untile3", "untile3_image", "strip_raster_proto", "rank_pairs",
+             "inplace_blocks")
+    # untile_one and untile3 are kernels: their launches include their image stores'
+    stores = {"untile_one": "untile_image", "untile3": "untile3_image"}
     kernels = []
     for name in order:
         entry = dict(record[name])
-        entry["launches"] = totals[name]
+        entry["launches"] = totals[name] + (totals[stores[name]] if name in stores else 0)
         kernels.append({k: entry[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")})

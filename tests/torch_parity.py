@@ -288,6 +288,31 @@ def _jax_untile3(r):
     return {k: np.asarray(v) for k, v in zip(("color", "depth", "winner"), out)}
 
 
+def _jax_compact_image(r):
+    """``raster_sparse._compact_to_image`` (``direct=False``, interpret mode)
+    of compact packed-colour tiles, cropped, and ``_unpack_rgb`` of the crop."""
+    import jax.numpy as jnp
+
+    from tinyrenderder_tpu.ops import raster_sparse
+    ntx, nty, th, tw, h, w = (int(r[k]) for k in ("ntx", "nty", "th", "tw", "h", "w"))
+    img = raster_sparse._compact_to_image(jnp.asarray(r["tiles"]), jnp.asarray(r["ids"]),
+                                          ntx * nty, ntx, nty, th, tw, True, False)
+    crop = img[:h, :w]
+    return {"plane": np.asarray(crop), "rgb": np.asarray(raster_sparse._unpack_rgb(crop))}
+
+
+def _jax_tiles_to_buffers(r):
+    """``raster_sparse._tiles_to_buffers_jit`` (interpret mode): the three
+    planes untiled, cropped, the colour unpacked."""
+    import jax.numpy as jnp
+
+    from tinyrenderder_tpu.ops import raster_sparse
+    ft = raster_sparse.FrameTiles(*(jnp.asarray(r[k]) for k in ("color", "depth", "winner")))
+    fb = raster_sparse._tiles_to_buffers_jit(ft, int(r["w"]), int(r["h"]), int(r["th"]),
+                                             int(r["tw"]), True)
+    return {k: np.asarray(getattr(fb, k)) for k in ("color", "depth", "winner")}
+
+
 def _clear_capacities():
     """Empty the JAX package's capacity caches, as tests/test_image_path.py does."""
     from tinyrenderder_tpu.ops import raster_fine, raster_fine2, raster_sparse
@@ -574,7 +599,8 @@ def _main(req_path, out_path):
     import jax
     jax.config.update("jax_platforms", "cpu")
     ops = {"bins": _jax_bins, "raster": _jax_raster, "untile": _jax_untile,
-           "untile3": _jax_untile3, "image": _jax_image, "scene": _jax_scene,
+           "untile3": _jax_untile3, "compact_image": _jax_compact_image,
+           "tiles_to_buffers": _jax_tiles_to_buffers, "image": _jax_image, "scene": _jax_scene,
            "post": _jax_post, "pre_fine": _jax_pre_fine, "pre_fine2": _jax_pre_fine2,
            "shadows": _jax_shadows, "dense": _jax_dense, "strip_proto": _jax_strip_proto,
            "rank": _jax_rank, "inplace": _jax_inplace}

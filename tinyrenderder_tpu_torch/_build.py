@@ -56,6 +56,12 @@ SIGNATURES = {
     # color, depth, winner, color_out, depth_out, winner_out,
     # n_tiles_x, n_tiles_y, tile_h, tile_w, stream
     "trt_untile3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # src, ids (or null: every tile in order), n_ids, dst, n_tiles_x,
+    # n_tiles_y, tile_h, tile_w, height, width, fill bits, rgb, stream
+    "trt_untile_image": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # color, depth, winner, rgb_out, depth_out, winner_out, n_tiles_x,
+    # n_tiles_y, tile_h, tile_w, height, width, stream
+    "trt_untile3_image": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # recs, rows, n_groups, max_rows, init, depth, winner, n_tiles_x, stream
     "trt_strip_proto": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
     # tx0, ty0, span_x, spans, n_tri, nsx, n_ranges, range, work, strips,

@@ -2,14 +2,18 @@
 direct-to-image route and the multi-pass tiled frame, each pass routed
 to the coarse or the strip raster.  Also the untile kernels
 (``csrc/untile.cu``: one plane, and the frame's three planes in one
-launch) with their plain PyTorch versions.
+launch), each with a second entry that stores the cropped image
+(``untile_image``: compact tiles gathered by id, the colour unpacked to
+RGB; ``untile3_image``: the frame's buffers), with their plain PyTorch
+versions.
 
 Counterpart of the coarse and fine branches of
 ``tinyrenderder_tpu/ops/raster_sparse.py``:
 
   * ``render_frame_fused_image`` with ``direct=False``
     (``_pre_sparse_jit`` or ``_pre_fine_jit``, ``_shade_compact_fresh``,
-    ``_compact_to_image``, ``_untile_one_jit``);
+    ``_compact_to_image``, ``_untile_one_jit``, the crop and
+    ``_unpack_rgb``: one ``untile_image`` launch here);
   * ``render_frame_fused`` and ``render_pass_tiles`` (``FrameTiles``,
     ``_post_sparse_jit``, ``_reduce_events_jit``, ``tiles_to_buffers``,
     ``_untile_call_jit``).  The JAX package has a fused XLA program and a
@@ -29,6 +33,7 @@ have no counterpart here: nothing can overflow.
 
 from __future__ import annotations
 
+import struct
 from typing import NamedTuple
 
 import torch
@@ -43,17 +48,21 @@ from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids
                                                       tile_spans, vertex_stage)
 
 __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
-           "untile_one_plain", "untile3", "untile3_plain", "FrameTiles",
+           "untile_one_plain", "untile3", "untile3_plain", "untile_image",
+           "untile_image_plain", "untile3_image", "untile3_image_plain", "FrameTiles",
            "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
            "shade_compact_fresh", "compact_to_image", "post_sparse",
            "PassEvents", "reduce_events", "FINE_MODE", "DEPTH_ONLY_MODE", "decide_mode",
            "raster_pass", "grouped_pass", "render_frame_fused", "render_frame_fused_image",
-           "LAUNCHES", "UNTILE3_LAUNCHES"]
+           "LAUNCHES", "UNTILE3_LAUNCHES", "VARIANT_LAUNCHES"]
 
-#: untile kernel launches since the last reset (the CPU path does not
-#: count): the single-plane kernel and the three-plane kernel
+#: untile launches since the last reset (the CPU path does not count):
+#: every launch of the single-plane kernel (``untile_one``, ``untile_image``)
+#: and of the three-plane kernel (``untile3``, ``untile3_image``)
 LAUNCHES = 0
 UNTILE3_LAUNCHES = 0
+#: the same launches by entry point, so that a run shows which store ran
+VARIANT_LAUNCHES = dict.fromkeys(("untile_one", "untile_image", "untile3", "untile3_image"), 0)
 
 #: frames at or above this pixel count use 32-row tiles (the reference's
 #: TPU-tuned threshold; the frame does not depend on the tiling)
@@ -77,7 +86,8 @@ def pick_tile_h(width: int, height: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# untile: (T, th, tw) 32-bit tiles -> (nty*th, ntx*tw) row-major image
+# untile: (T, th, tw) 32-bit tiles -> (nty*th, ntx*tw) row-major image, and
+# the same kernels storing a cropped image: (H, W) words or (H, W, 3) RGB
 # ---------------------------------------------------------------------------
 
 def untile_one_plain(x, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int):
@@ -93,26 +103,111 @@ def _check_tiles(x, shape):
         raise ValueError("tiles must be contiguous")
 
 
+def _check_crop(height: int, width: int, n_tiles_x: int, n_tiles_y: int, tile_h: int,
+                tile_w: int):
+    if not (0 < height <= n_tiles_y * tile_h and 0 < width <= n_tiles_x * tile_w):
+        raise ValueError(f"a {height}x{width} crop does not fit {n_tiles_y}x{n_tiles_x} "
+                         f"tiles of {tile_h}x{tile_w}")
+
+
+def _on_cuda(device, tile_w: int, *xs) -> bool:
+    """False for CPU tensors (the plain version); True for CUDA tensors the
+    kernel takes; raises otherwise."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"no untile for device {device}")
+    if tile_w % 4 or any(x.data_ptr() % 16 for x in xs):
+        raise ValueError("the CUDA untile moves 16-byte vectors: tile_w must be "
+                         "a multiple of 4 and the tiles 16-byte aligned")
+    return True
+
+
+def _counted(variant: str) -> None:
+    global LAUNCHES, UNTILE3_LAUNCHES
+    if variant.startswith("untile3"):
+        UNTILE3_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    VARIANT_LAUNCHES[variant] += 1
+
+
 def untile_one(x, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int):
     """One 32-bit tile plane -> image layout.  CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    global LAUNCHES
     _check_tiles(x, (n_tiles_x * n_tiles_y, tile_h, tile_w))
     if x.dtype not in (torch.int32, torch.float32):
         raise ValueError(f"untile moves 32-bit words, got {x.dtype}")
-    if x.device.type == "cpu":
+    if not _on_cuda(x.device, tile_w, x):
         return untile_one_plain(x, n_tiles_x, n_tiles_y, tile_h, tile_w)
-    if x.device.type != "cuda":
-        raise ValueError(f"no untile for device {x.device}")
-    if tile_w % 4 or x.data_ptr() % 16:
-        raise ValueError("the CUDA untile moves 16-byte vectors: tile_w must be "
-                         "a multiple of 4 and the tiles 16-byte aligned")
     out = torch.empty((n_tiles_y * tile_h, n_tiles_x * tile_w), dtype=x.dtype,
                       device=x.device)
     _build.call("trt_untile32", x.device,
                 x.data_ptr(), out.data_ptr(), n_tiles_x, n_tiles_y, tile_h, tile_w)
-    LAUNCHES += 1
+    _counted("untile_one")
     return out
+
+
+def untile_image_plain(x, ids, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int,
+                       height: int, width: int, fill=0, rgb: bool = False):
+    """``compact_to_image`` (or, with ``ids`` None, ``untile_one_plain``),
+    cropped, and ``unpack_rgb`` when ``rgb``."""
+    if ids is None:
+        img = untile_one_plain(x, n_tiles_x, n_tiles_y, tile_h, tile_w)
+    else:
+        img = compact_to_image(x, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, fill,
+                               untile=untile_one_plain)
+    img = img[:height, :width]
+    return unpack_rgb(img) if rgb else img.contiguous()
+
+
+def _fill_bits(fill, dtype) -> int:
+    """The 32-bit pattern of ``fill`` as a ``dtype`` word, as a signed int."""
+    return struct.unpack("<i", struct.pack("<f" if dtype == torch.float32 else "<i",
+                                           fill))[0]
+
+
+def untile_image(x, ids, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int,
+                 height: int, width: int, fill=0, rgb: bool = False):
+    """One 32-bit plane straight to a cropped image, in one launch of the
+    single-plane kernel: tile ``ids[k]`` is ``x[k]`` (a compact (A, th, tw)
+    stack; ``fill`` where a tile is absent), or with ``ids`` None tile t is
+    ``x[t]``.  -> (height, width) in ``x``'s dtype, or with ``rgb`` the
+    packed 0x00BBGGRR int32 colour as (height, width, 3) uint8.
+
+    The kernel finds a tile's slot by a binary search, so ``ids`` must be
+    ascending and unique, as every pre-stage emits them (``active_ids``).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    n = n_tiles_x * n_tiles_y if ids is None else ids.shape[0]
+    _check_tiles(x, (n, tile_h, tile_w))
+    if x.dtype not in (torch.int32, torch.float32):
+        raise ValueError(f"untile moves 32-bit words, got {x.dtype}")
+    if rgb and x.dtype != torch.int32:
+        raise ValueError(f"rgb unpacks packed int32 colour, got {x.dtype}")
+    if ids is not None and (ids.dtype != torch.int32 or ids.dim() != 1
+                            or not ids.is_contiguous() or ids.device != x.device):
+        raise ValueError("ids must be a contiguous (A,) int32 tensor on the tiles' device")
+    _check_crop(height, width, n_tiles_x, n_tiles_y, tile_h, tile_w)
+    if not _on_cuda(x.device, tile_w, x):
+        return untile_image_plain(x, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, height,
+                                  width, fill, rgb)
+    out = torch.empty((height, width, 3) if rgb else (height, width),
+                      dtype=torch.uint8 if rgb else x.dtype, device=x.device)
+    _build.call("trt_untile_image", x.device,
+                x.data_ptr(), None if ids is None else ids.data_ptr(), n, out.data_ptr(),
+                n_tiles_x, n_tiles_y, tile_h, tile_w, height, width,
+                _fill_bits(fill, x.dtype), int(rgb))
+    _counted("untile_image")
+    return out
+
+
+def _check_planes(color, depth, winner, shape):
+    for x, dtype in ((color, torch.int32), (depth, torch.float32), (winner, torch.int32)):
+        _check_tiles(x, shape)
+        if x.dtype != dtype:
+            raise ValueError(f"untile3 planes are int32, float32, int32; got {x.dtype}")
+        if x.device != color.device:
+            raise ValueError("untile3 planes must share a device")
 
 
 def untile3_plain(color, depth, winner, n_tiles_x: int, n_tiles_y: int,
@@ -125,29 +220,51 @@ def untile3(color, depth, winner, n_tiles_x: int, n_tiles_y: int, tile_h: int,
             tile_w: int):
     """The frame's packed colour (int32), depth (float32) and winner
     (int32) tile planes -> three image-layout planes, in one launch.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    global UNTILE3_LAUNCHES
-    shape = (n_tiles_x * n_tiles_y, tile_h, tile_w)
-    for x, dtype in ((color, torch.int32), (depth, torch.float32),
-                     (winner, torch.int32)):
-        _check_tiles(x, shape)
-        if x.dtype != dtype:
-            raise ValueError(f"untile3 planes are int32, float32, int32; got {x.dtype}")
-        if x.device != color.device:
-            raise ValueError("untile3 planes must share a device")
-    if color.device.type == "cpu":
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    its three planes views of one allocation (one allocator call, not
+    three: the wrapper's host time is most of its time)."""
+    _check_planes(color, depth, winner, (n_tiles_x * n_tiles_y, tile_h, tile_w))
+    if not _on_cuda(color.device, tile_w, color, depth, winner):
         return untile3_plain(color, depth, winner, n_tiles_x, n_tiles_y, tile_h, tile_w)
-    if color.device.type != "cuda":
-        raise ValueError(f"no untile for device {color.device}")
-    if tile_w % 4 or any(x.data_ptr() % 16 for x in (color, depth, winner)):
-        raise ValueError("the CUDA untile moves 16-byte vectors: tile_w must be "
-                         "a multiple of 4 and the tiles 16-byte aligned")
-    outs = tuple(torch.empty((n_tiles_y * tile_h, n_tiles_x * tile_w), dtype=x.dtype,
-                             device=x.device) for x in (color, depth, winner))
+    c, d, w = torch.empty((3, n_tiles_y * tile_h, n_tiles_x * tile_w), dtype=torch.int32,
+                          device=color.device).unbind(0)
+    outs = (c, d.view(torch.float32), w)
     _build.call("trt_untile3", color.device,
                 color.data_ptr(), depth.data_ptr(), winner.data_ptr(),
                 *(o.data_ptr() for o in outs), n_tiles_x, n_tiles_y, tile_h, tile_w)
-    UNTILE3_LAUNCHES += 1
+    _counted("untile3")
+    return outs
+
+
+def untile3_image_plain(color, depth, winner, n_tiles_x: int, n_tiles_y: int,
+                        tile_h: int, tile_w: int, height: int, width: int):
+    """``untile3_plain``, cropped, the colour through ``unpack_rgb``."""
+    c, d, w = untile3_plain(color, depth, winner, n_tiles_x, n_tiles_y, tile_h, tile_w)
+    return (unpack_rgb(c[:height, :width]), d[:height, :width].contiguous(),
+            w[:height, :width].contiguous())
+
+
+def untile3_image(color, depth, winner, n_tiles_x: int, n_tiles_y: int, tile_h: int,
+                  tile_w: int, height: int, width: int):
+    """The frame's three tile planes straight to its buffers, in one launch
+    of the three-plane kernel: -> (colour (height, width, 3) uint8 unpacked
+    from 0x00BBGGRR, depth (height, width) float32, winner (height, width)
+    int32).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel, depth and winner views of one allocation."""
+    _check_planes(color, depth, winner, (n_tiles_x * n_tiles_y, tile_h, tile_w))
+    _check_crop(height, width, n_tiles_x, n_tiles_y, tile_h, tile_w)
+    if not _on_cuda(color.device, tile_w, color, depth, winner):
+        return untile3_image_plain(color, depth, winner, n_tiles_x, n_tiles_y, tile_h,
+                                   tile_w, height, width)
+    dev = color.device
+    d, w = torch.empty((2, height, width), dtype=torch.int32, device=dev).unbind(0)
+    outs = (torch.empty((height, width, 3), dtype=torch.uint8, device=dev),
+            d.view(torch.float32), w)
+    _build.call("trt_untile3_image", dev,
+                color.data_ptr(), depth.data_ptr(), winner.data_ptr(),
+                *(o.data_ptr() for o in outs), n_tiles_x, n_tiles_y, tile_h, tile_w,
+                height, width)
+    _counted("untile3_image")
     return outs
 
 
@@ -181,11 +298,9 @@ def new_frame_tiles(width: int, height: int, device, tile_h: int = TILE_H,
 def tiles_to_buffers(ft: FrameTiles, width: int, height: int,
                      tile_h: int = TILE_H, tile_w: int = TILE_W) -> FrameBuffers:
     """Untile the frame's three planes, crop the ragged edge and unpack
-    the colour."""
-    color, depth, winner = untile3(ft.color, ft.depth, ft.winner, cdiv(width, tile_w),
-                                   cdiv(height, tile_h), tile_h, tile_w)
-    return FrameBuffers(color=unpack_rgb(color[:height, :width]),
-                        depth=depth[:height, :width], winner=winner[:height, :width])
+    the colour (``untile3_image``: one launch on the card)."""
+    return FrameBuffers(*untile3_image(ft.color, ft.depth, ft.winner, cdiv(width, tile_w),
+                                       cdiv(height, tile_h), tile_h, tile_w, height, width))
 
 
 # ---------------------------------------------------------------------------
@@ -437,13 +552,12 @@ def render_frame_fused_image(passes, width: int, height: int,
             lambda ids: torch.full((ids.shape[0], tile_h, tile_w), torch.inf,
                                    dtype=torch.float32, device=ids.device))
         c_img = shade_compact_fresh(winner_c, vary_c, uniforms, shader)
-    img = compact_to_image(c_img, ids, n_tiles_x, n_tiles_y, tile_h, tile_w)
-    image = unpack_rgb(img[:height, :width])
+    image = untile_image(c_img, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, height, width,
+                         rgb=True)
     if not return_depth:
         return image
-    depth = compact_to_image(depth_c, ids, n_tiles_x, n_tiles_y, tile_h,
-                             tile_w, fill=torch.inf)
-    return image, depth[:height, :width]
+    return image, untile_image(depth_c, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, height,
+                               width, fill=torch.inf)
 
 
 def render_frame_fused(passes, width: int, height: int, device,

@@ -206,9 +206,9 @@ def render_passes(passes, width: int, height: int, device,
     if not (passes and passes[-1][3]):
         return fb, fb.depth, events
     tw = raster_sparse.TILE_W
-    depth = raster_sparse.untile_one(out_depth_t, raster_sparse.cdiv(width, tw),
-                                     raster_sparse.cdiv(height, th), th, tw)
-    return fb, depth[:height, :width], events
+    depth = raster_sparse.untile_image(out_depth_t, None, raster_sparse.cdiv(width, tw),
+                                       raster_sparse.cdiv(height, th), th, tw, height, width)
+    return fb, depth, events
 
 
 def render_scene_image(scene: Scene, device, frustum_cull: bool = True):
