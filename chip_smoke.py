@@ -11,7 +11,8 @@ kernels and the orbit animation.
 Phases, one line each (any failure exits non-zero before the last line):
   1. the card: ``nvidia-smi`` name and power limit (alone on the first
      line), torch's device name;
-  2. the kernel build from ``tinyrenderder_tpu_torch/csrc`` with nvcc;
+  2. the kernel build from ``tinyrenderder_tpu_torch/csrc`` with nvcc, and
+     each split-walk kernel's registers, shared memory and spills;
   3. each kernel against its plain PyTorch version on the card, bitwise:
      the coarse and the strip raster at the headline shapes (2048², 32-row
      tiles, Phong with 8 varyings); the single-plane untile on the
@@ -54,6 +55,10 @@ Phases, one line each (any failure exits non-zero before the last line):
      kernel's time, its plain version's, the library call's where one
      PyTorch call computes the same function, and its bound (bytes over
      3.35 TB/s or float operations over 67 TFLOP/s, from this run's data);
+     for the split walks of the coarse and grouped strip rasters (sparse,
+     stats, dense) also the work items, the longest item, the kernels one
+     call launches (a profiler trace) and the time over the strip kernel's
+     on the same pass;
   4. the image route end to end through ``scene.render_scene_image`` on
      the headline scene (the 27,360-face bumpy head, normal-mapped Phong,
      2048²) under ``FINE_MODE`` "coarse", "fine" and "fine2": every kernel
@@ -721,6 +726,74 @@ def untile_sass(lib: Path) -> dict:
     return counts
 
 
+#: the split-walk kernels (raster_common.cuh) of the two redesigned rasters
+SPLIT_KERNELS = ("item_scan_kernel", "coarse_walk_kernel", "coarse_merge_kernel",
+                 "coarse_events_kernel", "fine2_walk_kernel", "fine2_merge_kernel",
+                 "fine2_events_kernel")
+
+
+def ptxas_kernels(log: str, names) -> dict[str, str]:
+    """{kernel<TH,STATS>: "R registers, S B smem, spills x/y"} from the ptxas
+    report of the build for each kernel whose name is in ``names``."""
+    import re
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search("(" + "|".join(names) + r")I(?:Li(\d+)E)?(?:Lb([01])E)?", ln)
+            cur = None
+            if m:
+                args = [m.group(2)] + ([["plain", "stats"][int(m.group(3))]] if m.group(3) else [])
+                cur = f"{m.group(1)}<{','.join(args)}>"
+                out[cur] = ""
+        elif cur is not None and "spill stores" in ln:
+            st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            out[cur] = f"spills {st.group(1)}/{st.group(2)} B"
+        elif cur is not None and "Used" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[cur] = f"{regs} registers, {smem.group(1) if smem else 0} B smem, {out[cur]}"
+    return out
+
+
+def split_shape(counts, range_len: int) -> tuple[int, int]:
+    """(work items, the longest item's steps) of a split walk over blocks
+    of ``counts`` steps cut into ranges of ``range_len``."""
+    c = [int(x) for x in counts.tolist()]
+    return (sum(max(1, -(-n // range_len)) for n in c),
+            min(max(c, default=0), range_len))
+
+
+def call_kernels(fn, calls: int = 3) -> list[str]:
+    """The CUDA kernels a call of ``fn`` launches, in order of their first
+    launch, from a ``torch.profiler`` trace of ``calls`` calls after a
+    warm-up call (a trace has been seen to drop a kernel of one call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [next((k for k in SPLIT_KERNELS if k in e.name), e.name.split("(")[0])
+             for e in events]
+    return list(dict.fromkeys(names))
+
+
+def split_text(counts, range_len: int, fn, ms: float, yard_ms: float, yard: str) -> str:
+    """The [3 raster] clause of a split-walk raster: its items, longest
+    item, the kernels a call launches and the ratio to the strip kernel
+    (#4) on the same pass."""
+    items, longest = split_shape(counts, range_len)
+    kernels = call_kernels(fn)
+    return (f"split: {items} items of <= {range_len} (longest {longest}, the longest walk "
+            f"{int(counts.max())}), {len(kernels)} launches a call ({', '.join(kernels)}); "
+            f"/{yard} {ms / yard_ms:.3f}")
+
+
 def untile_kernels(smi: str, c_img, ids, th: int, mm_passes) -> dict:
     """[3 untile], [3 untile3], [3 untile image]: both untile kernels and
     their image stores against their plain versions on the card, bitwise,
@@ -1270,6 +1343,12 @@ def main() -> int:
     for name, c in untile_sass(lib).items():
         say(f"    sass: {name}: {c['ldg']} 16-byte loads, {c['ahead']} of them before the "
             f"first store; {c['stg']} 16-byte stores; {c['rcp']} MUFU.RCP (integer division)")
+    range_pairs = _build.constant("trt_coarse_range_pairs")
+    range_rows = _build.constant("trt_fine2_range_rows")
+    say(f"[2 build] split walks: ranges of {range_pairs} pairs (coarse), {range_rows} slot rows "
+        f"(grouped strips); " + "; ".join(
+            f"{k} {v}" for k, v in ptxas_kernels(lib.with_suffix(".log").read_text(),
+                                                 SPLIT_KERNELS).items()))
 
     # ---- 3. kernels against their plain versions at the headline shapes ----
     scene = tscene.headline_scene(WIDTH, HEIGHT, "phong")
@@ -1302,7 +1381,9 @@ def main() -> int:
     fine_bound = raster_bound("fine", pre_f, kf, th, ntx, n_vary, False)
     say(f"[3 raster] headline pass: coarse kernel == plain bitwise (depth, winner, "
         f"{n_vary} varyings), kernel {raster_ms:.4f} ms, plain {raster_plain_ms:.4f} ms, "
-        f"bound {coarse_bound[0]:.4f} ms ({coarse_bound[1]}) | strip kernel == plain "
+        f"bound {coarse_bound[0]:.4f} ms ({coarse_bound[1]}); "
+        + split_text(pre.counts, range_pairs, lambda: rc.coarse_raster(*args), raster_ms,
+                     fine_ms, "#4") + " | strip kernel == plain "
         f"bitwise, kernel {fine_ms:.4f} ms, plain {fine_plain_ms:.4f} ms, bound "
         f"{fine_bound[0]:.4f} ms ({fine_bound[1]}); strip/coarse kernel "
         f"{fine_ms / raster_ms:.3f} | {smi}")
@@ -1360,14 +1441,17 @@ def main() -> int:
     f2s_bound = raster_bound("fine2", pre_2, k2s, th_w, ntx_w, nv_w, True)
     pre_wc = rs.pre_sparse(s_attrs, s_uniforms, s_shader, WALL_W, WALL_H, th_w, TILE_W)
     pre_wf = rf.pre_fine(s_attrs, s_uniforms, s_shader, WALL_W, WALL_H, th_w, TILE_W)
-    wc_ms = event_ms(lambda: rc.coarse_raster(
-        pre_wc.tri_rec, pre_wc.sorted_tri, pre_wc.ids, pre_wc.start, pre_wc.counts,
-        torch.full((pre_wc.n_active, th_w, TILE_W), torch.inf, device=DEVICE), ntx_w, th_w,
-        TILE_W, nv_w))
-    wf_ms = event_ms(lambda: rf.fine_raster(
-        pre_wf.tri_rec, pre_wf.tri8, pre_wf.ids, pre_wf.row_start, pre_wf.rows,
-        torch.full((pre_wf.n_active, th_w, TILE_W), torch.inf, device=DEVICE), ntx_w, th_w,
-        TILE_W, nv_w))
+    args_wc = (pre_wc.tri_rec, pre_wc.sorted_tri, pre_wc.ids, pre_wc.start, pre_wc.counts,
+               torch.full((pre_wc.n_active, th_w, TILE_W), torch.inf, device=DEVICE), ntx_w,
+               th_w, TILE_W, nv_w)
+    args_wf = (pre_wf.tri_rec, pre_wf.tri8, pre_wf.ids, pre_wf.row_start, pre_wf.rows,
+               torch.full((pre_wf.n_active, th_w, TILE_W), torch.inf, device=DEVICE), ntx_w,
+               th_w, TILE_W, nv_w)
+    wc_ms = event_ms(lambda: rc.coarse_raster(*args_wc))
+    wf_ms = event_ms(lambda: rf.fine_raster(*args_wf))
+    # the strip kernel's event planes on the same pass, seeded as #5s is
+    args_wfs = args_wf[:5] + (after_room_w.depth[pre_wf.ids.long()],) + args_wf[6:]
+    wfs_ms = event_ms(lambda: rf.fine_raster(*args_wfs, collect_stats=True))
     say(f"[3 shapes] stress pass {WALL_W}x{WALL_H} (host build of both 246k scenes "
         f"{wall_host_s:.1f} s): faces {s_attrs['position'].shape[0]}, th {th_w}, V {nv_w}; "
         f"coarse pairs {pre_wc.total}, active {pre_wc.n_active}; strips: pairs {pre_2.pairs}, "
@@ -1378,10 +1462,18 @@ def main() -> int:
         f"(depth, winner, {nv_w} varyings) and seeded by the room's depth with stats "
         f"({finite_2} finite init depths, {events_2} events; == the seeded launch without "
         f"stats); kernel {f2_ms:.4f} ms, plain {f2_plain_ms:.4f} ms, bound "
-        f"{f2_bound[0]:.4f} ms ({f2_bound[1]}); stats kernel {f2s_ms:.4f} ms, plain "
-        f"{f2s_plain_ms:.4f} ms, bound {f2s_bound[0]:.4f} ms ({f2s_bound[1]}), seeded "
-        f"without stats {f2_seeded_ms:.4f} ms; on the same pass coarse kernel {wc_ms:.4f} ms, "
-        f"strip kernel {wf_ms:.4f} ms (grouped/strip {f2_ms / wf_ms:.3f}, grouped/coarse "
+        f"{f2_bound[0]:.4f} ms ({f2_bound[1]}); "
+        + split_text(pre_2.group_rows, range_rows, lambda: rf2.fine2_raster(*args_2), f2_ms,
+                     wf_ms, "#4")
+        + f" | stats kernel {f2s_ms:.4f} ms, plain {f2s_plain_ms:.4f} ms, bound "
+        f"{f2s_bound[0]:.4f} ms ({f2s_bound[1]}), seeded without stats {f2_seeded_ms:.4f} ms; "
+        + split_text(pre_2.group_rows, range_rows,
+                     lambda: rf2.fine2_raster(*args_2, init_2, collect_stats=True), f2s_ms,
+                     wfs_ms, "#4s") + f" (#4s {wfs_ms:.4f} ms)"
+        + f" | on the same pass coarse kernel {wc_ms:.4f} ms ("
+        + split_text(pre_wc.counts, range_pairs, lambda: rc.coarse_raster(*args_wc), wc_ms,
+                     wf_ms, "#4")
+        + f"), strip kernel {wf_ms:.4f} ms (grouped/strip {f2_ms / wf_ms:.3f}, grouped/coarse "
         f"{f2_ms / wc_ms:.3f}) | {smi}")
     for name, err, ms, plain_ms, b in (
             ("fine2_raster", fine2_err, f2_ms, f2_plain_ms, f2_bound),
@@ -1438,11 +1530,20 @@ def main() -> int:
         sp_ms = time_plain(lambda: plain(*sargs, collect_stats=True))
         n_ms = event_ms(lambda: kernel(*sargs))
         sb = raster_bound(mode, pp, ks, th3, cdiv(w, TILE_W), nv, True)
+        split = ""
+        if mode == "coarse":   # and the strip kernel's event planes on the same pass
+            pf = rf.pre_fine(p_attrs, p_uniforms, p_shader, w, h, th3, TILE_W)
+            fargs = (pf.tri_rec, pf.tri8, pf.ids, pf.row_start, pf.rows,
+                     ft_prior.depth[pf.ids.long()], cdiv(w, TILE_W), th3, TILE_W, nv)
+            yard_ms = event_ms(lambda: rf.fine_raster(*fargs, collect_stats=True))
+            split = "; " + split_text(pp.counts, range_pairs,
+                                      lambda: kernel(*sargs, collect_stats=True), s_ms,
+                                      yard_ms, "#4s") + f" (#4s {yard_ms:.4f} ms)"
         say(f"[3 raster stats] {name}, {what} at {w}x{h} (active {pp.n_active}, "
             f"{finite_init} finite init depths, {n_events} events): kernel == plain "
             f"bitwise (depth, winner, varyings, both event planes), and == the launch "
             f"without stats; kernel {s_ms:.4f} ms, plain {sp_ms:.4f} ms, bound "
-            f"{sb[0]:.4f} ms ({sb[1]}); the same pass without stats {n_ms:.4f} ms")
+            f"{sb[0]:.4f} ms ({sb[1]}); the same pass without stats {n_ms:.4f} ms{split}")
         record[name] = {"name": name, "route": "cuda", "source": src, "replaces": repl,
                         "max_abs_err": err, "ms": s_ms, "plain_ms": sp_ms,
                         "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None}
@@ -1502,6 +1603,13 @@ def main() -> int:
         sargs = (rec_d, bins.sorted_tri, act.to(torch.int32), bins.start[act], bins.counts[act],
                  init_t[act], bins.n_tiles_x, th_d, TILE_W, nv)
         s_ms = event_ms(lambda: rc.coarse_raster(*sargs))
+        # the strip kernel on the same pass
+        pf = rf.pre_fine(d_attrs, d_uniforms, d_shader, size, size, th_d, TILE_W)
+        fargs = (pf.tri_rec, pf.tri8, pf.ids, pf.row_start, pf.rows,
+                 torch.full((pf.n_active, th_d, TILE_W), torch.inf, device=DEVICE),
+                 bins.n_tiles_x, th_d, TILE_W, nv)
+        split = split_text(bins.counts, range_pairs, lambda: rc.dense_raster(*dargs), d_ms,
+                           event_ms(lambda: rf.fine_raster(*fargs)), "#4")
         if corners is None:
             (got, _), dl = counted(lambda: rc.depth_resolve(setup_d, bins, init_img, size, size,
                                                             th_d, TILE_W))
@@ -1520,7 +1628,7 @@ def main() -> int:
             f"{int((bins.counts == 0).sum())} empty, {bins.total} pairs, largest bin "
             f"{int(bins.counts.max())}; kernel == plain bitwise (depth, winner, {nv} varyings); "
             f"kernel {d_ms:.4f} ms, plain {dp_ms:.4f} ms, library none, bound {d_bound[0]:.4f} ms "
-            f"({d_bound[1]}); the sparse launch over the {act.numel()} active tiles "
+            f"({d_bound[1]}); {split}; the sparse launch over the {act.numel()} active tiles "
             f"{s_ms:.4f} ms; {entry} bitwise; launches {dl['dense_raster']} | {smi}")
         if name == "headline pass":
             record["dense_raster"] = {

@@ -40,9 +40,24 @@ WALLS = {"stress": tscene.stress_scene, "mixed": tscene.mixed_scene}
 WALL_SIZE = dict(width=160, height=96, grid=2, n_lat=12, n_lon=16)
 
 
-def _pass(scene):
+#: split-walk cases, port only: (scene, tile_h, the scale of each copy of
+#: the pass's triangles, drawn one copy after another).  A z-tie soup (every
+#: triangle drawn twice, the copies after all the originals, so each tie's
+#: two rows fall on both sides of a range edge) and a stack of six heads
+#: (pairs of exact copies at three scales: groups of several ranges whose
+#: slots end at different rows, and whose later ranges win pixels)
+STACKS = {"soup_ties_16": ("soup_phong_ragged", 16, (1.0, 1.0)),
+          "head_stack_32": ("head_phong", 32, (1.0, 1.0, 1.02, 1.02, 0.98, 0.98))}
+RANGE_LENS = (1, 7, 64)
+
+
+def _pass(scene, scales=(1.0,)):
+    """A scene's pass, its triangles drawn once for each scale (positions
+    scaled), one copy after another."""
     p, w, h = scene_pass(scene)
-    attrs, uniforms = convert.pass_to_torch(p.attrs, p.uniforms, "cpu")
+    attrs = {k: np.concatenate([v * np.float32(s) if k == "position" else v for s in scales])
+             for k, v in p.attrs.items()}
+    attrs, uniforms = convert.pass_to_torch(attrs, p.uniforms, "cpu")
     return attrs, p.shader, uniforms, w, h
 
 
@@ -61,6 +76,18 @@ def prepared():
     out = {}
     for seed, (name, (scene, th)) in enumerate(CASES.items()):
         attrs, shader, uniforms, w, h = _pass(scene)
+        pre = raster_fine2.pre_fine2(attrs, uniforms, shader, w, h, th)
+        out[name] = (pre, _depth_tiles(w, h, th, seed), sum(shader.varying_spec.values()),
+                     w, h, th)
+    return out
+
+
+@pytest.fixture(scope="module")
+def split_prepared(prepared):
+    """``prepared`` and the STACKS cases."""
+    out = dict(prepared)
+    for seed, (name, (scene, th, scales)) in enumerate(STACKS.items(), start=30):
+        attrs, shader, uniforms, w, h = _pass(scene, scales)
         pre = raster_fine2.pre_fine2(attrs, uniforms, shader, w, h, th)
         out[name] = (pre, _depth_tiles(w, h, th, seed), sum(shader.varying_spec.values()),
                      w, h, th)
@@ -284,6 +311,33 @@ def test_z_ties_go_to_the_first_drawn():
     assert (winner >= 0).any() and int(winner.max()) < f
 
 
+@pytest.mark.parametrize("case", [*KERNEL_CASES, *STACKS])
+@pytest.mark.parametrize("range_len", RANGE_LENS)
+@pytest.mark.parametrize("stats", [False, True])
+def test_split_walk_equals_the_serial_walk(split_prepared, case, range_len, stats):
+    """The CUDA kernels' decomposition in plain PyTorch: every group's rows
+    cut into ranges of ``range_len``, each range's first minimum from +inf,
+    the ranges merged in order with strict-less from the running depth
+    (+inf pass-local, half finite with stats), and with stats each range
+    walked again from its entering depth.  Bitwise the serial walk."""
+    c = split_prepared[case]
+    args = _raster_args(c)
+    init = _init(c) if stats else None
+    want = raster_fine2.fine2_raster_plain(*args, init, collect_stats=stats)
+    got = raster_fine2.fine2_raster_split_plain(*args, init, collect_stats=stats,
+                                                range_len=range_len)
+    flat = lambda out: (*out[:3], *(out[3] if stats else ()))  # noqa: E731
+    for name, g, w in zip(("depth", "winner", "vary", "event count", "event max z"),
+                          flat(got), flat(want)):
+        assert_bits(g.numpy(), w.numpy(), name)
+    pre = c[0]
+    if case == "head_stack_32":                    # groups of several ranges
+        assert int(pre.group_rows[0]) > 3 * range_len
+    if case == "soup_ties_16":                     # every tie goes to the first copy
+        f = pre.tri_rec.shape[0] // 2
+        assert (want[1] >= 0).any() and int(want[1].max()) < f
+
+
 def test_mode_dispatch(monkeypatch):
     """"fine2" forced applies to every pass; "auto" takes fine2 where
     grouped rows <= FINE2_RATIO x per-tile rows and <= 0.45 x coarse pairs
@@ -356,11 +410,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", [*CASES, *STACKS])
 @pytest.mark.parametrize("stats", [False, True])
-def test_cuda_fine2_raster_matches_plain(prepared, cuda_device, case, stats):
-    args = _raster_args(prepared[case])
-    init = _init(prepared[case]) if stats else None
+def test_cuda_fine2_raster_matches_plain(split_prepared, cuda_device, case, stats):
+    """Bitwise the plain version, pass-local and seeded with stats, on
+    groups of one range and (the head stack) on groups of several ranges
+    whose slots end at different rows, with z-ties on both sides of a range
+    edge (STACKS)."""
+    c = split_prepared[case]
+    args = _raster_args(c)
+    init = _init(c) if stats else None
+    if case == "head_stack_32":
+        from tinyrenderder_tpu_torch import _build
+        pre = c[0]
+        assert int(pre.group_rows[0]) > 3 * _build.constant("trt_fine2_range_rows")
+        ends = (pre.tri8[:int(pre.group_rows[0])] >= 0).sum(dim=0)   # group 0's slot lengths
+        assert int(ends.min()) < int(ends.max())
     want = raster_fine2.fine2_raster_plain(*args, init, collect_stats=stats)
     gpu = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
     before = (raster_fine2.LAUNCHES, raster_fine2.STATS_LAUNCHES)

@@ -34,10 +34,30 @@ DENSE = {"head_97x61": ("head_phong", 97, 61, 16, None),
          "head_300x61_th32_origin": ("head_phong", 300, 61, 32, (5, 3))}
 
 
-def _prepare(scene, th, seed):
+#: split-walk cases, port only: (scene, tile_h, the scale of each copy of
+#: the pass's triangles, drawn one copy after another).  A z-tie soup (every
+#: triangle drawn twice, the copies after all the originals, so each tie's
+#: two pairs fall on both sides of a range edge) and a stack of four heads
+#: (two exact copies, then one scaled up and one down: bins of several
+#: ranges, whose later ranges win pixels)
+STACKS = {"soup_ties16": ("soup_phong_ragged", 16, (1.0, 1.0)),
+          "head_stack32": ("head_phong", 32, (1.0, 1.0, 1.02, 0.98))}
+#: the dense entry on a stack of heads: a ragged frame, empty tiles, long bins
+DENSE_STACKS = {"head_stack_300x61": ("head_phong", 300, 61, 16, None,
+                                      (1.0, 1.0, 1.02, 0.98))}
+RANGE_LENS = (1, 7, 64)
+
+
+def _copies(attrs, scales):
+    """The pass's triangles drawn once for each scale, positions scaled."""
+    return {k: np.concatenate([v * np.float32(s) if k == "position" else v for s in scales])
+            for k, v in attrs.items()}
+
+
+def _prepare(scene, th, seed, scales=(1.0,)):
     """Port-side pre-stage pieces at one shared setup, as NumPy."""
     p, w, h = scene_pass(scene)
-    attrs, uniforms = convert.pass_to_torch(p.attrs, p.uniforms, "cpu")
+    attrs, uniforms = convert.pass_to_torch(_copies(p.attrs, scales), p.uniforms, "cpu")
     setup, varyings = raster_tiled.vertex_stage(attrs, uniforms, p.shader, w, h)
     ntx, nty = raster_tiled.cdiv(w, 128), raster_tiled.cdiv(h, th)
     tx0, ty0, span_x, span_y, spans = raster_tiled.tile_spans(setup, 128, th)
@@ -68,11 +88,18 @@ def prepared():
             for seed, (name, (scene, th)) in enumerate(CASES.items())}
 
 
-def _prepare_dense(scene, w, h, th, origin, seed):
+@pytest.fixture(scope="module")
+def split_prepared(prepared):
+    """``prepared`` and the STACKS cases."""
+    return {**prepared, **{name: _prepare(scene, th, 30 + i, scales)
+                           for i, (name, (scene, th, scales)) in enumerate(STACKS.items())}}
+
+
+def _prepare_dense(scene, w, h, th, origin, seed, scales=(1.0,)):
     """A pass's setup, varying corners and a running depth (H, W), half
     finite, as NumPy; the port's bins of the setup."""
     p, _, _ = scene_pass(scene)
-    attrs, uniforms = convert.pass_to_torch(p.attrs, p.uniforms, "cpu")
+    attrs, uniforms = convert.pass_to_torch(_copies(p.attrs, scales), p.uniforms, "cpu")
     setup, varyings = raster_tiled.vertex_stage(attrs, uniforms, p.shader, w, h)
     vary_corners = raster_tiled.shader_varyings(varyings, p.shader)
     rng = np.random.default_rng(seed)
@@ -87,6 +114,13 @@ def _prepare_dense(scene, w, h, th, origin, seed):
 def dense_inputs():
     return {name: _prepare_dense(*case, seed=20 + i)
             for i, (name, case) in enumerate(DENSE.items())}
+
+
+@pytest.fixture(scope="module")
+def dense_stack_inputs(dense_inputs):
+    """``dense_inputs`` and the DENSE_STACKS cases."""
+    return {**dense_inputs, **{name: _prepare_dense(*case[:5], seed=40 + i, scales=case[5])
+                               for i, (name, case) in enumerate(DENSE_STACKS.items())}}
 
 
 def _dense_port(c, device="cpu"):
@@ -273,6 +307,35 @@ def test_dense_raster_plain_matches_pallas(dense_inputs, jax_side, case):
         assert (c["bins"].counts == 0).any()
 
 
+def _planes(out, stats):
+    """(depth, winner, vary[, event count, event max z]) of a raster."""
+    return (*out[:3], *(out[3] if stats else ()))
+
+
+@pytest.mark.parametrize("case", [*CASES, *STACKS])
+@pytest.mark.parametrize("range_len", RANGE_LENS)
+@pytest.mark.parametrize("stats", [False, True])
+def test_split_walk_equals_the_serial_walk(split_prepared, case, range_len, stats):
+    """The CUDA kernels' decomposition in plain PyTorch: every bin cut into
+    ranges of ``range_len`` pairs, each range's first minimum from +inf,
+    the ranges merged in order with strict-less from the running depth
+    (half of it finite), and with stats each range walked again from its
+    entering depth.  Bitwise the serial walk, ties and events included."""
+    c = split_prepared[case]
+    args = _raster_args(c)
+    want = raster_coarse.coarse_raster_plain(*args, collect_stats=stats)
+    got = raster_coarse.coarse_raster_split_plain(*args, collect_stats=stats,
+                                                  range_len=range_len)
+    names = ("depth", "winner", "vary", "event count", "event max z")
+    for name, g, w in zip(names, _planes(got, stats), _planes(want, stats)):
+        assert_bits(g.numpy(), w.numpy(), name)
+    if case == "head_stack32":                     # bins of several ranges
+        assert int(c["bins"][2].max()) > 3 * range_len
+    if case == "soup_ties16":                      # every tie goes to the first copy
+        f = c["setup"]["valid"].shape[0] // 2
+        assert (want[1] >= 0).any() and int(want[1].max()) < f
+
+
 def test_dense_raster_counts_no_cpu_launch(dense_inputs):
     raster_coarse.DENSE_LAUNCHES = 0
     _dense_port(dense_inputs["cube_97x61"])
@@ -336,10 +399,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _long_bins(counts):
+    """Check that some bin spans several of the CUDA kernel's ranges."""
+    from tinyrenderder_tpu_torch import _build
+    assert int(counts.max()) > 3 * _build.constant("trt_coarse_range_pairs")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CASES))
-def test_cuda_coarse_raster_matches_plain(prepared, cuda_device, case):
-    c = prepared[case]
+@pytest.mark.parametrize("case", [*CASES, *STACKS])
+def test_cuda_coarse_raster_matches_plain(split_prepared, cuda_device, case):
+    """Bitwise the plain version, on bins of one range and (the head stack)
+    of several, with z-ties on both sides of a range edge (STACKS)."""
+    c = split_prepared[case]
+    if case == "head_stack32":
+        _long_bins(c["bins"][2])
     sorted_tri, start, counts = (torch.from_numpy(a) for a in c["bins"])
     idl = torch.from_numpy(c["ids"]).long()
     setup = {k: torch.from_numpy(v) for k, v in c["setup"].items()}
@@ -357,9 +430,14 @@ def test_cuda_coarse_raster_matches_plain(prepared, cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CASES))
-def test_cuda_coarse_raster_event_planes_match_plain(prepared, cuda_device, case):
-    args = _raster_args(prepared[case])
+@pytest.mark.parametrize("case", [*CASES, *STACKS])
+def test_cuda_coarse_raster_event_planes_match_plain(split_prepared, cuda_device, case):
+    """The seeded events walk: bitwise the plain version's event planes, on
+    bins of one range and (the head stack) of several, from a running
+    depth half finite."""
+    args = _raster_args(split_prepared[case])
+    if case == "head_stack32":
+        _long_bins(args[4])
     want = raster_coarse.coarse_raster_plain(*args, collect_stats=True)
     gpu = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
     before = raster_coarse.STATS_LAUNCHES
@@ -375,11 +453,16 @@ def test_cuda_coarse_raster_event_planes_match_plain(prepared, cuda_device, case
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(DENSE))
-def test_cuda_dense_raster_matches_plain(dense_inputs, cuda_device, case):
+@pytest.mark.parametrize("case", [*DENSE, *DENSE_STACKS])
+def test_cuda_dense_raster_matches_plain(dense_stack_inputs, cuda_device, case):
     """The dense launch (no tile list, every tile) against the plain
-    version, through ``rasterize`` and ``depth_resolve``."""
-    c = dense_inputs[case]
+    version, through ``rasterize`` and ``depth_resolve``: empty tiles
+    (all but the first case) beside (DENSE_STACKS) bins of several
+    ranges."""
+    c = dense_stack_inputs[case]
+    if case in DENSE_STACKS:
+        _long_bins(c["bins"].counts)
+        assert (c["bins"].counts == 0).any()
     want = _dense_port(c)
     before = raster_coarse.DENSE_LAUNCHES
     got = _dense_port(c, cuda_device)

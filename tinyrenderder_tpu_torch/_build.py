@@ -38,9 +38,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     # tri_rec, rec_stride, sorted_tri, tile_ids (or null: every tile),
     # start, count, n_active, origin_x, origin_y, n_tiles_x, tile_h, tile_w,
-    # n_vary, init_depth, depth, winner, vary, ev_count, ev_maxz, stream
+    # n_vary, init_depth, depth, winner, vary, ev_count, ev_maxz, n_items,
+    # scratch, stream
     "trt_coarse_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P, _P],
+                          _P, _P, _P, _P, _P, _P, _I, _P, _P],
     # tri_rec, rec_stride, tri8, tile_ids, row_start, rows, n_active,
     # origin_x, origin_y, n_tiles_x, tile_h, tile_w, n_vary,
     # init_depth, depth, winner, vary, ev_count, ev_maxz, stream
@@ -48,9 +49,10 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P],
     # tri_rec, rec_stride, tri8, group_start, group_rows, x0y0, n_groups,
     # origin_x, origin_y, tile_h, tile_w, n_vary,
-    # init_depth (or null), depth, winner, vary, ev_count, ev_maxz, stream
+    # init_depth (or null), depth, winner, vary, ev_count, ev_maxz, n_items,
+    # scratch, stream
     "trt_fine2_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _P],
+                         _P, _P, _P, _P, _P, _P, _I, _P, _P],
     # src, dst, n_tiles_x, n_tiles_y, tile_h, tile_w, stream
     "trt_untile32": [_P, _P, _I, _I, _I, _I, _P],
     # color, depth, winner, color_out, depth_out, winner_out,
@@ -72,7 +74,11 @@ SIGNATURES = {
     "trt_inplace_blocks": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P],
 }
 
+#: C functions of no argument that return a kernel's compile-time constant
+CONSTANTS = ("trt_coarse_range_pairs", "trt_fine2_range_rows")
+
 _LIB: ctypes.CDLL | None = None
+_CONSTANT_VALUES: dict[str, int] = {}
 #: seconds this process spent in nvcc (0.0 when the library existed)
 BUILD_SECONDS = 0.0
 
@@ -89,20 +95,21 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path() -> Path:
+def _library_path(csrc: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return BUILD_DIR / f"libtrt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists.
-    nvcc's output (ptxas register and shared-memory report) is kept
-    beside the library as ``<name>.log``."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the kernels of ``csrc`` (the package's sources, or an edited
+    copy of them) unless a library of the same sources exists.  nvcc's
+    output (ptxas register and shared-memory report) is kept beside the
+    library as ``<name>.log``."""
     global BUILD_SECONDS
-    lib = _library_path()
+    lib = _library_path(csrc)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -110,7 +117,7 @@ def build() -> Path:
     nvcc = _nvcc()
     objs = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(csrc / s)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for s, o in zip(SOURCES, objs)]
     logs = [p.communicate()[0] for p in procs]
@@ -131,19 +138,35 @@ def build() -> Path:
     return lib
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library, its entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for name in CONSTANTS:
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.trt_error_string.argtypes = [_I]
+    lib.trt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.trt_error_string.argtypes = [_I]
-        lib.trt_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = load(build())
     return _LIB
+
+
+def constant(name: str) -> int:
+    """The value of ``CONSTANTS`` entry ``name``, from the loaded library
+    (asked once a process)."""
+    if name not in _CONSTANT_VALUES:
+        _CONSTANT_VALUES[name] = getattr(library(), name)()
+    return _CONSTANT_VALUES[name]
 
 
 def call(name: str, device, *args) -> None:

@@ -91,16 +91,56 @@ __device__ __forceinline__ void depth_step(const float* g, int tri, float fx, fl
   }
 }
 
-// One warp of a strip raster block (raster_fine.cu, raster_fine2.cu): a
-// block of kStrips warps owns a TH x 128 output block; warp k owns its
-// columns 16k .. 16k + 15, lane l the pixels of column 16k + l % 16 in
-// rows l / 16, l / 16 + 2, ... (TH / 2 pixels a lane).  The warp walks its
-// slot column tri8[seg + r][k], r < n, in row order (= submission order)
-// and stops at the first -1 (its bin is a prefix of the column), 32 slots
-// at a time: each lane reads one slot id, the warp stages the 32
-// triangles' geometry in shared memory (geom, stri: this warp's part), and
-// every lane runs the sequential strict-less depth_step over them.  Then
-// loop 2 writes each pixel's depth, winner, varyings and (STATS) events.
+// Loop 1 of one warp of a strip raster block: the warp walks slot rows
+// seg .. seg + n - 1 of its own column k of tri8 in row order (=
+// submission order) and stops at the first -1 (a strip's bin is a prefix
+// of its column), 32 slots at a time: each lane reads one slot id, the
+// warp stages the 32 triangles' geometry in shared memory (geom, stri:
+// this warp's part), and every lane runs the sequential strict-less
+// depth_step over them at its kPix pixels (column x, rows y, y + 2, ...).
+template <int kPix, bool STATS>
+__device__ __forceinline__ void strip_walk(const float* __restrict__ tri_rec, int rec_stride,
+                                           const int* __restrict__ tri8, int seg, int n,
+                                           float fx, int y, float* depth, int* win,
+                                           int* events, float* maxz, float (*geom)[kGeom],
+                                           int* stri) {
+  constexpr int kRowStep = kWarp / kStripW;  // 2 rows per lane step
+  const int k = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  for (int r0 = 0; r0 < n; r0 += kWarp) {
+    const int m = min(kWarp, n - r0);
+    const int t = lane < m ? tri8[static_cast<size_t>(seg + r0 + lane) * kStrips + k] : -1;
+    // the column is a prefix: its live slots are the lanes below the first -1
+    const unsigned dead = __ballot_sync(kAll, t < 0);
+    const int live = dead ? __ffs(dead) - 1 : kWarp;
+    __syncwarp();  // the previous chunk is consumed
+    stri[lane] = t;
+    __syncwarp();
+    for (int i = lane; i < live * kGeom; i += kWarp) {
+      const int p = i / kGeom, c = i % kGeom;
+      geom[p][c] = tri_rec[static_cast<size_t>(stri[p]) * rec_stride + c];
+    }
+    __syncwarp();
+    for (int p = 0; p < live; ++p) {
+      const float* g = geom[p];
+      if (fx < g[12] || fx > g[13]) continue;  // column outside the bbox
+      const int tri = stri[p];
+#pragma unroll
+      for (int i = 0; i < kPix; ++i)
+        depth_step<STATS>(g, tri, fx, static_cast<float>(y + i * kRowStep), depth[i],
+                          win[i], events[STATS ? i : 0], maxz[STATS ? i : 0]);
+    }
+    if (live < kWarp) break;  // the strip's bin ended in this chunk
+  }
+}
+
+// One warp of a strip raster block (raster_fine.cu, and the grouped strip
+// raster's blocks of one range, raster_fine2.cu): a block of kStrips warps
+// owns a TH x 128 output block; warp k owns its columns 16k .. 16k + 15,
+// lane l the pixels of column 16k + l % 16 in rows l / 16, l / 16 + 2, ...
+// (TH / 2 pixels a lane).  Loop 1 is strip_walk over the warp's n slot
+// rows from seg; then loop 2 writes each pixel's depth, winner, varyings
+// and (STATS) events.
 //   block: the output block index; x, y: this lane's global pixel column
 //   and first row; init_depth: (blocks, TH, 128) running depth, or null
 //   for +inf (pass-local).
@@ -135,31 +175,8 @@ __device__ __forceinline__ void strip_column(
   }
 
   // ---- loop 1: this strip's column of slots, in row order ----
-  for (int r0 = 0; r0 < n; r0 += kWarp) {
-    const int m = min(kWarp, n - r0);
-    const int t = lane < m ? tri8[static_cast<size_t>(seg + r0 + lane) * kStrips + k] : -1;
-    // the column is a prefix: its live slots are the lanes below the first -1
-    const unsigned dead = __ballot_sync(kAll, t < 0);
-    const int live = dead ? __ffs(dead) - 1 : kWarp;
-    __syncwarp();  // the previous chunk is consumed
-    stri[lane] = t;
-    __syncwarp();
-    for (int i = lane; i < live * kGeom; i += kWarp) {
-      const int p = i / kGeom, c = i % kGeom;
-      geom[p][c] = tri_rec[static_cast<size_t>(stri[p]) * rec_stride + c];
-    }
-    __syncwarp();
-    for (int p = 0; p < live; ++p) {
-      const float* g = geom[p];
-      if (fx < g[12] || fx > g[13]) continue;  // column outside the bbox
-      const int tri = stri[p];
-#pragma unroll
-      for (int i = 0; i < kPix; ++i)
-        depth_step<STATS>(g, tri, fx, static_cast<float>(y + i * kRowStep), depth[i],
-                          win[i], events[STATS ? i : 0], maxz[STATS ? i : 0]);
-    }
-    if (live < kWarp) break;  // the strip's bin ended in this chunk
-  }
+  strip_walk<kPix, STATS>(tri_rec, rec_stride, tri8, seg, n, fx, y, depth, win, events,
+                          maxz, geom, stri);
 
   // ---- loop 2: perspective-correct varyings of each pixel's winner ----
   const float px = fx + 0.5f;
@@ -181,6 +198,206 @@ __device__ __forceinline__ void strip_column(
     write_varyings(tri_rec + static_cast<size_t>(win[i]) * rec_stride, px,
                    static_cast<float>(y + i * kRowStep) + 0.5f, n_vary, plane, vo);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Split walks (raster_coarse.cu, raster_fine2.cu).  An output block's walk
+// (a tile's bin of pairs, a group's slot rows) is cut into consecutive
+// ranges of at most L steps; each range is one work item, a block of 256
+// threads.  A block's item count is range_items<L>(steps); item_scan_kernel
+// gives each block its first item (an exclusive scan), and find_item turns
+// an item back into (output block, range).  A block of one range walks it
+// from the running depth and writes its outputs directly.  A block of more
+// ranges writes each range's first minimum from +inf, (depth, winner) per
+// pixel, to the partial planes at the item's index, and merge_ranges folds
+// them in range order with strict-less from the running depth: the result
+// is the serial walk's depth and winner, its first-drawn-wins tie included
+// (a strict-less fold over a sequence equals the strict-less fold, over its
+// consecutive parts in order, of each part's own fold from +inf).  The
+// stats launch then walks each such range again from its entering depth
+// (the merge's exclusive prefix, seeded with the running depth), which
+// gives exactly the serial walk's events of that range, and add_events
+// sums them into the event planes.
+// ---------------------------------------------------------------------------
+
+constexpr int kBlockThreads = 256;   // one block of a walk item or a merge
+constexpr int kScanThreads = 1024;
+static_assert(kBlockThreads == kStripThreads, "a merge block covers a strip block");
+
+// a walk of n steps cut into ranges of at most L: max(1, ceil(n / L)) items
+template <int L>
+__device__ __forceinline__ int range_items(int n) {
+  return n > L ? (n + L - 1) / L : 1;
+}
+
+// One block: starts[b] = the exclusive prefix sum of range_items<L>(count[b])
+// over b < n, and starts[n] = the total, the item count of the launch.
+template <int L>
+__global__ void __launch_bounds__(kScanThreads)
+item_scan_kernel(const int* __restrict__ count, int n, int* __restrict__ starts) {
+  __shared__ int s_warp[kScanThreads / kWarp];
+  __shared__ int s_carry;
+  const int t = threadIdx.x, lane = t % kWarp, w = t / kWarp;
+  if (t == 0) s_carry = 0;
+  for (int b0 = 0; b0 < n; b0 += kScanThreads) {
+    const int b = b0 + t;
+    const int v = b < n ? range_items<L>(count[b]) : 0;
+    int x = v;  // inclusive scan over the warp
+#pragma unroll
+    for (int d = 1; d < kWarp; d <<= 1) {
+      const int y = __shfl_up_sync(kAll, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == kWarp - 1) s_warp[w] = x;
+    __syncthreads();
+    if (w == 0) {  // the warps' totals, scanned
+      int s = s_warp[lane];
+#pragma unroll
+      for (int d = 1; d < kWarp; d <<= 1) {
+        const int y = __shfl_up_sync(kAll, s, d);
+        if (lane >= d) s += y;
+      }
+      s_warp[lane] = s;
+    }
+    __syncthreads();
+    const int carry = s_carry;
+    if (b < n) starts[b] = carry + (w ? s_warp[w - 1] : 0) + x - v;
+    __syncthreads();  // every read of s_warp and s_carry is done
+    if (t == kScanThreads - 1) s_carry = carry + s_warp[kWarp - 1];
+  }
+  __syncthreads();
+  if (t == 0) starts[n] = s_carry;
+}
+
+// The output block of work item `item` (< starts[n]) and the item's range
+// index in it: the last b < n with starts[b] <= item (starts ascend
+// strictly from starts[0] = 0, since every block has an item).  Called by
+// every lane of a warp: a 32-way search, each lane probing one point.
+__device__ __forceinline__ int2 find_item(const int* __restrict__ starts, int n, int item) {
+  const int lane = threadIdx.x % kWarp;
+  int lo = 0, hi = n;  // the block is in [lo, hi), and starts[lo] <= item
+  while (hi - lo > 1) {
+    const int step = (hi - lo + kWarp - 1) / kWarp;
+    const int p = lo + lane * step;
+    const unsigned le = __ballot_sync(kAll, p < hi && starts[p] <= item);
+    lo += (31 - __clz(le)) * step;  // lane 0 always holds
+    hi = min(hi, lo + step);
+  }
+  return make_int2(lo, item - starts[lo]);
+}
+
+// Loop 2 at one pixel of output block `block`, at offset o in its TH x 128
+// plane: depth, winner, (STATS) the event planes, and the varyings of the
+// winner at pixel centre (px, py), zeros where there is none.
+template <bool STATS>
+__device__ __forceinline__ void store_pixel(const float* __restrict__ tri_rec, int rec_stride,
+                                            int block, size_t plane, size_t o, float depth,
+                                            int win, int events, float maxz, float px,
+                                            float py, int n_vary, float* __restrict__ depth_out,
+                                            int* __restrict__ winner_out,
+                                            float* __restrict__ vary_out,
+                                            int* __restrict__ ev_count,
+                                            float* __restrict__ ev_maxz) {
+  const size_t at = static_cast<size_t>(block) * plane + o;
+  depth_out[at] = depth;
+  winner_out[at] = win;
+  if constexpr (STATS) {
+    ev_count[at] = events;
+    ev_maxz[at] = maxz;
+  }
+  if (n_vary == 0) return;
+  float* vo = vary_out + static_cast<size_t>(block) * n_vary * plane + o;
+  if (win < 0) {
+    for (int c = 0; c < n_vary; ++c) vo[c * plane] = 0.0f;
+    return;
+  }
+  write_varyings(tri_rec + static_cast<size_t>(win) * rec_stride, px, py, n_vary, plane, vo);
+}
+
+// The ordered merge of output block `block`'s m > 1 ranges, whose partial
+// (depth, winner) planes are items first .. first + m - 1 of part_d and
+// part_w, for the kMergeRows rows of band `part` of the block.  A block of
+// 256 threads; thread t owns the band's pixels of column t % 128 in rows
+// t / 128, t / 128 + 2, ..., at global column fx (gy0: the global row of
+// the block's row t / 128).  Per pixel, from the running depth
+// (init_depth, or +inf where it is null), each range's pair replaces the
+// running one only where its depth is strictly less, so the first range
+// wins a tie.  A thread loads kMergeAhead ranges at a time for all its
+// pixels, so those loads are in flight together, then folds them in
+// order.  STATS: each range's partial depth is overwritten by its
+// entering depth (the running depth before it) for the events walk, and
+// the event planes start at 0 and -inf for add_events.  Then loop 2.
+constexpr int kMergeRows = 4;
+constexpr int kMergeAhead = 4;
+
+template <int TH, bool STATS>
+__device__ __forceinline__ void merge_ranges(
+    const float* __restrict__ tri_rec, int rec_stride, int block, int part, int first, int m,
+    float fx, int gy0, int n_vary, const float* __restrict__ init_depth,
+    float* __restrict__ part_d, const int* __restrict__ part_w, float* __restrict__ depth_out,
+    int* __restrict__ winner_out, float* __restrict__ vary_out, int* __restrict__ ev_count,
+    float* __restrict__ ev_maxz) {
+  static_assert(TH % kMergeRows == 0, "a tile is whole merge bands");
+  constexpr int kPix = kMergeRows * kTileW / kBlockThreads;
+  constexpr int kRowStep = kBlockThreads / kTileW;
+  const size_t plane = static_cast<size_t>(TH) * kTileW;
+  const size_t o0 = threadIdx.x + static_cast<size_t>(part) * kPix * kBlockThreads;
+  float d[kPix];
+  int w[kPix];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    d[k] = init_depth ? init_depth[block * plane + o0 + k * kBlockThreads] : CUDART_INF_F;
+    w[k] = -1;
+  }
+  for (int r0 = 0; r0 < m; r0 += kMergeAhead) {
+    float rd[kMergeAhead][kPix];
+    int rw[kMergeAhead][kPix];
+#pragma unroll
+    for (int j = 0; j < kMergeAhead; ++j) {
+      if (r0 + j == m) break;
+      const size_t at = static_cast<size_t>(first + r0 + j) * plane + o0;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        rd[j][k] = part_d[at + k * kBlockThreads];
+        rw[j][k] = part_w[at + k * kBlockThreads];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMergeAhead; ++j) {
+      if (r0 + j == m) break;
+      const size_t at = static_cast<size_t>(first + r0 + j) * plane + o0;
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        if constexpr (STATS) part_d[at + k * kBlockThreads] = d[k];
+        if (rd[j][k] < d[k]) {
+          d[k] = rd[j][k];
+          w[k] = rw[j][k];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPix; ++k)
+    store_pixel<STATS>(tri_rec, rec_stride, block, plane, o0 + k * kBlockThreads, d[k], w[k],
+                       0, -CUDART_INF_F, fx + 0.5f,
+                       static_cast<float>(gy0 + (part * kPix + k) * kRowStep) + 0.5f, n_vary,
+                       depth_out, winner_out, vary_out, ev_count, ev_maxz);
+}
+
+// Adds one range's events at a pixel to the event planes merge_ranges
+// started: the count by an integer add, the largest event z by an integer
+// max on the float's bits (sign bit clear: a signed max; set: an unsigned
+// min, which orders negative floats and -0.0).  Both are exact in any
+// order.  (A walk's events are a strictly falling sequence of z, so the
+// largest is its first.)
+__device__ __forceinline__ void add_events(int* count, float* maxz, int events, float z) {
+  if (events == 0) return;
+  atomicAdd(count, events);
+  const int bits = __float_as_int(z);
+  if (bits >= 0)
+    atomicMax(reinterpret_cast<int*>(maxz), bits);
+  else
+    atomicMin(reinterpret_cast<unsigned*>(maxz), __float_as_uint(z));
 }
 
 }  // namespace trt

@@ -15,6 +15,12 @@ pixels:
   loop 2 — for each pixel's winner, perspective-correct barycentrics
            (our_gl.cpp:168-185) and the interpolated varyings.
 
+The CUDA kernels split loop 1: each bin is cut into ranges walked by
+separate blocks, merged in range order with strict-less and, for the
+event planes, walked again from each range's entering depth
+(``csrc/raster_coarse.cu``; ``coarse_raster_split_plain`` is the same
+decomposition in plain PyTorch, for the tests).
+
 Contract (shared by both versions, bitwise):
   tri_rec     (F, 16 + 3V) f32 per-triangle rows: screen ax ay bx by cx cy,
               ndc z0..z2, clip w0..w2, bbox min_x max_x min_y max_y (as
@@ -48,17 +54,19 @@ from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_H, TILE_W, Bins, to_ti
 
 __all__ = ["GEOM", "MAX_VARY", "SUB", "LAUNCHES", "STATS_LAUNCHES", "DENSE_LAUNCHES",
            "build_tri_records", "check_inputs", "check_tensors", "coarse_raster",
-           "coarse_raster_plain", "dense_raster", "rasterize", "depth_resolve",
-           "tile_pixels", "interpolate_winners"]
+           "coarse_raster_plain", "coarse_raster_split_plain", "split_walks", "walk_items",
+           "walk_scratch", "dense_raster", "rasterize", "depth_resolve", "tile_pixels",
+           "interpolate_winners"]
 
 GEOM = 16            # geometry columns before the varying corners
 MAX_VARY = 36        # the reference's record limit, (128 - 20) // 3
 SUB = 16             # pairs per vector step of the plain version
 TILE_CHUNK = 64      # tiles per step of the plain version (bounds memory)
 
-#: kernel launches since the last reset (the CPU path does not count),
-#: over active tiles without and with the event planes, and over every
-#: tile (``dense_raster``)
+#: user calls that launched the kernels since the last reset (the CPU path
+#: does not count), over active tiles without and with the event planes,
+#: and over every tile (``dense_raster``); a call launches three kernels,
+#: four with the event planes (``csrc/raster_coarse.cu``)
 LAUNCHES = 0
 STATS_LAUNCHES = 0
 DENSE_LAUNCHES = 0
@@ -140,11 +148,27 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
     return out
 
 
+def walk_items(n_blocks: int, n_steps: int, range_len: int) -> int:
+    """The grid of a split walk (``csrc/raster_common.cuh``): ``n_blocks``
+    output blocks whose walks, ``n_steps`` in all, are cut into ranges of
+    at most ``range_len`` steps have at most this many ranges (a block of
+    no step has one).  Known without a readback."""
+    return n_blocks + -(-n_steps // range_len)
+
+
+def walk_scratch(n_items: int, n_blocks: int, tile_h: int, device) -> torch.Tensor:
+    """The split walk's scratch: each range's partial depth and winner
+    planes, then each block's first range and the range total."""
+    return torch.empty(2 * n_items * tile_h * TILE_W + n_blocks + 1, dtype=torch.int32,
+                       device=device)
+
+
 def _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x: int,
             tile_h: int, tile_w: int, n_vary: int, origin, collect_stats: bool):
-    """Launch the kernel on CUDA tensors: one block per entry of
-    ``count``, block a on tile ``tile_ids[a]`` or, with ``tile_ids``
-    None, on tile a.  No entries, no launch."""
+    """Launch the kernels on CUDA tensors (the item scan, the split walk,
+    the ordered merge and, with ``collect_stats``, the events walk): block
+    a's bin is on tile ``tile_ids[a]`` or, with ``tile_ids`` None, on tile
+    a.  No entries, no launch."""
     if tri_rec.device.type != "cuda":
         raise ValueError(f"no coarse raster for device {tri_rec.device}")
     if tile_w != 128 or tile_h not in (16, 32):
@@ -160,13 +184,15 @@ def _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x: 
     out = (depth, winner, vary) + ((ev,) if collect_stats else ())
     if a == 0:
         return out
+    n_items = walk_items(a, sorted_tri.shape[0], _build.constant("trt_coarse_range_pairs"))
+    scratch = walk_scratch(n_items, a, tile_h, tri_rec.device)
     _build.call("trt_coarse_raster", tri_rec.device,
                 tri_rec.data_ptr(), tri_rec.shape[1], sorted_tri.data_ptr(),
                 None if tile_ids is None else tile_ids.data_ptr(), start.data_ptr(),
                 count.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x, tile_h, tile_w,
                 n_vary, init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
                 vary.data_ptr() if n_vary else None, ev[0].data_ptr() if ev else None,
-                ev[1].data_ptr() if ev else None)
+                ev[1].data_ptr() if ev else None, n_items, scratch.data_ptr())
     return out
 
 
@@ -310,6 +336,58 @@ def coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
         if n_vary:
             vary[c0:c1] = interpolate_winners(tri_rec, wbuf, px[:, 0], py[:, 0], n_vary)
     return out
+
+
+def split_walks(walk, init_depth, steps, range_len: int, collect_stats: bool):
+    """The split walk of the CUDA rasters (``csrc/raster_common.cuh``) in
+    plain PyTorch, for the tests.  Each output block's walk of ``steps``
+    steps is cut into consecutive ranges of ``range_len``; ``walk(r, init,
+    stats)`` runs a plain version over range r of every block from
+    ``init`` (+inf: the range's own first minimum).  The ranges' (depth,
+    winner) are merged in order with strict-less from ``init_depth``, and
+    with ``collect_stats`` each range is walked again from its entering
+    depth (the exclusive prefix) and its events summed and maxed.  ->
+    (depth, winner, (count, max z) or None)."""
+    n_ranges = max(1, -(-int(steps.max()) // range_len)) if steps.numel() else 1
+    fresh = torch.full_like(init_depth, torch.inf)
+    depth = init_depth.clone()
+    winner = torch.full_like(depth, -1, dtype=torch.int32)
+    entering = []
+    for r in range(n_ranges):
+        part_d, part_w = walk(r, fresh, False)[:2]
+        entering.append(depth)
+        better = part_d < depth                       # strict-less: the first range wins a tie
+        depth = torch.where(better, part_d, depth)
+        winner = torch.where(better, part_w, winner)
+    if not collect_stats:
+        return depth, winner, None
+    count = torch.zeros_like(winner)
+    max_z = torch.full_like(depth, -torch.inf)
+    for r, enter in enumerate(entering):
+        c, z = walk(r, enter, True)[3]
+        count += c
+        max_z = torch.maximum(max_z, z)
+    return depth, winner, (count, max_z)
+
+
+def coarse_raster_split_plain(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
+                              n_tiles_x: int, tile_h: int, tile_w: int, n_vary: int,
+                              origin=(0, 0), collect_stats: bool = False,
+                              range_len: int = 64):
+    """``coarse_raster_plain`` computed as the CUDA kernels split it, for
+    the tests: ``coarse_raster_plain`` over each range of ``range_len``
+    pairs of every bin, merged by ``split_walks``, then loop 2.  Equal to
+    ``coarse_raster_plain`` bitwise."""
+    def walk(r, init, stats):
+        sub = torch.clamp(count - r * range_len, 0, range_len)
+        return coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start + r * range_len, sub,
+                                   init, n_tiles_x, tile_h, tile_w, 0, origin, stats)
+
+    depth, winner, ev = split_walks(walk, init_depth, count, range_len, collect_stats)
+    x, y = tile_pixels(tile_ids.long(), n_tiles_x, tile_h, tile_w, origin, torch.float32)
+    vary = (interpolate_winners(tri_rec, winner, x[:, 0] + 0.5, y[:, 0] + 0.5, n_vary)
+            if n_vary else depth.new_empty((depth.shape[0], 0, tile_h, tile_w)))
+    return (depth, winner, vary) + ((ev,) if collect_stats else ())
 
 
 def interpolate_winners(tri_rec, wbuf, px, py, n_vary):

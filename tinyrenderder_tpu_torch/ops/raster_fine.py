@@ -42,15 +42,16 @@ import torch
 from tinyrenderder_tpu_torch import _build
 from tinyrenderder_tpu_torch.ops import semantics
 from tinyrenderder_tpu_torch.ops.raster_coarse import (GEOM, build_tri_records,
-                                                       check_inputs,
-                                                       interpolate_winners, tile_pixels)
+                                                       check_inputs, interpolate_winners,
+                                                       split_walks, tile_pixels)
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids,
                                                       build_bins, cdiv, shader_varyings,
                                                       tile_pair_counts, tile_spans,
                                                       vertex_stage)
 
 __all__ = ["STRIP_W", "STRIPS", "MAX_VARY", "LAUNCHES", "STATS_LAUNCHES", "PreFine",
-           "pre_fine", "fine_raster", "fine_raster_plain", "strip_raster_plain"]
+           "pre_fine", "fine_raster", "fine_raster_plain", "strip_raster_plain",
+           "strip_raster_split_plain"]
 
 STRIP_W = 16
 STRIPS = TILE_W // STRIP_W       # 8 strips per 128-px tile
@@ -242,3 +243,24 @@ def strip_raster_plain(tri_rec, tri8, row_start, rows, init_depth, n_vary: int,
         if n_vary:
             vary[c0:c1] = interpolate_winners(tri_rec, wbuf, px[:, 0], py[:, 0], n_vary)
     return out
+
+
+def strip_raster_split_plain(tri_rec, tri8, row_start, rows, init_depth, n_vary: int,
+                             collect_stats: bool, pixels, range_len: int = 64):
+    """``strip_raster_plain`` computed as the grouped strip kernel splits
+    it, for the tests: ``strip_raster_plain`` over each range of
+    ``range_len`` slot rows of every block, merged by
+    ``raster_coarse.split_walks``, then loop 2.  Equal to
+    ``strip_raster_plain`` bitwise."""
+    def walk(r, init, stats):
+        sub = torch.clamp(rows - r * range_len, 0, range_len)
+        return strip_raster_plain(tri_rec, tri8, row_start + r * range_len, sub, init, 0,
+                                  stats, pixels)
+
+    depth, winner, ev = split_walks(walk, init_depth, rows, range_len, collect_stats)
+    if n_vary:
+        x, y = pixels(0, depth.shape[0])
+        vary = interpolate_winners(tri_rec, winner, x[:, 0] + 0.5, y[:, 0] + 0.5, n_vary)
+    else:
+        vary = depth.new_empty((depth.shape[0], 0, *depth.shape[1:]))
+    return (depth, winner, vary) + ((ev,) if collect_stats else ())

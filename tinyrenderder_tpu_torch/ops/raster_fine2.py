@@ -29,6 +29,11 @@ overflow re-render.  Only the G groups with rows > 0 are launched; they are
 a prefix, since rows descend, and hold every strip with pairs, so ``src <
 G * 8`` wherever ``live``.
 
+The CUDA kernels cut each group's rows into ranges walked by separate
+blocks and merge them in range order with strict-less (``csrc/raster_fine2.cu``;
+``fine2_raster_split_plain`` is the same decomposition in plain PyTorch,
+for the tests).
+
 Raster contract (shared by both versions, bitwise), in group space: lanes
 16k .. 16k + 15 of group g are slot k's strip.
   tri_rec     (F, 16 + 3V) f32 per-triangle rows (``raster_coarse``)
@@ -60,19 +65,22 @@ from typing import NamedTuple
 import torch
 
 from tinyrenderder_tpu_torch import _build
-from tinyrenderder_tpu_torch.ops.raster_coarse import build_tri_records, check_tensors
-from tinyrenderder_tpu_torch.ops.raster_fine import STRIP_W, STRIPS, strip_raster_plain
+from tinyrenderder_tpu_torch.ops.raster_coarse import (build_tri_records, check_tensors,
+                                                       walk_items, walk_scratch)
+from tinyrenderder_tpu_torch.ops.raster_fine import (STRIP_W, STRIPS, strip_raster_plain,
+                                                     strip_raster_split_plain)
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids,
                                                       build_bins, cdiv, shader_varyings,
                                                       tile_pair_counts, tile_spans,
                                                       vertex_stage)
 
 __all__ = ["LAUNCHES", "STATS_LAUNCHES", "PreFine2", "pre_fine2", "probe_rows",
-           "fine2_raster", "fine2_raster_plain", "init_strips", "post_fine2",
-           "post_fine2_image"]
+           "fine2_raster", "fine2_raster_plain", "fine2_raster_split_plain", "init_strips",
+           "post_fine2", "post_fine2_image"]
 
-#: kernel launches since the last reset (the CPU path does not count),
-#: without and with the event planes
+#: user calls that launched the kernels since the last reset (the CPU path
+#: does not count), without and with the event planes; a call launches
+#: three kernels, four with the event planes (``csrc/raster_fine2.cu``)
 LAUNCHES = 0
 STATS_LAUNCHES = 0
 
@@ -210,12 +218,15 @@ def fine2_raster(tri_rec, tri8, group_start, group_rows, x0y0, tile_h: int, n_va
     out = (depth, winner, vary) + ((ev,) if collect_stats else ())
     if g == 0:
         return out
+    n_items = walk_items(g, tri8.shape[0], _build.constant("trt_fine2_range_rows"))
+    scratch = walk_scratch(n_items, g, tile_h, dev)
     _build.call("trt_fine2_raster", dev,
                 tri_rec.data_ptr(), tri_rec.shape[1], tri8.data_ptr(), group_start.data_ptr(),
                 group_rows.data_ptr(), x0y0.data_ptr(), g, int(origin[0]), int(origin[1]), tile_h,
                 TILE_W, n_vary, None if init_depth is None else init_depth.data_ptr(),
                 depth.data_ptr(), winner.data_ptr(), vary.data_ptr() if n_vary else None,
-                ev[0].data_ptr() if ev else None, ev[1].data_ptr() if ev else None)
+                ev[0].data_ptr() if ev else None, ev[1].data_ptr() if ev else None, n_items,
+                scratch.data_ptr())
     if collect_stats:
         STATS_LAUNCHES += 1
     else:
@@ -228,10 +239,35 @@ def fine2_raster_plain(tri_rec, tri8, group_start, group_rows, x0y0, tile_h: int
                        collect_stats: bool = False):
     """Plain PyTorch version: ``raster_fine.strip_raster_plain`` over the
     groups, each slot's pixels at its strip's place on the screen."""
-    dev = tri_rec.device
-    if init_depth is None:
-        init_depth = torch.full((group_start.shape[0], tile_h, TILE_W), torch.inf,
-                                dtype=torch.float32, device=dev)
+    return strip_raster_plain(tri_rec, tri8, group_start, group_rows,
+                              _init_or_inf(init_depth, group_start, tile_h, tri_rec.device),
+                              n_vary, collect_stats, _group_pixels(x0y0, tile_h, origin))
+
+
+def fine2_raster_split_plain(tri_rec, tri8, group_start, group_rows, x0y0, tile_h: int,
+                             n_vary: int, init_depth=None, origin=(0, 0),
+                             collect_stats: bool = False, range_len: int = 64):
+    """``fine2_raster_plain`` computed as the CUDA kernels split it, for the
+    tests: ``raster_fine.strip_raster_split_plain`` over the groups, their
+    rows cut into ranges of ``range_len``.  Equal to ``fine2_raster_plain``
+    bitwise."""
+    return strip_raster_split_plain(
+        tri_rec, tri8, group_start, group_rows,
+        _init_or_inf(init_depth, group_start, tile_h, tri_rec.device), n_vary, collect_stats,
+        _group_pixels(x0y0, tile_h, origin), range_len)
+
+
+def _init_or_inf(init_depth, group_start, tile_h: int, dev):
+    if init_depth is not None:
+        return init_depth
+    return torch.full((group_start.shape[0], tile_h, TILE_W), torch.inf, dtype=torch.float32,
+                      device=dev)
+
+
+def _group_pixels(x0y0, tile_h: int, origin):
+    """pixels(c0, c1) of ``strip_raster_plain``: groups c0..c1's global
+    pixel coordinates, each slot's at its strip's place on the screen."""
+    dev = x0y0.device
     lane = torch.arange(TILE_W, device=dev) % STRIP_W
     row = torch.arange(tile_h, device=dev)
 
@@ -241,8 +277,7 @@ def fine2_raster_plain(tri_rec, tri8, group_start, group_rows, x0y0, tile_h: int
         y = origin[1] + o[:, None, :, 1] + row[:, None]                   # (C, th, tw)
         return x.to(torch.float32)[:, None, None, :], y.to(torch.float32)[:, None]
 
-    return strip_raster_plain(tri_rec, tri8, group_start, group_rows, init_depth, n_vary,
-                              collect_stats, pixels)
+    return pixels
 
 
 # ---------------------------------------------------------------------------
