@@ -12,7 +12,9 @@ Phases, one line each (any failure exits non-zero before the last line):
   1. the card: ``nvidia-smi`` name and power limit (alone on the first
      line), torch's device name;
   2. the kernel build from ``tinyrenderder_tpu_torch/csrc`` with nvcc, and
-     each split-walk kernel's registers, shared memory and spills;
+     each split-walk kernel's registers, shared memory and spills (the
+     strip kernels of raster_strip.cuh once for the strip raster's tiles,
+     once for the grouped raster's groups);
   3. each kernel against its plain PyTorch version on the card, bitwise:
      the coarse and the strip raster at the headline shapes (2048², 32-row
      tiles, Phong with 8 varyings); the single-plane untile on the
@@ -26,9 +28,12 @@ Phases, one line each (any failure exits non-zero before the last line):
      warm, with a cold L2 and as profiler device time; the
      grouped strip raster at the stress scene's (1280x800, 16-row tiles,
      Phong with 8 varyings), pass-local and seeded with the depth of the
-     1200x800 3-pass scene's room at 1280x800; the coarse raster's
+     1200x800 3-pass scene's room at 1280x800, and the strip raster on the
+     same pass, pass-local and seeded with stats; the coarse raster's
      event planes on the room pass of the 3-pass scene at 2048², rendered
-     after the head, and the strip and grouped strip rasters' on the head
+     after the head, with the strip raster's beside them (its tiles all fit
+     one range: through the route's one launch and through the split
+     walk, in turns), and the strip and grouped strip rasters' on the head
      pass, rendered after the room (so each running depth is not all
      +inf); each stats launch must also leave depth, winner and varyings
      as the seeded launch without stats does; the dense launch of the
@@ -55,10 +60,10 @@ Phases, one line each (any failure exits non-zero before the last line):
      kernel's time, its plain version's, the library call's where one
      PyTorch call computes the same function, and its bound (bytes over
      3.35 TB/s or float operations over 67 TFLOP/s, from this run's data);
-     for the split walks of the coarse and grouped strip rasters (sparse,
-     stats, dense) also the work items, the longest item, the kernels one
-     call launches (a profiler trace) and the time over the strip kernel's
-     on the same pass;
+     for the split walks of the three rasters (sparse, stats, dense) also
+     the work items, the longest item, the kernels one call launches (a
+     profiler trace) and the time over the strip kernel's on the same pass
+     ("/#4 split"; the strip kernel's over the coarse kernel's);
   4. the image route end to end through ``scene.render_scene_image`` on
      the headline scene (the 27,360-face bumpy head, normal-mapped Phong,
      2048²) under ``FINE_MODE`` "coarse", "fine" and "fine2": every kernel
@@ -125,6 +130,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -410,7 +416,7 @@ def raster_stage(mode: str, plain: bool, attrs, shader, uniforms, w: int, h: int
     elif mode == "fine":
         pre = rf.pre_fine(attrs, uniforms, shader, w, h, th, TILE_W)
         mark("pre")
-        fn = rf.fine_raster_plain if plain else rf.fine_raster
+        fn = rf.fine_raster_plain if plain else partial(rf.fine_raster, max_rows=pre.max_rows)
         out = fn(pre.tri_rec, pre.tri8, pre.ids, pre.row_start, pre.rows,
                  init_depth(pre.ids), ntx, th, TILE_W, n_vary)
     else:
@@ -726,15 +732,18 @@ def untile_sass(lib: Path) -> dict:
     return counts
 
 
-#: the split-walk kernels (raster_common.cuh) of the two redesigned rasters
+#: the split-walk kernels of the three rasters: raster_coarse.cu's, and
+#: raster_strip.cuh's, shared by the strip and grouped strip rasters
 SPLIT_KERNELS = ("item_scan_kernel", "coarse_walk_kernel", "coarse_merge_kernel",
-                 "coarse_events_kernel", "fine2_walk_kernel", "fine2_merge_kernel",
-                 "fine2_events_kernel")
+                 "coarse_events_kernel", "strip_walk_kernel", "strip_merge_kernel",
+                 "strip_events_kernel")
 
 
 def ptxas_kernels(log: str, names) -> dict[str, str]:
-    """{kernel<TH,STATS>: "R registers, S B smem, spills x/y"} from the ptxas
-    report of the build for each kernel whose name is in ``names``."""
+    """{kernel<TH,STATS[,tiles|groups]>: "R registers, S B smem, spills
+    x/y"} from the ptxas report of the build for each kernel whose name is
+    in ``names``; a strip kernel names its origin policy (the strip
+    raster's tiles, the grouped raster's groups)."""
     import re
     out, cur = {}, None
     for ln in log.splitlines():
@@ -743,6 +752,9 @@ def ptxas_kernels(log: str, names) -> dict[str, str]:
             cur = None
             if m:
                 args = [m.group(2)] + ([["plain", "stats"][int(m.group(3))]] if m.group(3) else [])
+                origin = re.search(r"(Tile|Slot)Origins", ln)
+                if origin:
+                    args.append({"Tile": "tiles", "Slot": "groups"}[origin.group(1)])
                 cur = f"{m.group(1)}<{','.join(args)}>"
                 out[cur] = ""
         elif cur is not None and "spill stores" in ln:
@@ -766,18 +778,22 @@ def split_shape(counts, range_len: int) -> tuple[int, int]:
 def call_kernels(fn, calls: int = 3) -> list[str]:
     """The CUDA kernels a call of ``fn`` launches, in order of their first
     launch, from a ``torch.profiler`` trace of ``calls`` calls after a
-    warm-up call (a trace has been seen to drop a kernel of one call)."""
+    warm-up call (a trace has been seen to drop a kernel of one call, and
+    to hold no kernel at all: such a trace is taken again, up to three)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
     names = [next((k for k in SPLIT_KERNELS if k in e.name), e.name.split("(")[0])
              for e in events]
     return list(dict.fromkeys(names))
@@ -785,8 +801,8 @@ def call_kernels(fn, calls: int = 3) -> list[str]:
 
 def split_text(counts, range_len: int, fn, ms: float, yard_ms: float, yard: str) -> str:
     """The [3 raster] clause of a split-walk raster: its items, longest
-    item, the kernels a call launches and the ratio to the strip kernel
-    (#4) on the same pass."""
+    item, the kernels a call launches and its time over ``yard``'s on the
+    same pass (``yard_ms``)."""
     items, longest = split_shape(counts, range_len)
     kernels = call_kernels(fn)
     return (f"split: {items} items of <= {range_len} (longest {longest}, the longest walk "
@@ -1345,8 +1361,9 @@ def main() -> int:
             f"first store; {c['stg']} 16-byte stores; {c['rcp']} MUFU.RCP (integer division)")
     range_pairs = _build.constant("trt_coarse_range_pairs")
     range_rows = _build.constant("trt_fine2_range_rows")
-    say(f"[2 build] split walks: ranges of {range_pairs} pairs (coarse), {range_rows} slot rows "
-        f"(grouped strips); " + "; ".join(
+    say(f"[2 build] split walks: ranges of {range_pairs} pairs (coarse), {rf.range_rows(16)} "
+        f"and {rf.range_rows(32)} slot rows (strips, 16- and 32-row tiles), {range_rows} slot "
+        f"rows (grouped strips); " + "; ".join(
             f"{k} {v}" for k, v in ptxas_kernels(lib.with_suffix(".log").read_text(),
                                                  SPLIT_KERNELS).items()))
 
@@ -1383,10 +1400,11 @@ def main() -> int:
         f"{n_vary} varyings), kernel {raster_ms:.4f} ms, plain {raster_plain_ms:.4f} ms, "
         f"bound {coarse_bound[0]:.4f} ms ({coarse_bound[1]}); "
         + split_text(pre.counts, range_pairs, lambda: rc.coarse_raster(*args), raster_ms,
-                     fine_ms, "#4") + " | strip kernel == plain "
+                     fine_ms, "#4 split") + " | strip kernel == plain "
         f"bitwise, kernel {fine_ms:.4f} ms, plain {fine_plain_ms:.4f} ms, bound "
-        f"{fine_bound[0]:.4f} ms ({fine_bound[1]}); strip/coarse kernel "
-        f"{fine_ms / raster_ms:.3f} | {smi}")
+        f"{fine_bound[0]:.4f} ms ({fine_bound[1]}); "
+        + split_text(pre_f.rows, rf.range_rows(th), lambda: rf.fine_raster(*args_f), fine_ms,
+                     raster_ms, "coarse") + f" | {smi}")
     record["coarse_raster"] = {
         "name": "coarse_raster", "route": "cuda",
         "source": "tinyrenderder_tpu_torch/csrc/raster_coarse.cu",
@@ -1447,11 +1465,19 @@ def main() -> int:
     args_wf = (pre_wf.tri_rec, pre_wf.tri8, pre_wf.ids, pre_wf.row_start, pre_wf.rows,
                torch.full((pre_wf.n_active, th_w, TILE_W), torch.inf, device=DEVICE), ntx_w,
                th_w, TILE_W, nv_w)
+    # the strip kernel on the same pass, pass-local, and its event planes
+    # seeded as #5s is
+    args_wfs = args_wf[:5] + (after_room_w.depth[pre_wf.ids.long()],) + args_wf[6:]
+    check_outputs("strip raster vs plain, stress pass", rf.fine_raster(*args_wf),
+                  rf.fine_raster_plain(*args_wf))
+    check_outputs("strip stats raster vs plain, stress pass, seeded",
+                  rf.fine_raster(*args_wfs, collect_stats=True),
+                  rf.fine_raster_plain(*args_wfs, collect_stats=True))
     wc_ms = event_ms(lambda: rc.coarse_raster(*args_wc))
     wf_ms = event_ms(lambda: rf.fine_raster(*args_wf))
-    # the strip kernel's event planes on the same pass, seeded as #5s is
-    args_wfs = args_wf[:5] + (after_room_w.depth[pre_wf.ids.long()],) + args_wf[6:]
     wfs_ms = event_ms(lambda: rf.fine_raster(*args_wfs, collect_stats=True))
+    args_wcs = args_wc[:5] + (after_room_w.depth[pre_wc.ids.long()],) + args_wc[6:]
+    wcs_ms = event_ms(lambda: rc.coarse_raster(*args_wcs, collect_stats=True))
     say(f"[3 shapes] stress pass {WALL_W}x{WALL_H} (host build of both 246k scenes "
         f"{wall_host_s:.1f} s): faces {s_attrs['position'].shape[0]}, th {th_w}, V {nv_w}; "
         f"coarse pairs {pre_wc.total}, active {pre_wc.n_active}; strips: pairs {pre_2.pairs}, "
@@ -1464,17 +1490,24 @@ def main() -> int:
         f"stats); kernel {f2_ms:.4f} ms, plain {f2_plain_ms:.4f} ms, bound "
         f"{f2_bound[0]:.4f} ms ({f2_bound[1]}); "
         + split_text(pre_2.group_rows, range_rows, lambda: rf2.fine2_raster(*args_2), f2_ms,
-                     wf_ms, "#4")
+                     wf_ms, "#4 split")
         + f" | stats kernel {f2s_ms:.4f} ms, plain {f2s_plain_ms:.4f} ms, bound "
         f"{f2s_bound[0]:.4f} ms ({f2s_bound[1]}), seeded without stats {f2_seeded_ms:.4f} ms; "
         + split_text(pre_2.group_rows, range_rows,
                      lambda: rf2.fine2_raster(*args_2, init_2, collect_stats=True), f2s_ms,
-                     wfs_ms, "#4s") + f" (#4s {wfs_ms:.4f} ms)"
+                     wfs_ms, "#4s split") + f" (#4s {wfs_ms:.4f} ms)"
         + f" | on the same pass coarse kernel {wc_ms:.4f} ms ("
         + split_text(pre_wc.counts, range_pairs, lambda: rc.coarse_raster(*args_wc), wc_ms,
-                     wf_ms, "#4")
-        + f"), strip kernel {wf_ms:.4f} ms (grouped/strip {f2_ms / wf_ms:.3f}, grouped/coarse "
-        f"{f2_ms / wc_ms:.3f}) | {smi}")
+                     wf_ms, "#4 split")
+        + f"), strip kernel == plain bitwise, pass-local and seeded with stats, "
+        f"{wf_ms:.4f} ms (grouped/strip {f2_ms / wf_ms:.3f}, grouped/coarse "
+        f"{f2_ms / wc_ms:.3f}; "
+        + split_text(pre_wf.rows, rf.range_rows(th_w), lambda: rf.fine_raster(*args_wf), wf_ms,
+                     wc_ms, "coarse")
+        + f"), seeded with stats {wfs_ms:.4f} ms ("
+        + split_text(pre_wf.rows, rf.range_rows(th_w),
+                     lambda: rf.fine_raster(*args_wfs, collect_stats=True), wfs_ms, wcs_ms,
+                     "coarse stats") + f", coarse stats {wcs_ms:.4f} ms) | {smi}")
     for name, err, ms, plain_ms, b in (
             ("fine2_raster", fine2_err, f2_ms, f2_plain_ms, f2_bound),
             ("fine2_raster_stats", fine2s_err, f2s_ms, f2s_plain_ms, f2s_bound)):
@@ -1518,7 +1551,8 @@ def main() -> int:
             pp = rf.pre_fine(p_attrs, p_uniforms, p_shader, w, h, th3, TILE_W)
             sargs = (pp.tri_rec, pp.tri8, pp.ids, pp.row_start, pp.rows,
                      ft_prior.depth[pp.ids.long()], cdiv(w, TILE_W), th3, TILE_W, nv)
-            kernel, plain = rf.fine_raster, rf.fine_raster_plain
+            kernel = partial(rf.fine_raster, max_rows=pp.max_rows)     # as the route calls it
+            plain = rf.fine_raster_plain
         ks = kernel(*sargs, collect_stats=True)
         err = check_outputs(f"{name} vs plain", ks, plain(*sargs, collect_stats=True))
         check_outputs(f"{name} vs the launch without stats", ks[:3], kernel(*sargs))
@@ -1530,15 +1564,36 @@ def main() -> int:
         sp_ms = time_plain(lambda: plain(*sargs, collect_stats=True))
         n_ms = event_ms(lambda: kernel(*sargs))
         sb = raster_bound(mode, pp, ks, th3, cdiv(w, TILE_W), nv, True)
-        split = ""
-        if mode == "coarse":   # and the strip kernel's event planes on the same pass
+        if mode == "coarse":
+            # and the strip kernel's event planes on the same pass, whose
+            # tiles all fit one range: bitwise its plain version as the
+            # route calls it (one launch) and through the split walk
             pf = rf.pre_fine(p_attrs, p_uniforms, p_shader, w, h, th3, TILE_W)
             fargs = (pf.tri_rec, pf.tri8, pf.ids, pf.row_start, pf.rows,
                      ft_prior.depth[pf.ids.long()], cdiv(w, TILE_W), th3, TILE_W, nv)
-            yard_ms = event_ms(lambda: rf.fine_raster(*fargs, collect_stats=True))
-            split = "; " + split_text(pp.counts, range_pairs,
+            f_want = rf.fine_raster_plain(*fargs, collect_stats=True)
+            f_one = partial(rf.fine_raster, *fargs, collect_stats=True, max_rows=pf.max_rows)
+            f_split = partial(rf.fine_raster, *fargs, collect_stats=True)
+            check_outputs("fine_raster_stats vs plain, room pass, one launch", f_one(), f_want)
+            check_outputs("fine_raster_stats vs plain, room pass, split walk", f_split(), f_want)
+            one_ms, split_ms = in_turns(f_one, f_split)
+            split = ("; " + split_text(pp.counts, range_pairs,
+                                       lambda: kernel(*sargs, collect_stats=True), s_ms,
+                                       one_ms, "#4s split") + f" | #4s on the same pass == plain "
+                     f"bitwise, {one_ms:.4f} ms ("
+                     + split_text(pf.rows, rf.range_rows(th3), f_one, one_ms, s_ms,
+                                  "coarse stats")
+                     + f"); through the split walk {split_ms:.4f} ms (in turns; "
+                     f"{len(call_kernels(f_split))} launches a call)")
+        else:   # and the coarse stats kernel on the same pass, its yardstick
+            pc = rs.pre_sparse(p_attrs, p_uniforms, p_shader, w, h, th3, TILE_W)
+            cargs = (pc.tri_rec, pc.sorted_tri, pc.ids, pc.start, pc.counts,
+                     ft_prior.depth[pc.ids.long()], cdiv(w, TILE_W), th3, TILE_W, nv)
+            yard_ms = event_ms(lambda: rc.coarse_raster(*cargs, collect_stats=True))
+            split = "; " + split_text(pp.rows, rf.range_rows(th3),
                                       lambda: kernel(*sargs, collect_stats=True), s_ms,
-                                      yard_ms, "#4s") + f" (#4s {yard_ms:.4f} ms)"
+                                      yard_ms, "coarse stats") + \
+                f" (coarse stats {yard_ms:.4f} ms)"
         say(f"[3 raster stats] {name}, {what} at {w}x{h} (active {pp.n_active}, "
             f"{finite_init} finite init depths, {n_events} events): kernel == plain "
             f"bitwise (depth, winner, varyings, both event planes), and == the launch "
@@ -1609,7 +1664,7 @@ def main() -> int:
                  torch.full((pf.n_active, th_d, TILE_W), torch.inf, device=DEVICE),
                  bins.n_tiles_x, th_d, TILE_W, nv)
         split = split_text(bins.counts, range_pairs, lambda: rc.dense_raster(*dargs), d_ms,
-                           event_ms(lambda: rf.fine_raster(*fargs)), "#4")
+                           event_ms(lambda: rf.fine_raster(*fargs)), "#4 split")
         if corners is None:
             (got, _), dl = counted(lambda: rc.depth_resolve(setup_d, bins, init_img, size, size,
                                                             th_d, TILE_W))

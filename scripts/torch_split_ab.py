@@ -9,18 +9,22 @@
 ``--set`` values of integer constants of ``csrc/*.cu*`` (``constexpr int
 NAME = V;``, e.g. ``kRangePairs`` and ``kWarpCols`` of
 ``raster_coarse.cu``, ``kRangeRows`` of ``raster_fine2.cu``, both files'
-``kMinBlocks`` and ``kMinBlocksStats32``, ``kMergeRows`` and
-``kMergeAhead`` of ``raster_common.cuh``, edited in a copy of ``csrc``
-under ``build/split_ab/``), checks every raster of each build bitwise against
-its plain version, and times them in turns (the builds in order, then in
-reverse; the mean of each build's two CUDA-event medians): the coarse
-raster on the 2048² headline pass and on the 246k stress pass, its event
-planes on the 2048² room pass after the head, the grouped strip raster on
-the stress pass pass-local and seeded with the 1280x800 room's depth with
-stats, the dense launch on the headline pass and on the 1024² light pass
-of shadow_phong_800, and the unchanged strip raster on the headline pass
-as the yardstick.  Each line also gives the profiler's device time per
-kernel.
+``kMinBlocks`` and ``kMinBlocksStats32``, ``kTileRangeArea``,
+``kTileMinBlocks`` and ``kTileMinBlocksStats32`` of ``raster_fine.cu``,
+``kMergeRows`` and ``kMergeAhead`` of ``raster_common.cuh``, edited in a
+copy of ``csrc`` under ``build/split_ab/``), checks every raster of each
+build bitwise against its plain version, and times them in turns (the
+builds in order, then in reverse; the mean of each build's two CUDA-event
+medians): the coarse raster on the 2048² headline pass and on the 246k
+stress pass, its event planes on the 2048² room pass after the head, the
+strip raster on the headline pass, on the stress pass, and with stats on
+the 2048² head pass after the room and on the room pass after the head
+(whose tiles all fit one range: as the route calls it), the grouped strip
+raster on the stress pass pass-local and seeded with the 1280x800 room's
+depth with stats, and the dense launch on the headline pass and on the
+1024² light pass of shadow_phong_800.  Each line also gives the
+profiler's device time per kernel and the ratio to the strip raster on
+the headline pass.
 
 ``kernels``: the same workloads' CUDA-event medians through the package
 of the checkout at DIR (its own ``chip_smoke.py`` helpers and kernels);
@@ -29,9 +33,10 @@ call.
 
 ``stages``: the "raster" stage median (and the frame's) of the staged
 frames of ``chip_smoke.py`` on the coarse route (the 2048² headline, the
-3-pass scene at 2048², the stress scene at 1280x800) and on the grouped
-strip route (the stress scene), from the checkout at DIR, in turns as
-``kernels``.  Each line is one JSON object.
+3-pass scene at 2048², the stress scene at 1280x800), on the strip route
+(the 2048² headline) and on the grouped strip route (the stress scene),
+from the checkout at DIR, in turns as ``kernels``.  Each line is one JSON
+object.
 """
 
 from __future__ import annotations
@@ -99,23 +104,37 @@ def workloads(cs):
     nv = n_vary_of(head[1])
     pre = rs.pre_sparse(head[0], head[2], head[1], w, h, th, TILE_W)
     coarse(pre, inf(pre.n_active, th), cdiv(w, TILE_W), th, nv, "#1 headline")
-    pf = rf.pre_fine(head[0], head[2], head[1], w, h, th, TILE_W)
-    af = (pf.tri_rec, pf.tri8, pf.ids, pf.row_start, pf.rows, inf(pf.n_active, th),
-          cdiv(w, TILE_W), th, TILE_W, nv)
-    out["#4 headline"] = (lambda: rf.fine_raster(*af), lambda: rf.fine_raster_plain(*af))
+    def strip(p, size, th, init, name, stats=False):
+        """#4 on pass p = (attrs, shader, uniforms, ...) at size = (w, h),
+        with the route's max_rows where the checkout's pre-stage has it;
+        init(pre) -> the running depth of the pre-stage's active tiles."""
+        pf = rf.pre_fine(p[0], p[2], p[1], *size, th, TILE_W)
+        a = (pf.tri_rec, pf.tri8, pf.ids, pf.row_start, pf.rows, init(pf), cdiv(size[0], TILE_W),
+             th, TILE_W, n_vary_of(p[1]))
+        kw = {"max_rows": pf.max_rows} if hasattr(pf, "max_rows") else {}
+        out[name] = (lambda: rf.fine_raster(*a, collect_stats=stats, **kw),
+                     lambda: rf.fine_raster_plain(*a, collect_stats=stats))
+
+    strip(head, (w, h), th, lambda pf: inf(pf.n_active, th), "#4 headline")
 
     head3, _, room3 = tscene.pass_tensors(tscene.multimesh_scene(w, h), dev)
     with cs.fine_mode("coarse"):
         after_head, _, _ = rs.render_frame_fused([head3], w, h, dev, tile_h=th)
+        after_room3, _, _ = rs.render_frame_fused([room3], w, h, dev, tile_h=th)
     pr = rs.pre_sparse(room3[0], room3[2], room3[1], w, h, th, TILE_W)
     coarse(pr, after_head.depth[pr.ids.long()], cdiv(w, TILE_W), th, n_vary_of(room3[1]),
            "#1s room after the head", stats=True)
+    strip(head3, (w, h), th, lambda pf: after_room3.depth[pf.ids.long()],
+          "#4s head after the room", stats=True)
+    strip(room3, (w, h), th, lambda pf: after_head.depth[pf.ids.long()],
+          "#4s room after the head", stats=True)
 
     ww, wh = cs.WALL_W, cs.WALL_H
     sa, ssh, su, _ = tscene.pass_tensors(tscene.stress_scene(ww, wh), dev)[0]
     thw, nvw = rs.pick_tile_h(ww, wh), n_vary_of(ssh)
     pw = rs.pre_sparse(sa, su, ssh, ww, wh, thw, TILE_W)
     coarse(pw, inf(pw.n_active, thw), cdiv(ww, TILE_W), thw, nvw, "#1 stress")
+    strip((sa, ssh, su), (ww, wh), thw, lambda pf: inf(pf.n_active, thw), "#4 stress")
     p2 = rf2.pre_fine2(sa, su, ssh, ww, wh, thw, TILE_W)
     a2 = (p2.tri_rec, p2.tri8, p2.group_start, p2.group_rows, p2.x0y0, thw, nvw)
     room_w = tscene.pass_tensors(tscene.multimesh_scene(ww, wh), dev)[2]
@@ -182,7 +201,7 @@ def variants(settings: dict[str, list[int]]) -> None:
             use(n)
             for name, (kernel, _) in work.items():
                 ms[(name, n)].append(cs.event_ms(kernel))
-    names = ("item_scan", "walk", "merge", "events", "raster_kernel")
+    names = ("item_scan", "walk", "merge", "events")
     for name, (kernel, _) in work.items():
         for n in builds:
             use(n)
@@ -229,6 +248,8 @@ def stages(root: Path, tag: str) -> None:
     runs = {
         "head_phong_2048 coarse": (lambda m: cs.staged_frame(
             head[0], head[1], head[2], w, w, th, "coarse", False, m), image_stages),
+        "head_phong_2048 fine": (lambda m: cs.staged_frame(
+            head[0], head[1], head[2], w, w, th, "fine", False, m), image_stages),
         "3-pass 2048 coarse": (lambda m: cs.staged_multipass(
             three, w, w, "coarse", False, False, m), frame_stages),
         "stress 1280x800 coarse": (lambda m: cs.staged_multipass(

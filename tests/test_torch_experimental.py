@@ -311,14 +311,20 @@ def test_cuda_rank_kernel_refuses_from_the_device(cuda_device, bad, match):
 
 
 def _device_kernels(fn):
-    """Names of the CUDA kernels ``fn`` launches, from torch.profiler."""
+    """Names of the CUDA kernels ``fn`` launches, from torch.profiler; a
+    trace that holds no kernel at all is taken again (up to three
+    traces: the profiler has been seen to return an empty one)."""
     fn()                                                           # built, warm
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and "emcpy" not in e.name]
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "emcpy" not in e.name]
+        if names:
+            break
+    return names
 
 
 @pytest.mark.cuda

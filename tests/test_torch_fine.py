@@ -34,11 +34,24 @@ KERNEL_CASES = ("head_phong_16", "soup_phong_ragged_32", "cube_gouraud_16")
 IMAGES = {"head_textured_32": ("head_textured", 32),
           "soup_phong_ragged_16": ("soup_phong_ragged", 16)}
 PLANES = ("color", "depth", "full_depth")
+#: split-walk cases, port only: (scene, tile_h, the scale of each copy of
+#: the pass's triangles, drawn one copy after another).  A z-tie soup (every
+#: triangle drawn twice, the copies after all the originals, so each tie's
+#: two rows fall on both sides of a range edge) and a stack of six heads
+#: (pairs of exact copies at three scales: tiles of several ranges whose
+#: strips end at different rows, and whose later ranges win pixels)
+STACKS = {"soup_ties_16": ("soup_phong_ragged", 16, (1.0, 1.0)),
+          "head_stack_32": ("head_phong", 32, (1.0, 1.0, 1.02, 1.02, 0.98, 0.98))}
+RANGE_LENS = (1, 7, 64)
 
 
-def _pass(scene):
+def _pass(scene, scales=(1.0,)):
+    """A scene's pass, its triangles drawn once for each scale (positions
+    scaled), one copy after another."""
     p, w, h = scene_pass(scene)
-    attrs, uniforms = convert.pass_to_torch(p.attrs, p.uniforms, "cpu")
+    attrs = {k: np.concatenate([v * np.float32(s) if k == "position" else v for s in scales])
+             for k, v in p.attrs.items()}
+    attrs, uniforms = convert.pass_to_torch(attrs, p.uniforms, "cpu")
     return attrs, p.shader, uniforms, w, h
 
 
@@ -57,6 +70,18 @@ def prepared():
     out = {}
     for seed, (name, (scene, th)) in enumerate(CASES.items()):
         attrs, shader, uniforms, w, h = _pass(scene)
+        pre = raster_fine.pre_fine(attrs, uniforms, shader, w, h, th)
+        out[name] = (pre, _depth_tiles(w, h, th, seed), sum(shader.varying_spec.values()),
+                     w, h, th)
+    return out
+
+
+@pytest.fixture(scope="module")
+def split_prepared(prepared):
+    """``prepared`` and the STACKS cases."""
+    out = dict(prepared)
+    for seed, (name, (scene, th, scales)) in enumerate(STACKS.items(), start=30):
+        attrs, shader, uniforms, w, h = _pass(scene, scales)
         pre = raster_fine.pre_fine(attrs, uniforms, shader, w, h, th)
         out[name] = (pre, _depth_tiles(w, h, th, seed), sum(shader.varying_spec.values()),
                      w, h, th)
@@ -225,6 +250,39 @@ def test_z_ties_go_to_the_first_drawn():
     assert (winner >= 0).any() and int(winner.max()) < f
 
 
+@pytest.mark.parametrize("case", [*KERNEL_CASES, *STACKS])
+@pytest.mark.parametrize("range_len", RANGE_LENS)
+@pytest.mark.parametrize("stats", [False, True])
+def test_split_walk_equals_the_serial_walk(split_prepared, case, range_len, stats):
+    """The CUDA kernels' decomposition in plain PyTorch: every tile's rows
+    cut into ranges of ``range_len``, each range's first minimum from +inf,
+    the ranges merged in order with strict-less from the running depth
+    (finite on half the pixels), and with stats each range walked again
+    from its entering depth.  Bitwise the serial walk."""
+    c = split_prepared[case]
+    args = _raster_args(c)
+    assert torch.isfinite(args[5]).any() and torch.isinf(args[5]).any()
+    want = raster_fine.fine_raster_plain(*args, collect_stats=stats)
+    got = raster_fine.fine_raster_split_plain(*args, collect_stats=stats, range_len=range_len)
+    flat = lambda out: (*out[:3], *(out[3] if stats else ()))  # noqa: E731
+    for name, g, w in zip(("depth", "winner", "vary", "event count", "event max z"),
+                          flat(got), flat(want)):
+        assert_bits(g.numpy(), w.numpy(), name)
+    pre = c[0]
+    if case == "head_stack_32":                    # tiles of several ranges
+        assert pre.max_rows > 3 * range_len
+    if case == "soup_ties_16":                     # every tie goes to the first copy
+        f = pre.tri_rec.shape[0] // 2
+        assert (want[1] >= 0).any() and int(want[1].max()) < f
+
+
+@pytest.mark.parametrize("case", [*CASES, *STACKS])
+def test_pre_stage_max_rows(split_prepared, case):
+    """The readback's fourth integer is the largest tile's rows."""
+    pre = split_prepared[case][0]
+    assert pre.max_rows == int(pre.rows.max()) > 0
+
+
 def test_mode_dispatch(monkeypatch):
     """Forced modes apply to every pass ("fine2" included); "auto" probes
     rows against pairs once per key when a ratio is set, and routes
@@ -291,11 +349,46 @@ def cuda_device():
     return torch.device("cuda")
 
 
+SPLIT_KERNELS = ("item_scan_kernel", "strip_walk_kernel", "strip_merge_kernel",
+                 "strip_events_kernel")
+
+
+def _device_kernels(fn, calls=3):
+    """The distinct CUDA kernels ``calls`` calls of ``fn`` launch (a split
+    kernel by its template's name), from torch.profiler after a warm call;
+    a trace that holds no kernel at all is taken again (up to three
+    traces: the profiler has been seen to return an empty one)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = {next((k for k in SPLIT_KERNELS if k in e.name), e.name) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "emcpy" not in e.name}
+        if names:
+            break
+    return names
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", [*CASES, *STACKS])
 @pytest.mark.parametrize("stats", [False, True])
-def test_cuda_fine_raster_matches_plain(prepared, cuda_device, case, stats):
-    args = _raster_args(prepared[case])
+def test_cuda_fine_raster_matches_plain(split_prepared, cuda_device, case, stats):
+    """Bitwise the plain version through the split walk, with and without
+    stats, on tiles of one range and (the head stack) on tiles of several
+    ranges whose strips end at different rows, with z-ties on both sides
+    of a range edge (STACKS)."""
+    c = split_prepared[case]
+    args = _raster_args(c)
+    if case == "head_stack_32":
+        pre = c[0]
+        t = int(pre.rows.argmax())                                  # the longest tile
+        assert pre.max_rows > 3 * raster_fine.range_rows(32)
+        seg = pre.tri8[int(pre.row_start[t]):int(pre.row_start[t]) + pre.max_rows]
+        ends = (seg >= 0).sum(dim=0)                                # its strips' lengths
+        assert int(ends.min()) < int(ends.max())
     want = raster_fine.fine_raster_plain(*args, collect_stats=stats)
     gpu = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
     before = (raster_fine.LAUNCHES, raster_fine.STATS_LAUNCHES)
@@ -306,6 +399,37 @@ def test_cuda_fine_raster_matches_plain(prepared, cuda_device, case, stats):
     flat = lambda out: (*out[:3], *(out[3] if stats else ()))  # noqa: E731
     for g, w in zip(flat(got), flat(want)):
         assert_bits(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+def test_cuda_fine_raster_one_launch(split_prepared, cuda_device, stats):
+    """A pass whose tiles all fit one range, given its ``max_rows``: one
+    kernel launch a call (the walk alone), one count, bitwise the plain
+    version; the head stack's longer tiles take the split walk's scan,
+    walk and merge (and events)."""
+    c = split_prepared["cube_gouraud_16"]
+    pre = c[0]
+    assert pre.max_rows <= raster_fine.range_rows(16)
+    args = _raster_args(c)
+    want = raster_fine.fine_raster_plain(*args, collect_stats=stats)
+    gpu = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
+    raster_fine.LAUNCHES = raster_fine.STATS_LAUNCHES = 0
+    got = raster_fine.fine_raster(*gpu, collect_stats=stats, max_rows=pre.max_rows)
+    torch.cuda.synchronize()
+    assert raster_fine.LAUNCHES + raster_fine.STATS_LAUNCHES == 1
+    flat = lambda out: (*out[:3], *(out[3] if stats else ()))  # noqa: E731
+    for g, w in zip(flat(got), flat(want)):
+        assert_bits(g.cpu().numpy(), w.numpy())
+    names = _device_kernels(lambda: raster_fine.fine_raster(*gpu, collect_stats=stats,
+                                                            max_rows=pre.max_rows))
+    assert names == {"strip_walk_kernel"}, names
+    stack = split_prepared["head_stack_32"]
+    gs = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in _raster_args(stack)]
+    names = _device_kernels(lambda: raster_fine.fine_raster(*gs, collect_stats=stats,
+                                                            max_rows=stack[0].max_rows))
+    assert names == {"item_scan_kernel", "strip_walk_kernel", "strip_merge_kernel",
+                     *(["strip_events_kernel"] if stats else [])}, names
 
 
 @pytest.mark.cuda

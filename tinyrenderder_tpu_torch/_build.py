@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
 SOURCES = ("raster_coarse.cu", "raster_fine.cu", "raster_fine2.cu", "untile.cu",
            "fine_raster.cu", "rank_kernel.cu", "inplace_blocks.cu")
-HEADERS = ("raster_common.cuh",)
+HEADERS = ("raster_common.cuh", "raster_strip.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,9 +44,10 @@ SIGNATURES = {
                           _P, _P, _P, _P, _P, _P, _I, _P, _P],
     # tri_rec, rec_stride, tri8, tile_ids, row_start, rows, n_active,
     # origin_x, origin_y, n_tiles_x, tile_h, tile_w, n_vary,
-    # init_depth, depth, winner, vary, ev_count, ev_maxz, stream
+    # init_depth, depth, winner, vary, ev_count, ev_maxz, n_items,
+    # scratch (or null: one launch), stream
     "trt_fine_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _P, _P, _P, _P, _P, _P, _P],
+                        _P, _P, _P, _P, _P, _P, _I, _P, _P],
     # tri_rec, rec_stride, tri8, group_start, group_rows, x0y0, n_groups,
     # origin_x, origin_y, tile_h, tile_w, n_vary,
     # init_depth (or null), depth, winner, vary, ev_count, ev_maxz, n_items,
@@ -75,7 +76,7 @@ SIGNATURES = {
 }
 
 #: C functions of no argument that return a kernel's compile-time constant
-CONSTANTS = ("trt_coarse_range_pairs", "trt_fine2_range_rows")
+CONSTANTS = ("trt_coarse_range_pairs", "trt_fine_range_area", "trt_fine2_range_rows")
 
 _LIB: ctypes.CDLL | None = None
 _CONSTANT_VALUES: dict[str, int] = {}

@@ -1,5 +1,6 @@
 """Strip raster over compacted active tiles: the pre-stage, the CUDA
-kernel ``csrc/raster_fine.cu`` and its plain PyTorch version.
+kernels ``csrc/raster_fine.cu`` (the split walk of ``raster_strip.cuh``)
+and their plain PyTorch version.
 
 Counterpart of ``tinyrenderder_tpu/ops/raster_fine.py``
 (``_pre_fine_jit`` and ``_fine_kernel`` as launched by
@@ -14,10 +15,10 @@ Pre-stage (``pre_fine``): strip bins (strip id ``8 * tile + k``, as in
 bins, and the interleaved slot table ``tri8`` (R, 8) int32 where slot
 ``(row_start[tile] + rank) * 8 + k`` holds strip k's rank-th triangle in
 submission order and -1 marks an empty slot.  A strip's bin is a prefix
-of its column.  Each pass reads back three integers, once (strip pair
-total, row total, active-tile count) and sizes every buffer exactly from
-them; the TPU path's capacity cache and overflow re-render have no
-counterpart.
+of its column.  Each pass reads back four integers, once (strip pair
+total, row total, active-tile count, the largest tile's rows) and sizes
+every buffer exactly from them; the TPU path's capacity cache and
+overflow re-render have no counterpart.
 
 Raster contract (shared by both versions, bitwise, and equal to the
 coarse raster's outputs, so the post stage is shared):
@@ -28,6 +29,12 @@ coarse raster's outputs, so the post stage is shared):
   -> depth (A, th, tw) f32, winner (A, th, tw) i32 (-1 = background),
      vary (A, V, th, tw) f32 (0 where no winner)
   with collect_stats, also the event planes (count i32, max z f32).
+
+The CUDA kernels cut each tile's rows into ranges of ``range_rows(th)``
+and merge them in order (``csrc/raster_strip.cuh``);
+``fine_raster_split_plain`` is that decomposition in plain PyTorch, for
+the tests.  A call given ``max_rows`` no larger than the range launches
+the walk alone, one block a tile.
 
 The TPU records (64 columns x 8 slots, slot-minor, ids as f32) are not
 ported: a GPU reads the per-triangle row through ``tri8``.
@@ -43,15 +50,16 @@ from tinyrenderder_tpu_torch import _build
 from tinyrenderder_tpu_torch.ops import semantics
 from tinyrenderder_tpu_torch.ops.raster_coarse import (GEOM, build_tri_records,
                                                        check_inputs, interpolate_winners,
-                                                       split_walks, tile_pixels)
+                                                       split_walks, tile_pixels, walk_items,
+                                                       walk_scratch)
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids,
                                                       build_bins, cdiv, shader_varyings,
                                                       tile_pair_counts, tile_spans,
                                                       vertex_stage)
 
 __all__ = ["STRIP_W", "STRIPS", "MAX_VARY", "LAUNCHES", "STATS_LAUNCHES", "PreFine",
-           "pre_fine", "fine_raster", "fine_raster_plain", "strip_raster_plain",
-           "strip_raster_split_plain"]
+           "pre_fine", "range_rows", "fine_raster", "fine_raster_plain",
+           "fine_raster_split_plain", "strip_raster_plain", "strip_raster_split_plain"]
 
 STRIP_W = 16
 STRIPS = TILE_W // STRIP_W       # 8 strips per 128-px tile
@@ -61,8 +69,8 @@ MAX_VARY = 15
 SUB_ROWS = 8                     # slot rows per step of the plain version
 TILE_CHUNK = 64                  # tiles per step of the plain version (bounds memory)
 
-#: kernel launches since the last reset (the CPU path does not count),
-#: without and with the event planes
+#: wrapper calls that launched the kernels since the last reset (the CPU
+#: path does not count), without and with the event planes
 LAUNCHES = 0
 STATS_LAUNCHES = 0
 
@@ -79,6 +87,7 @@ class PreFine(NamedTuple):
     pairs: int                 # (strip, triangle) pairs
     row_total: int             # R
     n_active: int
+    max_rows: int              # the largest of ``rows`` (0 without an active tile)
     setup: dict                # the triangle setup (valid, screen, ..., bbox)
 
 
@@ -97,8 +106,8 @@ def pre_fine(attrs: dict, uniforms: dict, shader, width: int, height: int,
     tx0, ty0, span_x, span_y, spans = tile_spans(setup, STRIP_W, tile_h)
     per_strip = tile_pair_counts(tx0, ty0, span_x, span_y, n_strips_x, n_tiles_y)
     rows_t = per_strip.view(n_tiles, STRIPS).amax(dim=1)
-    pairs, row_total, n_active = torch.stack(
-        [per_strip.sum(), rows_t.sum(), (rows_t > 0).sum()]).tolist()
+    pairs, row_total, n_active, max_rows = torch.stack(
+        [per_strip.sum(), rows_t.sum(), (rows_t > 0).sum(), rows_t.max()]).tolist()
     sorted_tri, start, counts = build_bins(tx0, ty0, span_x, spans, pairs,
                                            n_strips_x, n_tiles_y)
     row_start_t = torch.cumsum(rows_t, 0, dtype=torch.int32) - rows_t
@@ -117,16 +126,24 @@ def pre_fine(attrs: dict, uniforms: dict, shader, width: int, height: int,
     ids = active_ids(rows_t > 0, n_active)
     idl = ids.long()
     return PreFine(tri_rec, tri8.view(row_total, STRIPS), ids, row_start_t[idl].contiguous(),
-                   rows_t[idl].contiguous(), pairs, row_total, n_active, setup)
+                   rows_t[idl].contiguous(), pairs, row_total, n_active, max_rows, setup)
+
+
+def range_rows(tile_h: int) -> int:
+    """Slot rows of one range of the CUDA split walk at ``tile_h``-row
+    tiles (the library's range area over the tile height)."""
+    return _build.constant("trt_fine_range_area") // tile_h
 
 
 def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x: int,
                 tile_h: int, tile_w: int, n_vary: int, origin=(0, 0),
-                collect_stats: bool = False):
+                collect_stats: bool = False, max_rows: int | None = None):
     """Raster the active tiles strip by strip (contract in the module
     docstring).  Returns (depth, winner, vary), and ev as a fourth item
     with ``collect_stats``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernels: the split walk, or, where ``max_rows``
+    (``rows.max()``, e.g. ``PreFine.max_rows``) is given and no larger
+    than a range, the walk alone."""
     global LAUNCHES, STATS_LAUNCHES
     if tri8.dim() != 2 or tri8.shape[1] != STRIPS:
         raise ValueError(f"tri8 must be (R, {STRIPS}), got {tuple(tri8.shape)}")
@@ -151,12 +168,19 @@ def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x:
     out = (depth, winner, vary) + ((ev,) if collect_stats else ())
     if a == 0:
         return out
+    r = range_rows(tile_h)
+    if max_rows is not None and max_rows <= r:
+        n_items, scratch = a, None
+    else:
+        n_items = walk_items(a, tri8.shape[0], r)
+        scratch = walk_scratch(n_items, a, tile_h, dev)
     _build.call("trt_fine_raster", dev,
                 tri_rec.data_ptr(), tri_rec.shape[1], tri8.data_ptr(), tile_ids.data_ptr(),
                 row_start.data_ptr(), rows.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x,
                 tile_h, tile_w, n_vary, init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
                 vary.data_ptr() if n_vary else None, ev[0].data_ptr() if ev else None,
-                ev[1].data_ptr() if ev else None)
+                ev[1].data_ptr() if ev else None, n_items,
+                None if scratch is None else scratch.data_ptr())
     if collect_stats:
         STATS_LAUNCHES += 1
     else:
@@ -171,8 +195,26 @@ def fine_raster_plain(tri_rec, tri8, tile_ids, row_start, rows, init_depth,
     tiles, each pixel at its tile's place on the screen."""
     return strip_raster_plain(
         tri_rec, tri8, row_start, rows, init_depth, n_vary, collect_stats,
-        lambda c0, c1: tile_pixels(tile_ids[c0:c1].long(), n_tiles_x, tile_h, tile_w,
-                                   origin, torch.float32))
+        _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin))
+
+
+def fine_raster_split_plain(tri_rec, tri8, tile_ids, row_start, rows, init_depth,
+                            n_tiles_x: int, tile_h: int, tile_w: int, n_vary: int,
+                            origin=(0, 0), collect_stats: bool = False, range_len: int = 64):
+    """``fine_raster_plain`` computed as the CUDA kernels split it, for the
+    tests: ``strip_raster_split_plain`` over the active tiles, their rows
+    cut into ranges of ``range_len``.  Equal to ``fine_raster_plain``
+    bitwise."""
+    return strip_raster_split_plain(
+        tri_rec, tri8, row_start, rows, init_depth, n_vary, collect_stats,
+        _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin), range_len)
+
+
+def _tile_pixels(tile_ids, n_tiles_x: int, tile_h: int, tile_w: int, origin):
+    """pixels(c0, c1) of ``strip_raster_plain``: active tiles c0..c1's
+    global pixel coordinates."""
+    return lambda c0, c1: tile_pixels(tile_ids[c0:c1].long(), n_tiles_x, tile_h, tile_w,
+                                      origin, torch.float32)
 
 
 def strip_raster_plain(tri_rec, tri8, row_start, rows, init_depth, n_vary: int,
@@ -247,8 +289,8 @@ def strip_raster_plain(tri_rec, tri8, row_start, rows, init_depth, n_vary: int,
 
 def strip_raster_split_plain(tri_rec, tri8, row_start, rows, init_depth, n_vary: int,
                              collect_stats: bool, pixels, range_len: int = 64):
-    """``strip_raster_plain`` computed as the grouped strip kernel splits
-    it, for the tests: ``strip_raster_plain`` over each range of
+    """``strip_raster_plain`` computed as the strip kernels split it, for
+    the tests: ``strip_raster_plain`` over each range of
     ``range_len`` slot rows of every block, merged by
     ``raster_coarse.split_walks``, then loop 2.  Equal to
     ``strip_raster_plain`` bitwise."""

@@ -30,9 +30,10 @@ a prefix, since rows descend, and hold every strip with pairs, so ``src <
 G * 8`` wherever ``live``.
 
 The CUDA kernels cut each group's rows into ranges walked by separate
-blocks and merge them in range order with strict-less (``csrc/raster_fine2.cu``;
-``fine2_raster_split_plain`` is the same decomposition in plain PyTorch,
-for the tests).
+blocks and merge them in range order with strict-less (``csrc/raster_fine2.cu``
+on the split walk of ``csrc/raster_strip.cuh``, shared with the strip
+raster; ``fine2_raster_split_plain`` is the same decomposition in plain
+PyTorch, for the tests).
 
 Raster contract (shared by both versions, bitwise), in group space: lanes
 16k .. 16k + 15 of group g are slot k's strip.

@@ -492,7 +492,8 @@ def raster_pass(mode: str, attrs: dict, uniforms: dict, shader, width: int, heig
         pre = raster_fine.pre_fine(attrs, uniforms, shader, width, height, tile_h, tile_w)
         out = raster_fine.fine_raster(pre.tri_rec, pre.tri8, pre.ids, pre.row_start,
                                       pre.rows, init_depth(pre.ids), n_tiles_x, tile_h,
-                                      tile_w, n_vary, collect_stats=collect_stats)
+                                      tile_w, n_vary, collect_stats=collect_stats,
+                                      max_rows=pre.max_rows)
     else:
         pre = pre_sparse(attrs, uniforms, shader, width, height, tile_h, tile_w)
         out = coarse_raster(pre.tri_rec, pre.sorted_tri, pre.ids, pre.start, pre.counts,
