@@ -4,7 +4,8 @@ the multi-pass tiled frame with exact stats, each on the coarse raster, the
 strip raster and the grouped strip raster, the post pass, the CLI, the
 bench's two 246k-triangle scenes, the two-pass shadowed frame, the
 dense-grid raster entry, the ports of the scripts' three experimental
-kernels and the orbit animation.
+kernels, the orbit animation, and the scene entry methods with their
+device caches on loaded models.
 
     python3 chip_smoke.py
 
@@ -583,6 +584,74 @@ def write_oracle_files(out: Path, ref) -> None:
     cli.write_gray(str(out / "zbuffer.tga"), torch.from_numpy(zimg))
     cli.write_gray(str(out / "ao.tga"), torch.from_numpy(ao_u8))
     cli.write_rgb(str(out / "final.tga"), torch.from_numpy(final))
+
+
+def write_ply(path, mesh) -> None:
+    """``mesh`` as binary little-endian PLY: float32 x y z nx ny nz u v,
+    triangles as uchar-counted int lists."""
+    import numpy as np
+    header = "\n".join(
+        ["ply", "format binary_little_endian 1.0", f"element vertex {mesh.nverts}"]
+        + [f"property float {k}" for k in ("x", "y", "z", "nx", "ny", "nz", "u", "v")]
+        + [f"element face {mesh.nfaces}", "property list uchar int vertex_indices",
+           "end_header"]) + "\n"
+    verts = np.concatenate([mesh.positions, mesh.normals, mesh.uvs], axis=1).astype("<f4")
+    faces = np.zeros(mesh.nfaces, dtype=[("n", "u1"), ("i", "<i4", 3)])
+    faces["n"], faces["i"] = 3, mesh.faces
+    Path(path).write_bytes(header.encode() + verts.tobytes() + faces.tobytes())
+
+
+def write_stl(path, mesh) -> None:
+    """``mesh`` as binary STL: a zero normal, the three float32 corners and
+    a zero attribute per triangle."""
+    import struct
+
+    import numpy as np
+    rec = np.zeros(mesh.nfaces, dtype=[("n", "<f4", 3), ("v", "<f4", (3, 3)),
+                                      ("a", "<u2")])
+    rec["v"] = mesh.positions[mesh.faces]
+    Path(path).write_bytes(b"\0" * 80 + struct.pack("<I", mesh.nfaces) + rec.tobytes())
+
+
+def write_off(path, mesh) -> None:
+    """``mesh`` as OFF text, positions at full float64 precision."""
+    lines = ["OFF", f"{mesh.nverts} {mesh.nfaces} 0"]
+    lines += [" ".join(repr(float(c)) for c in p) for p in mesh.positions]
+    lines += ["3 " + " ".join(str(int(i)) for i in f) for f in mesh.faces]
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def write_glb(path, mesh) -> None:
+    """``mesh`` as a binary glTF: one node, one primitive with float32
+    POSITION, NORMAL and TEXCOORD_0 and uint32 indices."""
+    import struct
+
+    import numpy as np
+    arrays = [mesh.positions.astype("<f4"), mesh.normals.astype("<f4"),
+              mesh.uvs.astype("<f4"), mesh.faces.reshape(-1).astype("<u4")]
+    views, accessors, blob = [], [], b""
+    for a, (kind, comp) in zip(arrays, (("VEC3", 5126), ("VEC3", 5126), ("VEC2", 5126),
+                                        ("SCALAR", 5125))):
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": a.nbytes})
+        accessors.append({"bufferView": len(views) - 1, "componentType": comp,
+                          "count": a.shape[0], "type": kind})
+        blob += a.tobytes()
+    doc = {"asset": {"version": "2.0"}, "buffers": [{"byteLength": len(blob)}],
+           "bufferViews": views, "accessors": accessors,
+           "meshes": [{"name": mesh.name or "mesh", "primitives": [
+               {"attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
+                "indices": 3}]}],
+           "nodes": [{"mesh": 0}], "scenes": [{"nodes": [0]}], "scene": 0}
+    jb = json.dumps(doc).encode()
+    jb += b" " * (-len(jb) % 4)
+    blob += b"\0" * (-len(blob) % 4)
+    body = (struct.pack("<II", len(jb), 0x4E4F534A) + jb
+            + struct.pack("<II", len(blob), 0x004E4942) + blob)
+    Path(path).write_bytes(struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body)
+
+
+#: the model files [16 host] writes and loads back through ``ModelManager``
+MODEL_WRITERS = {".ply": write_ply, ".stl": write_stl, ".off": write_off, ".glb": write_glb}
 
 
 def same_files(got: Path, want: Path, what: str) -> dict:
@@ -1174,6 +1243,221 @@ def shaded_800(smi: str) -> dict:
             f"(colour, depth, full depth, stats) == float32 oracle bitwise "
             f"({int(np.isfinite(ref.full_depth).sum())} covered; oracle {oracle_s:.1f} s on "
             f"the host); launches {counts} | {smi}")
+    return totals
+
+
+def same_frame(what: str, got, want) -> None:
+    """Fail unless a port frame (tensors) equals an oracle frame (NumPy):
+    colour, output depth and full depth bitwise, equal stats."""
+    import numpy as np
+    import torch
+    for plane in ("color", "depth", "full_depth"):
+        diff, err = bits_equal(getattr(got, plane).cpu(),
+                               torch.from_numpy(np.ascontiguousarray(getattr(want, plane))))
+        if diff:
+            fail(f"{what} {plane}: {diff} elements differ from the f32 oracle (max abs err "
+                 f"{err})")
+    if got.stats != want.stats:
+        fail(f"{what} stats differ from the oracle's:\n  port   {got.stats}\n  oracle "
+             f"{want.stats}")
+
+
+def same_image(what: str, image, want) -> None:
+    import numpy as np
+    got = image.cpu().numpy()
+    if got.shape != want.shape or (got != want).any():
+        bad = int((got != want).any(axis=-1).sum()) if got.shape == want.shape else -1
+        fail(f"{what}: {bad} pixels differ from the f32 oracle")
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def host_phase(smi: str) -> dict:
+    """[16 host]: the scene entry methods with their device caches.  The
+    headline head written as PLY, STL, OFF and GLB, loaded back through
+    ``ModelManager``, framed by ``setup_camera_for_rendering`` and rendered
+    through ``Scene.render_image`` and ``Scene.render`` == the f32 oracle;
+    a second frame through the caches == the first, its attribute tensors
+    where they were; a vertex moved in place + ``invalidate_device_cache``
+    and a rebound diffuse map == their oracles; then cold (caches dropped
+    before each frame), warm and pre-uploaded ms/frame of five scenes, in
+    turns.  -> main-path launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from tinyrenderder_tpu_torch import animation, math3d, shadows
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch.camera import Camera, setup_camera_for_rendering
+    from tinyrenderder_tpu_torch.models import procedural
+    from tinyrenderder_tpu_torch.models.manager import ModelManager
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    from tinyrenderder_tpu_torch.shaders import PhongShader
+
+    totals = dict.fromkeys(launch_counts(), 0)
+
+    def count(fn, what, need):
+        result, counts = counted(fn)
+        for k, v in counts.items():
+            totals[k] += v
+        if not all(counts[k] for k in need):
+            fail(f"a kernel of {what} never launched: {counts}")
+        return result, counts
+
+    image_need, frame_need = ("coarse_raster", "untile_image"), ("coarse_raster_stats",
+                                                                 "untile3_image")
+    key, fill, rim = tscene._lights()
+
+    # ---- loaded models, rendered on the card through both entries ----
+    head = procedural.bumpy_head(96, 144)
+    manager = ModelManager()
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext, writer in MODEL_WRITERS.items():
+            path = Path(tmp) / f"head{ext}"
+            writer(path, head)
+            mesh = manager.load_model(str(path))
+            if mesh is None or mesh.nfaces != head.nfaces:
+                fail(f"{ext}: ModelManager loaded {mesh and mesh.nfaces} faces of "
+                     f"{head.nfaces}")
+            mesh.materials = [procedural.default_head_material(256)]
+            sc = tscene.Scene(camera=Camera(), width=REF_W, height=REF_H)
+            sc.add(mesh, math3d.identity4(), PhongShader(key, fill, rim, 0.5), name=ext)
+            setup_camera_for_rendering(sc.camera, sc.world_aabbs(), REF_W, REF_H)
+            image, li = count(lambda: sc.render_image(), f"{ext} render_image", image_need)
+            res, lr = count(lambda: sc.render(), f"{ext} render", frame_need)
+            ref = tscene.oracle_render(sc)
+            same_image(f"{ext} render_image", image, ref.color)
+            same_frame(f"{ext} render", res, ref)
+            say(f"[16 host] {ext}: {mesh.nfaces} faces, {mesh.nverts} vertices loaded through "
+                f"ModelManager, framed by setup_camera_for_rendering at {REF_W}x{REF_H}: "
+                f"render_image and render == f32 oracle bitwise, stats equal "
+                f"({int(np.isfinite(ref.full_depth).sum())} covered), errors 0; launches "
+                f"render_image {nonzero(li)}, render {nonzero(lr)}")
+    if sorted(manager.stats()) != sorted(f"head{e}" for e in MODEL_WRITERS):
+        fail(f"ModelManager holds {manager.stats()}")
+
+    # ---- the caches keep the frames right ----
+    scenes = {"head_phong_2048": tscene.headline_scene(WIDTH, HEIGHT),
+              f"multimesh_{REF_W}x{REF_H}": tscene.multimesh_scene(REF_W, REF_H)}
+    for name, sc in scenes.items():
+        tscene.clear_caches(sc)
+        first_img = sc.render_image()
+        ptrs = [t.data_ptr() for p in sc.passes
+                for t in p.mesh.device_face_attributes(np.float32, DEVICE).values()]
+        first = sc.render()
+        (second_img, li), (second, lr) = (
+            count(lambda: sc.render_image(), f"{name} second render_image", ("untile_image",)
+                  if len(sc.passes) == 1 else ("untile3_image",)),
+            count(lambda: sc.render(), f"{name} second render", frame_need))
+        if ptrs != [t.data_ptr() for p in sc.passes
+                    for t in p.mesh.device_face_attributes(np.float32, DEVICE).values()]:
+            fail(f"{name}: the cached attribute tensors moved between frames")
+        if not torch.equal(first_img, second_img):
+            fail(f"{name}: the second render_image differs from the first")
+        for plane in ("color", "depth", "full_depth"):
+            if not torch.equal(getattr(first, plane), getattr(second, plane)):
+                fail(f"{name}: the second render's {plane} differs from the first")
+        if first.stats != second.stats:
+            fail(f"{name}: the second render's stats differ from the first's")
+        say(f"[16 host] {name}: the second frame through render_image and render == the "
+            f"first bitwise ({len(ptrs)} cached attribute tensors kept their data_ptr); "
+            f"launches render_image {nonzero(li)}, render {nonzero(lr)}")
+    sc = scenes[f"multimesh_{REF_W}x{REF_H}"]
+    base = sc.render()
+    mesh = sc.passes[0].mesh                          # the head
+    moved = int(np.argmax(mesh.positions[:, 2]))
+    kept = mesh.positions[moved].copy()
+    mesh.positions[moved] += (0.3, 0.3, 0.3)
+    mesh.invalidate_device_cache()
+    got, lm = count(lambda: sc.render(), "the invalidated frame", frame_need)
+    same_frame("moved vertex + invalidate_device_cache", got, tscene.oracle_render(sc))
+    changed = int((got.color != base.color).any(dim=-1).sum())
+    mesh.positions[moved] = kept
+    mesh.invalidate_device_cache()
+    material = mesh.materials[0]
+    diffuse = material.diffuse
+    material.diffuse = procedural.noise_texture(diffuse.shape[0])
+    got_t, lt = count(lambda: sc.render(), "the rebound texture's frame", frame_need)
+    same_frame("rebound material.diffuse", got_t, tscene.oracle_render(sc))
+    changed_t = int((got_t.color != base.color).any(dim=-1).sum())
+    material.diffuse = diffuse
+    if not (changed and changed_t):
+        fail(f"the moved vertex changed {changed} pixels, the new texture {changed_t}")
+    say(f"[16 host] multimesh_{REF_W}x{REF_H}: head vertex {moved} moved in place + "
+        f"invalidate_device_cache -> == f32 oracle of the moved mesh bitwise ({changed} "
+        f"pixels changed); material.diffuse rebound -> == f32 oracle of the new texture "
+        f"({changed_t} pixels changed); launches {nonzero(lm)}, {nonzero(lt)}")
+
+    # ---- host-layer ms/frame: cold, warm, pre-uploaded, in turns ----
+    def host_ms(frame, pre, drop) -> dict:
+        turns = {"cold": [], "warm": [], "pre": []}
+        for arm in ("cold", "warm", "pre", "pre", "warm", "cold"):
+            turns[arm].append(event_ms({"cold": frame, "warm": frame, "pre": pre}[arm],
+                                       before=drop if arm == "cold" else None))
+        return {k: statistics.fmean(v) for k, v in turns.items()}
+
+    def drop(*scs):
+        return lambda: [tscene.clear_caches(s) for s in scs]
+
+    rows = {}
+    head_sc = scenes["head_phong_2048"]
+    th = rs.pick_tile_h(WIDTH, HEIGHT)
+    head_passes = tscene.pass_tensors(head_sc, DEVICE)
+    rows["head_phong_2048 (render_image)"] = host_ms(
+        lambda: head_sc.render_image(),
+        lambda: rs.render_frame_fused_image(head_passes, WIDTH, HEIGHT, tile_h=th),
+        drop(head_sc))
+    ref_sc = tscene.multimesh_scene(REF_W, REF_H)
+    ref_passes = tscene.pass_tensors(ref_sc, DEVICE)
+    rows[f"reference_default_{REF_W}x{REF_H}, no post (render)"] = host_ms(
+        lambda: ref_sc.render(collect_stats=False).color,
+        lambda: tscene.render_passes(ref_passes, REF_W, REF_H, DEVICE)[0].color,
+        drop(ref_sc))
+    wall = tscene.stress_scene(WALL_W, WALL_H)
+    wall_passes = tscene.pass_tensors(wall, DEVICE)
+    th_w = rs.pick_tile_h(WALL_W, WALL_H)
+    rows[f"sponza_scale_246k_{WALL_W}x{WALL_H} (render_image)"] = host_ms(
+        lambda: wall.render_image(),
+        lambda: rs.render_frame_fused_image(wall_passes, WALL_W, WALL_H, tile_h=th_w),
+        drop(wall))
+    sh_scene = tscene.multimesh_scene(SHADOW_W, SHADOW_H)
+    sh_key = sh_scene.passes[0].shader.key_light_world
+    settings = shadows.ShadowSettings(size=SHADOW_SIZE)
+    light_cam = shadows.light_camera_for_scene(sh_scene, sh_key, settings)
+    light_sc = shadows.depth_scene(sh_scene, light_cam, settings)
+    smap = shadows.render_depth_from_light(sh_scene, light_cam, settings, DEVICE)
+    lit_sc = shadows.shadowed_scene(sh_scene, sh_key, smap, light_cam, settings)
+    light_passes = tscene.pass_tensors(light_sc, DEVICE, frustum_cull=False)
+    lit_passes = tscene.pass_tensors(lit_sc, DEVICE, frustum_cull=False)
+    rows[f"shadow_phong_{SHADOW_W} (render_with_shadows)"] = host_ms(
+        lambda: shadows.render_with_shadows(sh_scene, sh_key, settings, DEVICE,
+                                            frustum_cull=False, collect_stats=False)[0].color,
+        lambda: staged_shadow_frame(light_passes, lit_passes, SHADOW_W, SHADOW_H, SHADOW_SIZE),
+        drop(sh_scene, light_sc, lit_sc))
+    orbit = tscene.multimesh_scene(WIDTH, WIDTH)
+    eye0, target0 = orbit.camera.params.eye.copy(), orbit.camera.params.target.copy()
+    orbit_passes = tscene.pass_tensors(orbit, DEVICE, frustum_cull=False)
+    step = iter(range(10 ** 6))
+
+    def orbit_frame():
+        i = next(step)
+        orbit.camera.set_eye(animation.orbit_eye(eye0, target0, 2 * math.pi * i / 120))
+        return tscene.render_scene(orbit, DEVICE, frustum_cull=False,
+                                   collect_stats=False).color
+
+    rows[f"animation_multimesh_{WIDTH} orbit (render_scene, eye moving)"] = host_ms(
+        orbit_frame,
+        lambda: tscene.render_passes(orbit_passes, WIDTH, WIDTH, DEVICE)[0].color,
+        drop(orbit))
+    for name, ms in rows.items():
+        say(f"[16 host] timing {name}: cold {ms['cold']:.3f} ms/frame (caches dropped before "
+            f"each frame), warm {ms['warm']:.3f}, pre-uploaded {ms['pre']:.3f}; warm - pre "
+            f"{ms['warm'] - ms['pre']:.3f}, cold - warm {ms['cold'] - ms['warm']:.3f} (CUDA "
+            f"events around the host call, {WARMUP} warm-up + median of {FRAMES}, in turns "
+            f"cold, warm, pre, pre, warm, cold) | {smi}")
     return totals
 
 
@@ -2080,6 +2364,9 @@ def main() -> int:
 
     # ---- 15. the orbit animation, the native codec, --animate and --profile ----
     add_launches(animation_phase(smi))
+
+    # ---- 16. the scene entry methods, their caches and loaded models ----
+    add_launches(host_phase(smi))
 
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")

@@ -11,6 +11,8 @@ that neither jax nor the JAX package was loaded; an ``ast`` scan of the
 package and ``chip_smoke.py`` finds no import of either."""
 
 import ast
+import base64
+import json
 import os
 import subprocess
 import sys
@@ -221,12 +223,27 @@ def test_obj_loader_matches_jax(obj_dir):
         assert vars(sm) == {k: vars(jsm)[k] for k in vars(sm)}
 
 
-@pytest.mark.parametrize("ext", manager.UNPORTED_FORMATS)
-def test_unported_model_formats_raise(tmp_path, ext):
+def _gltf_text() -> bytes:
+    from test_gltf import _quad_bin, _quad_json
+    data = _quad_bin()
+    uri = "data:application/octet-stream;base64," + base64.b64encode(data).decode()
+    return json.dumps(_quad_json({"uri": uri, "byteLength": len(data)})).encode()
+
+
+@pytest.mark.parametrize("ext", [".ply", ".stl", ".gltf", ".glb", ".dae", ".fbx", ".off"])
+def test_every_format_loads_as_in_jax(tmp_path, ext):
+    """Each of the JAX package's model formats loads through the port's
+    ``ModelManager`` (none raises ``NotImplementedError`` any more) to the
+    JAX manager's mesh, bitwise."""
+    from test_loader_fuzz import LOADERS
+    from tinyrenderder_tpu.models import manager as j_manager
     path = tmp_path / f"model{ext}"
-    path.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="model loaders"):
-        manager.ModelManager().load_model(str(path))
+    path.write_bytes(_gltf_text() if ext == ".gltf" else LOADERS[ext.lstrip(".")][0]())
+    mesh = manager.ModelManager().load_model(str(path))
+    jmesh = j_manager.ModelManager().load_model(str(path))
+    assert mesh is not None and mesh.nfaces == jmesh.nfaces == 2
+    _same(_mesh_arrays(mesh), _mesh_arrays(jmesh), ext)
+    assert [vars(s) for s in mesh.submeshes] == [vars(s) for s in jmesh.submeshes]
 
 
 def test_model_manager_caches_obj(obj_dir):

@@ -1,15 +1,19 @@
 """Command-line front end of the PyTorch port (main.cpp:469-807).
 
     python -m tinyrenderder_tpu_torch.cli [model] --device cuda|cpu \\
-        [--width W] [--height H] [--outdir DIR] [--no-cull] [--no-ssao] \\
-        [--image-only] [--shadows [--shadow-size S]] [--animate N] [--profile]
+        [--backend tiled|oracle] [--width W] [--height H] [--outdir DIR] \\
+        [--no-cull] [--no-ssao] [--image-only] [--shadows [--shadow-size S]] \\
+        [--animate N] [--profile]
 
 Counterpart of ``tinyrenderder_tpu.cli`` on the port: the same default
 scene (``build_default_scene``: Sponza, head, eyes excluded from the
 output depth; deterministic procedural stand-ins where the OBJ assets
-are missing), rendered with exact stats by ``scene.render_scene`` on
-``--device``, then z-visualization, SSAO and the composite on the same
-device, and the same four TGA files and log lines.  ``--shadows`` renders
+are missing; the head from ``model``, any of the formats
+``models.manager.load_mesh`` reads), rendered with exact stats by
+``Scene.render`` on ``--device``, then z-visualization, SSAO and the
+composite on the same device, and the same four TGA files and log lines.
+``--backend oracle`` renders on the serial NumPy oracle instead and runs
+the NumPy post in float64, as the JAX CLI does (slow; keep frames small).  ``--shadows`` renders
 the two-pass shadowed frame from the key light (``shadows.py``) in its
 place.  ``--animate N`` renders an N-frame orbit of the scene instead
 (``animation.py``, resumable from ``<outdir>/checkpoint.json``);
@@ -127,24 +131,33 @@ def build_default_scene(head_path: str | None = None, width: int = WIDTH,
     return scene
 
 
+def _host(x) -> np.ndarray:
+    return np.ascontiguousarray(x.cpu().numpy() if isinstance(x, torch.Tensor) else x)
+
+
 def write_rgb(path: str, rgb) -> None:
-    """(H, W, 3) uint8 tensor -> TGA file."""
-    tga.TGAImage.from_rgb(np.ascontiguousarray(rgb.cpu().numpy())).write_tga_file(path)
+    """(H, W, 3) uint8 tensor or array -> TGA file."""
+    tga.TGAImage.from_rgb(_host(rgb)).write_tga_file(path)
 
 
 def write_gray(path: str, gray) -> None:
-    """(H, W) uint8 tensor -> grey TGA file."""
-    write_rgb(path, gray[..., None].expand(*gray.shape, 3))
+    """(H, W) uint8 tensor or array -> grey TGA file."""
+    gray = _host(gray)
+    write_rgb(path, np.repeat(gray[..., None], 3, axis=-1))
 
 
 def run(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="tinyrenderder_tpu_torch — the renderer on PyTorch/CUDA")
     parser.add_argument("model", nargs="?", default=None,
-                        help="head model path override (reference argv[1])")
+                        help="head model path override (reference argv[1]): .obj, "
+                             ".ply, .stl, .gltf, .glb, .dae, .fbx or .off")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda: the hand-written kernels on the GPU; "
                              "cpu: their plain PyTorch versions")
+    parser.add_argument("--backend", choices=["tiled", "oracle"], default="tiled",
+                        help="tiled: the tiled frame on --device; oracle: the serial "
+                             "NumPy oracle on the host (slow; keep frames small)")
     parser.add_argument("--width", type=int, default=WIDTH)
     parser.add_argument("--height", type=int, default=HEIGHT)
     parser.add_argument("--outdir", default=".")
@@ -163,8 +176,10 @@ def run(argv=None) -> int:
                         help="write a torch.profiler trace to <outdir>/trace")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    if args.device == "cuda" and not torch.cuda.is_available():
+    if args.backend == "tiled" and args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
+    if args.backend == "oracle" and args.animate:
+        parser.error("--animate renders on the tiled backend")
 
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(message)s")
@@ -217,28 +232,38 @@ def _render_and_write(args, scene) -> int:
         if not tscene._cull_passes(scene, cull, RenderStats()):
             log.warning("every model culled — phong.tga not written")
             return 0
-        image = tscene.render_scene_image(scene, args.device, cull)
+        image = scene.render_image(args.device, cull, backend=args.backend)
         write_rgb(os.path.join(args.outdir, "phong.tga"), image)
         log.info("Render time: %.3f s (%s, image-only)",
-                 time.perf_counter() - t0, args.device)
+                 time.perf_counter() - t0, _where(args))
         log.info("Saved: phong.tga")
         return 0
 
-    if args.shadows:
+    settings = shadows.ShadowSettings(size=args.shadow_size)
+    if args.shadows and args.backend == "oracle":
+        result, _ = shadows.oracle_render_with_shadows(scene, KEY_LIGHT_DIR, settings,
+                                                       frustum_cull=cull)
+    elif args.shadows:
         # the scene's key light: the shadows track it
-        result, _ = shadows.render_with_shadows(
-            scene, KEY_LIGHT_DIR, shadows.ShadowSettings(size=args.shadow_size),
-            args.device, frustum_cull=cull)
+        result, _ = shadows.render_with_shadows(scene, KEY_LIGHT_DIR, settings, args.device,
+                                                frustum_cull=cull)
     else:
-        result = tscene.render_scene(scene, args.device, cull)
-    log.info("Render time: %.3f s (%s)", time.perf_counter() - t0, args.device)
+        result = scene.render(args.device, cull, backend=args.backend)
+    log.info("Render time: %.3f s (%s)", time.perf_counter() - t0, _where(args))
     for name, dt in result.pass_timings.items():
         log.info("  pass %-10s %.3f s", name, dt)
     if result.stats.models_rendered > 0:
         write_rgb(os.path.join(args.outdir, "phong.tga"), result.color)
         log.info("Saved: phong.tga")
 
-    if args.no_ssao:
+    if args.backend == "oracle":
+        # the JAX CLI's NumPy post, in float64
+        depth = np.asarray(result.depth, dtype=np.float64)
+        zimg = post.zbuffer_to_image_np(depth)
+        if not args.no_ssao:
+            ao_u8 = post.ssao_image_np(post.ssao_map_np(depth))
+            final = post.composite_np(result.color, ao_u8)
+    elif args.no_ssao:
         # the JAX CLI normalizes depth in float64 on this path
         zimg = post.zbuffer_to_image(result.depth.to(torch.float64))
     else:
@@ -255,6 +280,10 @@ def _render_and_write(args, scene) -> int:
     log.info("%s", result.stats.describe())
     log.info("%s", result.stats.culling_report())
     return 0
+
+
+def _where(args) -> str:
+    return "oracle" if args.backend == "oracle" else args.device
 
 
 def main() -> None:

@@ -17,14 +17,23 @@ from dataclasses import dataclass
 import numpy as np
 
 __all__ = [
-    "vec3", "normalized", "cross", "norm", "identity4", "lookat", "perspective",
-    "viewport", "scale_matrix", "translation_matrix", "rotation_y",
-    "transform_point", "Plane", "AABB", "Frustum",
+    "vec2", "vec3", "vec4", "normalized", "cross", "norm", "identity4", "lookat",
+    "perspective", "viewport", "scale_matrix", "translation_matrix", "rotation_x",
+    "rotation_y", "rotation_z", "transform_point", "transform_dir", "print_vec3",
+    "print_mat4", "Plane", "AABB", "Frustum",
 ]
+
+
+def vec2(x: float, y: float) -> np.ndarray:
+    return np.array([x, y], dtype=np.float64)
 
 
 def vec3(x: float, y: float, z: float) -> np.ndarray:
     return np.array([x, y, z], dtype=np.float64)
+
+
+def vec4(x: float, y: float, z: float, w: float) -> np.ndarray:
+    return np.array([x, y, z, w], dtype=np.float64)
 
 
 def norm(v: np.ndarray) -> float:
@@ -115,6 +124,15 @@ def translation_matrix(tx: float, ty: float, tz: float) -> np.ndarray:
     return m
 
 
+def rotation_x(angle_rad: float) -> np.ndarray:
+    """main.cpp:382-392."""
+    m = identity4()
+    c, s = math.cos(angle_rad), math.sin(angle_rad)
+    m[1, 1], m[1, 2] = c, -s
+    m[2, 1], m[2, 2] = s, c
+    return m
+
+
 def rotation_y(angle_rad: float) -> np.ndarray:
     """main.cpp:408-420."""
     m = identity4()
@@ -124,12 +142,41 @@ def rotation_y(angle_rad: float) -> np.ndarray:
     return m
 
 
+def rotation_z(angle_rad: float) -> np.ndarray:
+    """main.cpp:394-406."""
+    m = identity4()
+    c, s = math.cos(angle_rad), math.sin(angle_rad)
+    m[0, 0], m[0, 1] = c, -s
+    m[1, 0], m[1, 1] = s, c
+    return m
+
+
+def print_vec3(name: str, v) -> None:
+    """Debug vector dump (main.cpp:422-427)."""
+    v = np.asarray(v, dtype=np.float64)
+    print(f"{name}: ({v[0]:.4f}, {v[1]:.4f}, {v[2]:.4f})")
+
+
+def print_mat4(name: str, m: np.ndarray) -> None:
+    """Debug matrix dump (main.cpp:429-438)."""
+    print(f"{name}:")
+    for i in range(4):
+        print("  [" + ", ".join(f"{m[i, j]:8.4f}" for j in range(4)) + "]")
+
+
 def transform_point(m: np.ndarray, p) -> np.ndarray:
     """Apply a 4x4 to a 3D point (w=1) with the perspective divide, as
     the AABB corner transform does (geometry.h:297-327)."""
     p = np.asarray(p, dtype=np.float64)
     v = m @ np.array([p[0], p[1], p[2], 1.0])
     return v[:3] / v[3]
+
+
+def transform_dir(m: np.ndarray, d) -> np.ndarray:
+    """Apply a 4x4 to a direction (w=0), as the shaders turn normals
+    (main.cpp:83-87)."""
+    d = np.asarray(d, dtype=np.float64)
+    return (m @ np.array([d[0], d[1], d[2], 0.0]))[:3]
 
 
 @dataclass

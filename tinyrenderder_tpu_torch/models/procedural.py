@@ -5,7 +5,8 @@ Counterpart of ``tinyrenderder_tpu/models/procedural.py``, the meshes and
 textures the port's scenes and tests use: a UV sphere, the bumpy head
 (a displaced sphere), a ground plane, a cube, a random triangle soup, the bench's two
 246k-triangle meshes (a wall of heads, and the same inside a room), and
-the checker / normal / specular maps of the default head material.
+the checker / normal / specular maps of the default head material and a
+noise texture.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 from tinyrenderder_tpu_torch.models.mesh import Material, Mesh
 
 __all__ = ["uv_sphere", "bumpy_head", "plane", "cube", "triangle_soup", "head_wall",
-           "mixed_interior", "checker_texture", "gradient_specular_texture",
+           "mixed_interior", "checker_texture", "noise_texture", "gradient_specular_texture",
            "sphere_normal_texture", "default_head_material"]
 
 
@@ -177,6 +178,12 @@ def checker_texture(size: int = 64, cells: int = 8,
     tex = np.where(mask[..., None], np.array(c0, dtype=np.uint8),
                    np.array(c1, dtype=np.uint8))
     return tex.astype(np.uint8)
+
+
+def noise_texture(size: int = 64, seed: int = 11) -> np.ndarray:
+    """Uniform random RGB bytes from ``seed``."""
+    rng = np.random.RandomState(seed)
+    return rng.randint(0, 256, size=(size, size, 3), dtype=np.int64).astype(np.uint8)
 
 
 def gradient_specular_texture(size: int = 64) -> np.ndarray:

@@ -7,9 +7,11 @@ depth-only pass, its grayscale variant and the shadow-mapped Phong).
 Two halves:
 
   * host: the shader classes, ``build_uniforms`` (float64 host math cast
-    to the working dtype, as the reference's doubles; ``convert`` carries
-    the result to the device) and each class's NumPy ``vertex_np`` /
-    ``fragment_np``, which the NumPy oracle (``oracle.py``) runs;
+    to the working dtype, as the reference's doubles; the material's
+    packed texture cached on the material; ``scene`` uploads the result
+    and keeps it while ``uniforms_token`` and the matrices hold still) and
+    each class's NumPy ``vertex_np`` / ``fragment_np``, which the NumPy
+    oracle (``oracle.py``) runs;
   * device: ``vertex`` and ``fragment`` in PyTorch, dispatched on the
     shader's exact class (a subclass may change the fragment, so it is
     not taken for its base).
@@ -32,7 +34,8 @@ __all__ = ["Shader", "PhongShader", "EyeShader", "FlatShader", "GouraudShader",
            "TexturedShader", "DepthShader", "GrayDepthShader", "ShadowMappedShader",
            "EYE_DIFFUSE_BRIGHTNESS_THRESHOLD", "EYE_SPECULAR_POWER_THRESHOLD",
            "finalize_color_np", "vertex", "fragment", "supports", "sample_diffuse",
-           "sample_normal_map", "sample_specular", "sample_packed", "dot3",
+           "sample_normal_map", "sample_specular", "sample_emission", "sample_packed",
+           "tokens_match", "TOKEN_VALUE_ELEMENTS", "dot3",
            "sqrt_rn", "normalized3", "transform_dir", "finalize_color"]
 
 # Eye-pixel heuristic thresholds (main.cpp:33-34)
@@ -148,6 +151,48 @@ def _light_dirs_eye(modelview64: np.ndarray, world_dirs: list) -> list:
     return [math3d.normalized(nm @ np.asarray(d, dtype=np.float64)) for d in world_dirs]
 
 
+def _material_textures(material: Material | None) -> dict:
+    """A material's texture uniforms, the packed texture cached on the
+    material and keyed on the identity of its four source arrays (the key
+    keeps them alive, so a recycled id cannot alias): ``build_uniforms``
+    runs every frame, and rebinding ``m.diffuse`` and the others rebuilds
+    the pack.  Writing INTO a bound texture array is out of contract:
+    rebind it to change it."""
+    m = material or Material()
+    src = (m.diffuse, m.normal, m.specular, m.emission)
+    cached = m.__dict__.get("_packed")
+    if cached is None or any(a is not b for a, b in zip(cached[0], src)):
+        cached = (src, pack_material_textures(m))
+        m.__dict__["_packed"] = cached
+    return {"tex_diffuse": m.diffuse, "tex_normal": m.normal,
+            "tex_specular": m.specular, "tex_emission": m.emission,
+            "tex_packed": cached[1]}
+
+
+#: ndarray attributes below this many elements are a uniforms token's
+#: values; the rest (and every other object) its references
+TOKEN_VALUE_ELEMENTS = 4096
+
+
+def tokens_match(a, b) -> bool:
+    """Compare two ``Shader.uniforms_token`` snapshots: reference entries
+    with ``is`` (a swapped-in equal object misses, never goes stale),
+    value entries with ``==``."""
+    if a is b:
+        return True
+    if len(a) != len(b):
+        return False
+    for ea, eb in zip(a, b):
+        if ea[0] != eb[0] or ea[1] != eb[1]:
+            return False
+        if ea[1] == "ref":
+            if ea[2] is not eb[2]:
+                return False
+        elif ea[2:] != eb[2:]:
+            return False
+    return True
+
+
 class Shader:
     """Base shader: the vertex stage shared by Phong and Eye
     (main.cpp:71-90 == main.cpp:199-218)."""
@@ -159,18 +204,34 @@ class Shader:
     #: and shading (the z-test precedes shading, our_gl.cpp:165)
     writes_color: bool = True
 
+    def uniforms_token(self) -> tuple:
+        """A snapshot of the instance state ``build_uniforms`` reads, for
+        the scene's per-pass uniform cache.  An ndarray of fewer than
+        ``TOKEN_VALUE_ELEMENTS`` elements is taken by value (shape, dtype,
+        bytes), so even a write into it is seen; anything else (a large
+        array, a ``torch.Tensor`` such as ``ShadowMappedShader.shadow_map``,
+        a float) by reference, compared with ``is`` and kept alive by the
+        cache, never copied or moved to the host: rebind such an attribute
+        to change it.  Compare tokens with ``tokens_match``."""
+        out = []
+        for k in sorted(self.__dict__):
+            if k.startswith("_"):
+                continue                # private caches feed no uniform
+            v = self.__dict__[k]
+            if isinstance(v, np.ndarray) and v.size < TOKEN_VALUE_ELEMENTS:
+                out.append((k, "nd", v.shape, v.dtype.str, v.tobytes()))
+            else:
+                out.append((k, "ref", v))
+        return tuple(out)
+
     def build_uniforms(self, modelview: np.ndarray, perspective: np.ndarray,
                        material: Material | None, dtype) -> dict:
-        m = material or Material()
-        return {
+        u = {
             "modelview": np.asarray(modelview, dtype=np.float64).astype(dtype),
             "perspective": np.asarray(perspective, dtype=np.float64).astype(dtype),
-            "tex_diffuse": m.diffuse,
-            "tex_normal": m.normal,
-            "tex_specular": m.specular,
-            "tex_emission": m.emission,
-            "tex_packed": pack_material_textures(m),
         }
+        u.update(_material_textures(material))
+        return u
 
     def vertex_np(self, u, attrs):
         """-> (clip (F, 3, 4), varyings {name: (F, 3, C)}), NumPy."""
@@ -546,6 +607,14 @@ def sample_specular(tex, u, v):
     channel = 0 if tex.shape[-1] == 1 else 2
     texel = _gather_texel(tex, u, v)[..., channel].to(torch.float32)
     return (texel / _const(255.0, texel)).to(u.dtype)
+
+
+def sample_emission(tex, u, v):
+    """RGB in 0..255; black without a map (model.cpp:461-472); a
+    grayscale map lands in blue, as every sampler reads it."""
+    if tex is None:
+        return torch.zeros(u.shape + (3,), dtype=u.dtype, device=u.device)
+    return _texel_rgb(_gather_texel(tex, u, v), u.dtype)
 
 
 def sample_packed(packed, u, v):

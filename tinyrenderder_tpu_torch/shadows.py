@@ -80,9 +80,9 @@ def light_camera_for_scene(scene: Scene, light_dir,
 
 def invalidate_caches(scene: Scene) -> None:
     """Drop the per-scene shadow caches (light camera, merged mesh, depth
-    scene).  Call after editing a mesh's ``positions`` in place: the
-    caches key on ``id(mesh)`` and the model matrices, which cannot see
-    that."""
+    scene).  Call after editing a mesh's ``positions`` in place, with the
+    mesh's ``invalidate_device_cache``: the caches key on ``id(mesh)`` and
+    the model matrices, which cannot see that."""
     for k in ("_shadow_light_cam", "_shadow_merged", "_shadow_depth_scene"):
         scene.__dict__.pop(k, None)
 

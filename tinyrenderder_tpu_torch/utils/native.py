@@ -26,7 +26,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["available", "rle_decode", "rle_encode", "parse_obj", "BUILD_ERROR"]
+__all__ = ["available", "obj_available", "rle_decode", "rle_encode", "parse_obj",
+           "BUILD_ERROR"]
 
 ROOT = Path(__file__).resolve().parent.parent.parent
 NATIVE = ROOT / "native"
@@ -108,6 +109,12 @@ def _load() -> ctypes.CDLL | None:
 def available() -> bool:
     """The library is built (now, if it was not) and loaded."""
     return _load() is not None
+
+
+def obj_available() -> bool:
+    """The library is loaded and carries the OBJ tokenizer."""
+    lib = _load()
+    return lib is not None and hasattr(lib, "trd_obj_parse")
 
 
 def rle_decode(raw: bytes, w: int, h: int, bpp: int) -> np.ndarray:
