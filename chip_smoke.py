@@ -117,7 +117,17 @@ Phases, one line each (any failure exits non-zero before the last line):
      the float32 oracle at their eyes written by the Python encoder, and
      the native encoder wrote every frame; the render-only orbit's
      ms/frame, ms/frame with TGA writes, native against Python RLE encode;
-     the CLI's ``--animate 3`` and ``--profile`` at 1200x800.
+     the CLI's ``--animate 3`` and ``--profile`` at 1200x800;
+ 17. the sharded backends (``parallel/dist.py``): the headline through
+     ``Scene.render_image`` / ``Scene.render`` with ``backend="sharded"``
+     in a world of one rank == the f32 oracle, the one-rank sharded frame
+     of ``bench.py::bench_sharded_mesh1`` timed in five rounds of turns
+     with ``render_frame_fused`` (and their profiler device times); 4
+     ranks emulated on the card (the headline on interleaved bands and a
+     2x2 grid, the stress scene on ``even_unequal_bands`` and measured
+     bands) on the three rasters, every stitched frame and image == the
+     f32 oracle; #1, #1s, #4 and #4s with ``y_stride`` on an interleaved
+     band == their plain versions.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -172,6 +182,8 @@ RAGGED_SIZE = (1000, 600)
 #: three 1/w, the perspective denominator 5 and weights 6, then 6 per
 #: channel: 3 products, 2 sums and the + 0.0)
 OPS_TEST, OPS_WIN, OPS_WIN_PER_VARY = 25, 34, 6
+#: rounds of turns of [17 timing] (a frame moves ±30% between turns of one call)
+MESH1_ROUNDS = 5
 
 
 def fail(msg: str) -> None:
@@ -1461,6 +1473,179 @@ def host_phase(smi: str) -> dict:
     return totals
 
 
+def sharded_phase(smi: str, head_scene, head_ref, stress_scene, stress_ref, record) -> dict:
+    """[17 sharded]: the sharded backends (``parallel/dist.py``).  A world
+    of one rank: the headline through ``Scene.render_image`` and
+    ``Scene.render`` with ``backend="sharded"`` == the f32 oracle, and the
+    JAX bench's one-device sharded frame (``render_frame_fused_sharded`` +
+    ``tiles_to_buffers_sharded(...).color`` at ``pick_tile_h``) timed in
+    turns with ``render_frame_fused`` + ``tiles_to_buffers``.  Then 4 ranks
+    emulated on the card (``dist.emulated_mesh``; NCCL refuses two ranks
+    on one GPU): the headline on 4 interleaved bands (32-row tiles, 64
+    tile rows) and on a 2x2 grid, the stress scene (16-row tiles, 50 tile
+    rows) on ``even_unequal_bands(50, 4)`` and on measured bands, each on
+    the three rasters: the frame with stats, without, and (row bands) the
+    image, each == the f32 oracle bitwise, stats equal.  Last, #1, #1s, #4
+    and #4s at an interleaved band's origin and ``y_stride``, 32- and
+    16-row tiles, == their plain versions bitwise.  -> main-path
+    launches."""
+    import numpy as np
+    import torch
+
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch.ops import raster_coarse as rc
+    from tinyrenderder_tpu_torch.ops import raster_fine as rf
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_W, Band, cdiv
+    from tinyrenderder_tpu_torch.parallel import dist
+    from tinyrenderder_tpu_torch.utils.stats import RenderStats
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(launch_counts(), 0)
+
+    def count(fn, what, need):
+        result, counts = counted(fn)
+        for k, v in counts.items():
+            totals[k] += v
+        if not all(counts[k] for k in need):
+            fail(f"a kernel of {what} never launched: {counts}")
+        return result, counts
+
+    def same(what, got, want):
+        diff, err = bits_equal(got.cpu(), torch.from_numpy(np.ascontiguousarray(want)))
+        if diff:
+            fail(f"{what}: {diff} elements differ from the f32 oracle (max abs err {err})")
+
+    # ---- a world of one rank ----
+    image, li = count(lambda: head_scene.render_image(DEVICE, backend="sharded"),
+                      "the one-rank sharded image", ("coarse_raster", "untile_image"))
+    res, lr = count(lambda: head_scene.render(DEVICE, backend="sharded"),
+                    "the one-rank sharded frame", ("coarse_raster_stats", "untile3_image"))
+    same("one-rank render_image(backend='sharded')", image, head_ref.color)
+    same_frame("one-rank render(backend='sharded')", res, head_ref)
+    mesh1 = dist.make_mesh(device=DEVICE)
+    say(f"[17 sharded] world of one rank ({mesh1.size} rank on {mesh1.device}): headline "
+        f"{WIDTH}x{HEIGHT} "
+        f"render_image and render with backend='sharded' == f32 oracle bitwise, stats equal; "
+        f"launches render_image {nonzero(li)}, render {nonzero(lr)}")
+    passes = tscene.pass_tensors(head_scene, DEVICE)
+    th = rs.pick_tile_h(WIDTH, HEIGHT)
+
+    def sharded_frame():
+        ft, _, _ = dist.render_frame_fused_sharded(mesh1, passes, WIDTH, HEIGHT, tile_h=th)
+        return dist.tiles_to_buffers_sharded(mesh1, ft, WIDTH, HEIGHT, tile_h=th).color
+
+    def fused_frame():
+        ft, _, _ = rs.render_frame_fused(passes, WIDTH, HEIGHT, DEVICE, tile_h=th)
+        return rs.tiles_to_buffers(ft, WIDTH, HEIGHT, th).color
+
+    if not torch.equal(sharded_frame(), fused_frame()):
+        fail("the one-rank sharded frame differs from render_frame_fused's")
+    rounds = [[event_ms(fn) for fn in (sharded_frame, fused_frame, fused_frame, sharded_frame)]
+              for _ in range(MESH1_ROUNDS)]
+    arms = {"sharded": [t for r in rounds for t in (r[0], r[3])],
+            "fused": [t for r in rounds for t in (r[1], r[2])]}
+    ratios = [(r[0] + r[3]) / (r[1] + r[2]) for r in rounds]
+    device = {"sharded": device_total(sharded_frame), "fused": device_total(fused_frame)}
+    say(f"[17 timing] phong_2048_sharded_mesh1 (bench.py::bench_sharded_mesh1's frame, th "
+        f"{th}): render_frame_fused_sharded + tiles_to_buffers_sharded "
+        + "; render_frame_fused + tiles_to_buffers ".join(
+            f"{statistics.median(v):.3f} ms/frame (turns {min(v):.3f}-{max(v):.3f}, device "
+            f"{device[k]:.3f})" for k, v in arms.items())
+        + f"; sharded/fused a round {', '.join(f'{x:.3f}' for x in ratios)}, median "
+        f"{statistics.median(ratios):.3f} (CUDA events, {WARMUP} warm-up + median of {FRAMES} a "
+        f"turn, {MESH1_ROUNDS} rounds of turns sharded, fused, fused, sharded; device: "
+        f"torch.profiler, every kernel, copy and fill of a frame) | {smi}")
+
+    # ---- 4 ranks emulated on the card ----
+    stress_passes = tscene.pass_tensors(stress_scene, DEVICE)
+    th_w = rs.pick_tile_h(WALL_W, WALL_H)
+    nty_w = cdiv(WALL_H, th_w)
+    measured = dist.balance_bands(dist.measure_tile_row_costs(stress_passes, WALL_W, WALL_H),
+                                  4)
+    layouts = {  # name: (scene, ref, passes, w, h, th, mesh, interleave, bands)
+        "headline interleaved 4": (head_scene, head_ref, passes, WIDTH, HEIGHT, th,
+                                   dist.emulated_mesh(4, device=DEVICE), True, None),
+        "headline grid 2x2": (head_scene, head_ref, passes, WIDTH, HEIGHT, th,
+                              dist.emulated_mesh(2, 2, DEVICE), False, None),
+        f"stress even_unequal_bands({nty_w}, 4)": (
+            stress_scene, stress_ref, stress_passes, WALL_W, WALL_H, th_w,
+            dist.emulated_mesh(4, device=DEVICE), False, dist.even_unequal_bands(nty_w, 4)),
+        f"stress measured {measured}": (
+            stress_scene, stress_ref, stress_passes, WALL_W, WALL_H, th_w,
+            dist.emulated_mesh(4, device=DEVICE), False, measured),
+    }
+    for name, (sc, ref, ps, w, h, t, mesh, inter, bands) in layouts.items():
+        lay = {"tile_h": t, "interleave": inter, "bands": bands}
+        for mode in MODES:
+            def frame(stats):
+                ft, _, events = dist.render_frame_fused_sharded(mesh, ps, w, h,
+                                                                collect_stats=stats, **lay)
+                return dist.tiles_to_buffers_sharded(mesh, ft, w, h, **lay), events
+
+            with fine_mode(mode):
+                (fb, events), lf = count(lambda: frame(True), f"{name} {mode} frame",
+                                         (f"{mode}_raster_stats", "untile3_image"))
+                (fb0, _), l0 = count(lambda: frame(False), f"{name} {mode} frame, no stats",
+                                     (f"{mode}_raster", "untile3_image"))
+                img, lm = (count(lambda: dist.render_frame_fused_image_sharded(
+                    mesh, ps[:1], w, h, **lay), f"{name} {mode} image",
+                    (f"{mode}_raster", "untile_image")) if not mesh.two_d else (None, {}))
+            same(f"{name} {mode} colour", fb.color, ref.color)
+            same(f"{name} {mode} depth", fb.depth, ref.full_depth)
+            for plane in ("color", "depth", "winner"):
+                if not torch.equal(getattr(fb0, plane), getattr(fb, plane)):
+                    fail(f"{name} {mode}: the frame without stats differs ({plane})")
+            st = RenderStats()
+            tscene._cull_passes(sc, True, st)
+            tscene._add_events(st, events)
+            if st != ref.stats:
+                fail(f"{name} {mode} stats differ from the oracle's:\n  port   {st}\n  "
+                     f"oracle {ref.stats}")
+            if img is not None:
+                same(f"{name} {mode} image", img, ref.color)
+            say(f"[17 sharded] {name} ({mesh.n_rows}x{mesh.n_cols} emulated ranks, th {t}) "
+                f"{mode}: frame with stats, without and"
+                + ("" if img is None else " the image")
+                + f" == f32 oracle bitwise, stats equal; launches frame {nonzero(lf)}, no "
+                f"stats {nonzero(l0)}" + ("" if img is None else f", image {nonzero(lm)}"))
+
+    # ---- the y_stride instantiations against their plain versions ----
+    cases = {32: (passes[0], WIDTH, HEIGHT, Band(1, cdiv(HEIGHT, 32) // 4, 4)),
+             16: (stress_passes[0], WALL_W, WALL_H, Band(1, nty_w // 4, 4))}
+    worst = {}
+    for t, ((a, sh, u, _), w, h, band) in cases.items():
+        place = {"origin": band.origin(t, TILE_W), "y_stride": band.y_stride(t)}
+        nv = sum(sh.varying_spec.values())
+        pc = rs.pre_sparse(a, u, sh, w, h, t, TILE_W, band)
+        pf = rf.pre_fine(a, u, sh, w, h, t, TILE_W, band)
+        init = torch.full((max(pc.n_active, pf.n_active), t, TILE_W), torch.inf, device=DEVICE)
+        args_c = (pc.tri_rec, pc.sorted_tri, pc.ids, pc.start, pc.counts, init[:pc.n_active],
+                  cdiv(w, TILE_W), t, TILE_W, nv)
+        args_f = (pf.tri_rec, pf.tri8, pf.ids, pf.row_start, pf.rows, init[:pf.n_active],
+                  cdiv(w, TILE_W), t, TILE_W, nv)
+        for stats in (False, True):
+            key = f"coarse_raster{'_stats' if stats else ''}"
+            worst[key] = max(worst.get(key, 0.0), check_outputs(
+                f"{key} y_stride th {t}", rc.coarse_raster(*args_c, collect_stats=stats, **place),
+                rc.coarse_raster_plain(*args_c, collect_stats=stats, **place)))
+            key = f"fine_raster{'_stats' if stats else ''}"
+            want = rf.fine_raster_plain(*args_f, collect_stats=stats, **place)
+            for max_rows in (None, pf.max_rows):
+                worst[key] = max(worst.get(key, 0.0), check_outputs(
+                    f"{key} y_stride th {t} max_rows {max_rows}",
+                    rf.fine_raster(*args_f, collect_stats=stats, max_rows=max_rows, **place),
+                    want))
+        say(f"[17 y_stride] th {t}, interleaved band {band[:3]} (ty_lo, tile rows, stride), "
+            f"origin {place['origin']}, y_stride {place['y_stride']}: #1 and #1s ({pc.n_active} "
+            f"active tiles, largest bin {int(pc.counts.max())}), #4 and #4s (split walk and "
+            f"the route's launch, largest tile {pf.max_rows} rows) == plain bitwise")
+    for key, err in worst.items():
+        record[key]["max_abs_err"] = max(record[key]["max_abs_err"], err)
+    say(f"[17 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
+    return totals
+
+
 def animation_phase(smi: str) -> dict:
     """[15 animation]: the orbit of ``bench.py::bench_animation`` /
     ``bench_animation_tga`` (the 3-mesh scene at 2048², no frustum cull)
@@ -2000,7 +2185,7 @@ def main() -> int:
         if tuple(image.shape) != (HEIGHT, WIDTH, 3) or image.dtype != torch.uint8:
             fail(f"image is {tuple(image.shape)} {image.dtype}")
     t0 = time.perf_counter()
-    ref = tscene.oracle_render(scene)
+    ref = head_ref = tscene.oracle_render(scene)
     oracle_s = time.perf_counter() - t0
     covered = int(np.isfinite(ref.full_depth).sum())
     for mode, image in images.items():
@@ -2367,6 +2552,10 @@ def main() -> int:
 
     # ---- 16. the scene entry methods, their caches and loaded models ----
     add_launches(host_phase(smi))
+
+    # ---- 17. the sharded backends: one rank, and 4 ranks emulated ----
+    add_launches(sharded_phase(smi, scene, head_ref, walls["stress"], oracles["stress"],
+                               record))
 
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")

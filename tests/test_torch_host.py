@@ -422,6 +422,7 @@ def _port_modules() -> list[str]:
 def test_port_loads_neither_jax_nor_the_jax_package():
     mods = _port_modules()
     assert "tinyrenderder_tpu_torch.ops.raster_fine" in mods and len(mods) > 20
+    assert {"tinyrenderder_tpu_torch.parallel", "tinyrenderder_tpu_torch.parallel.dist"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -451,7 +452,9 @@ def _imports(path: str) -> list[str]:
 def test_no_source_imports_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(PACKAGE) for f in fs if f.endswith(".py")]
+    assert os.path.join(PACKAGE, "parallel", "dist.py") in files
     bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "tinyrenderder_tpu")]
     assert not bad, bad
+    assert "torch.distributed" in _imports(os.path.join(PACKAGE, "parallel", "dist.py"))
     assert "tinyrenderder_tpu_torch.ops" in _imports(os.path.join(PACKAGE, "scene.py"))

@@ -137,6 +137,40 @@ def blocker_scene(side: str, w: int = 96, h: int = 72):
     return scene
 
 
+def culled_scene(side: str):
+    """tests/test_parallel.py's scene whose one pass is frustum-culled: the
+    head 500 units behind a camera at z = 3, 128x128."""
+    m = side_modules(side)
+    math3d, procedural, shaders = m["math3d"], m["procedural"], m["shaders"]
+    head = procedural.bumpy_head(12, 16)
+    head.materials = [procedural.default_head_material(32)]
+    cam = m["camera"].Camera()
+    cam.set_eye(math3d.vec3(0, 0, 3))
+    cam.set_target(math3d.vec3(0, 0, 0))
+    cam.set_fov(40.0)
+    cam.set_aspect(1.0)
+    cam.set_clipping(0.1, 10.0)
+    scene = m["scene"].Scene(camera=cam, width=128, height=128)
+    scene.add(head, math3d.translation_matrix(0.0, 0.0, 500.0),
+              make_shader("phong", side), name="head")
+    return scene
+
+
+def sharded_scene(kind: str, side: str, w: int, h: int):
+    """A scene of the sharded backends' tests: "multimesh" (3 passes, the
+    eyes excluded in the middle), "eyes_last" (the same passes, the eyes
+    last: the frame ends inside the excluded run), "head" (its first pass
+    alone: one colour pass) or "culled" (``culled_scene``, whose size is
+    its own)."""
+    if kind == "culled":
+        return culled_scene(side)
+    scene = multimesh_scene(side, w, h)
+    head, eyes, room = scene.passes
+    scene.passes = {"multimesh": [head, eyes, room], "eyes_last": [head, room, eyes],
+                    "head": [head]}[kind]
+    return scene
+
+
 def frame_scene(name: str, side: str = "port"):
     """A fresh ``Scene`` of ``FRAMES`` built from one side's host objects."""
     w, h = FRAMES[name]
@@ -211,8 +245,37 @@ def assert_bits(got, want, what=""):
             f"{idx.tolist()}: got {got[bad][:5].tolist()} want {want[bad][:5].tolist()}")
 
 
-def run_jax(requests: dict, tmp_dir) -> dict:
-    """requests {case: {"op": str, name: array/int}} -> results {case: {name: array}}."""
+def assert_colour(got, want, oracle, what=""):
+    """An (..., 3) uint8 port colour against the JAX package's: the port's
+    is the float32 NumPy oracle's, bitwise; where the JAX package's leaves
+    that oracle (its colour contract allows 1 LSB) the two are within 1
+    LSB, and elsewhere bitwise."""
+    got, want, oracle = np.asarray(got), np.asarray(want), np.asarray(oracle)
+    assert_bits(got, oracle, f"{what} vs the f32 oracle")
+    off = (want != oracle).any(-1)
+    assert off.sum() <= 4, f"{what}: the JAX colour leaves the oracle at {int(off.sum())} pixels"
+    assert_bits(got[~off], want[~off], what)
+    assert np.abs(got[off].astype(int) - want[off].astype(int)).max(initial=0) <= 1, what
+
+
+def spawn_ranks(fn, args: tuple, nprocs: int, timeout: float = 180.0) -> None:
+    """``torch.multiprocessing.spawn(fn, args, nprocs)`` with a deadline: a
+    rank that raises fails the caller, and ranks still running after
+    ``timeout`` seconds (a collective that never completes) are killed
+    and fail it too."""
+    import time
+    ctx = torch.multiprocessing.spawn(fn, args=args, nprocs=nprocs, join=False)
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError(f"{nprocs} ranks still running after {timeout} s")
+
+
+def run_jax(requests: dict, tmp_dir, devices: int = 1) -> dict:
+    """requests {case: {"op": str, name: array/int}} -> results {case: {name: array}}.
+    ``devices``: the JAX side's virtual CPU devices (its meshes' size)."""
     flat = {}
     for case, items in requests.items():
         for k, v in items.items():
@@ -220,7 +283,10 @@ def run_jax(requests: dict, tmp_dir) -> dict:
     req = os.path.join(str(tmp_dir), "requests.npz")
     out = os.path.join(str(tmp_dir), "results.npz")
     np.savez(req, **flat)
-    env = dict(os.environ, XLA_FLAGS=JAX_XLA_FLAGS, JAX_PLATFORMS="cpu",
+    flags = JAX_XLA_FLAGS
+    if devices > 1:         # first: XLA reads no flag after the bare thread count
+        flags = f"--xla_force_host_platform_device_count={devices} {flags}"
+    env = dict(os.environ, XLA_FLAGS=flags, JAX_PLATFORMS="cpu",
                JAX_PLATFORM_NAME="cpu",
                PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), req, out],
@@ -364,10 +430,92 @@ def _jax_image(r):
     return {"image": np.asarray(image)}
 
 
+def _band_kw(r) -> dict:
+    """A request's band window as the pre-stages take it (``ty_lo``,
+    ``nty_band``, ``ty_stride``; ``tx_lo``/``ntx_band``; ``ty_rows``), or
+    {} for the whole frame."""
+    import jax.numpy as jnp
+    if "ty_lo" not in r:
+        return {}
+    kw = {"ty_lo": jnp.int32(int(r["ty_lo"])), "nty_band": int(r["nty_band"]),
+          "ty_stride": int(r.get("ty_stride", 1))}
+    if "tx_lo" in r:
+        kw.update(tx_lo=jnp.int32(int(r["tx_lo"])), ntx_band=int(r["ntx_band"]))
+    if "ty_rows" in r:
+        kw["ty_rows"] = jnp.int32(int(r["ty_rows"]))
+    return kw
+
+
+def _band_grid(r, w, h, th):
+    """(tile columns, tile rows) of a request's band, or of the frame."""
+    return (int(r.get("ntx_band", -(-w // 128))), int(r.get("nty_band", -(-h // th))))
+
+
+def _band_place(r, th) -> dict:
+    """The kernel's ``origin`` and ``y_stride`` for a band request: its
+    tile 0's global pixel and, for interleaved rows, the pixel rows
+    between its tile rows."""
+    import jax.numpy as jnp
+    if "ty_lo" not in r:
+        return {}
+    stride = int(r.get("ty_stride", 1))
+    return {"origin": jnp.asarray([int(r.get("tx_lo", 0)) * 128, int(r["ty_lo"]) * th],
+                                  jnp.int32),
+            "y_stride": None if stride == 1 else th * stride}
+
+
+def _jax_pre_sparse(r):
+    """``raster_sparse._pre_sparse_jit`` at exact capacities (the port's
+    totals) over the request's band: the active tiles and their CSR
+    segments, the totals, the bins' sorted triangles and the window's
+    ``raster_tiled._tile_spans``; with ``n_vary`` also
+    ``_pallas_call_sparse_jit`` (interpret mode, the band's origin and row
+    stride) on it, seeded with ``depth_tiles``, without and with stats."""
+    import jax.numpy as jnp
+
+    from tinyrenderder_tpu.ops import raster_pallas, raster_sparse, raster_tiled
+
+    p, w, h = scene_pass(str(r["scene"]), "jax")
+    attrs = {k: jnp.asarray(v) for k, v in p.attrs.items()}
+    th, total, active = int(r["th"]), int(r["total"]), int(r["active"])
+    kw = _band_kw(r)
+    ntx, nty = _band_grid(r, w, h, th)
+    setup, records, ids, kernel_ids, sa, ca, tot, na = raster_sparse._pre_sparse_jit(
+        attrs, dict(p.uniforms), p.shader, w, h, total, active, th, 128,
+        rec_cap=raster_tiled._next_pow2(total), **kw)
+    window = {}
+    if kw:
+        stride = kw["ty_stride"]
+        rows = int(r.get("ty_rows", nty))
+        window = {"ty_lo": kw["ty_lo"], "ty_stride": stride,
+                  "ty_hi": nty - 1 if stride > 1 else kw["ty_lo"] + rows - 1}
+        if "tx_lo" in kw:
+            window.update(tx_lo=kw["tx_lo"], tx_hi=kw["tx_lo"] + ntx - 1)
+    tx0, ty0, span_x, spans, _ = raster_tiled._tile_spans(setup, 128, th, **window)
+    sorted_tri, _, _ = raster_tiled._build_bins(tx0, ty0, span_x, spans, max(total, 1),
+                                               ntx, nty)
+    res = {"ids": np.asarray(ids), "start": np.asarray(sa), "counts": np.asarray(ca),
+           "sorted_tri": np.asarray(sorted_tri)[:total],
+           "totals": np.array([int(tot), int(na)]), "tx0": np.asarray(tx0),
+           "ty0": np.asarray(ty0), "span_x": np.asarray(span_x), "spans": np.asarray(spans)}
+    if "n_vary" in r:
+        for stats in (False, True):
+            d, wn, v, ev = raster_pallas._pallas_call_sparse_jit(
+                kernel_ids, sa, ca, records, jnp.asarray(r["depth_tiles"]), ntx, nty, th, 128,
+                int(r["n_vary"]), True, collect_stats=stats, **_band_place(r, th))
+            res.update({f"depth_{int(stats)}": np.asarray(d),
+                        f"winner_{int(stats)}": np.asarray(wn),
+                        f"vary_{int(stats)}": np.asarray(v)})
+            if stats:
+                res["ev"] = np.asarray(ev)
+    return res
+
+
 def _jax_pre_fine(r):
     """``raster_fine._pre_fine_jit`` at exact capacities (the port's
-    totals): active tiles, their row segments and every slot's triangle
-    id, decoded from record column 16 (lane-row 1, lanes 0-7)."""
+    totals), over the request's band if it names one: active tiles, their
+    row segments and every slot's triangle id, decoded from record column
+    16 (lane-row 1, lanes 0-7)."""
     import jax.numpy as jnp
 
     from tinyrenderder_tpu.ops import raster_fine
@@ -375,9 +523,10 @@ def _jax_pre_fine(r):
     p, w, h = scene_pass(str(r["scene"]), "jax")
     attrs = {k: jnp.asarray(v) for k, v in p.attrs.items()}
     pairs, rows, active = int(r["pairs"]), int(r["rows"]), int(r["active"])
+    ntx, nty = _band_grid(r, w, h, int(r["th"]))
     out = raster_fine._pre_fine_jit(
         attrs, dict(p.uniforms), p.shader, w, h, pairs, rows,
-        1 << max(rows - 1, 0).bit_length(), active, int(r["th"]), 128)
+        1 << max(rows - 1, 0).bit_length(), active, int(r["th"]), 128, **_band_kw(r))
     _, rec, ids, kernel_ids, row_start, rows_a, pt, rt, na, _ = out
     res = {"ids": np.asarray(ids)[:active], "row_start": np.asarray(row_start)[:active],
            "rows": np.asarray(rows_a)[:active],
@@ -388,8 +537,8 @@ def _jax_pre_fine(r):
         for stats in (False, True):
             d, wn, v, ev = raster_fine._fine_call_jit(
                 kernel_ids, row_start, rows_a, rec, jnp.asarray(r["depth_tiles"]),
-                -(-w // 128), -(-h // int(r["th"])), int(r["th"]), 128,
-                int(r["n_vary"]), True, collect_stats=stats)
+                ntx, nty, int(r["th"]), 128, int(r["n_vary"]), True,
+                collect_stats=stats, **_band_place(r, int(r["th"])))
             res.update({f"depth_{int(stats)}": np.asarray(d)[:active],
                         f"winner_{int(stats)}": np.asarray(wn)[:active],
                         f"vary_{int(stats)}": np.asarray(v)[:active]})
@@ -400,10 +549,11 @@ def _jax_pre_fine(r):
 
 def _jax_pre_fine2(r):
     """``raster_fine2._pre_fine2_jit`` at exact capacities (the port's
-    totals): the groups, their slot origins and strips, the active-tile
-    map and every slot's triangle id (record column 16); with ``n_vary``
-    also ``_init_strips_jit`` on ``depth_tiles`` and ``_fine2_call_jit``
-    on this pre-stage, pass-local with the varyings and init-seeded with
+    totals), over the request's band if it names one: the groups, their
+    slot origins and strips, the active-tile map and every slot's triangle
+    id (record column 16); with ``n_vary`` also ``_init_strips_jit`` on
+    ``depth_tiles`` and ``_fine2_call_jit`` on this pre-stage (at the
+    band's origin), pass-local with the varyings and init-seeded with
     stats (n_vary 0), as ``render_pass_fine2`` launches them."""
     import jax.numpy as jnp
 
@@ -416,7 +566,8 @@ def _jax_pre_fine2(r):
     (_, rec, ids, _, src, live, start_g, rows_g, x0y0, sid_of, pt, rt, ng, na,
      _) = raster_fine2._pre_fine2_jit(attrs, dict(p.uniforms), p.shader, w, h, pairs, rows,
                                       1 << max(rows - 1, 0).bit_length(), groups, active,
-                                      th, 128)
+                                      th, 128, **_band_kw(r))
+    origin = _band_place(r, th).get("origin")
     res = {"ids": np.asarray(ids), "src": np.asarray(src), "live": np.asarray(live),
            "group_start": np.asarray(start_g), "group_rows": np.asarray(rows_g),
            "x0y0": np.asarray(x0y0), "sid_of": np.asarray(sid_of)[:groups],
@@ -426,9 +577,10 @@ def _jax_pre_fine2(r):
         init = raster_fine2._init_strips_jit(jnp.asarray(r["depth_tiles"]), sid_of, groups,
                                              th)
         d, wn, v, _ = raster_fine2._fine2_call_jit(start_g, rows_g, rec, x0y0, th,
-                                                   int(r["n_vary"]), True)
+                                                   int(r["n_vary"]), True, origin=origin)
         de, we, _, ev = raster_fine2._fine2_call_jit(start_g, rows_g, rec, x0y0, th, 0, True,
-                                                     collect_stats=True, init_g=init)
+                                                     origin=origin, collect_stats=True,
+                                                     init_g=init)
         res.update(init=np.asarray(init), depth_0=np.asarray(d), winner_0=np.asarray(wn),
                    vary_0=np.asarray(v), depth_1=np.asarray(de), winner_1=np.asarray(we),
                    ev=np.asarray(ev))
@@ -489,17 +641,17 @@ def _jax_scene(r):
 
 
 def _jax_shadows(r):
-    """``shadows.render_with_shadows(backend="tiled")`` of the blocker
-    scene at (w, h, size), with stats, on the tiled route's loop in
-    ``mode``: the map and the frame."""
+    """``shadows.render_with_shadows`` of the blocker scene at (w, h,
+    size), with stats, on ``backend`` (default "tiled": the tiled route's
+    loop) in ``mode``: the map and the frame."""
     from tinyrenderder_tpu import math3d, shadows
 
     key = math3d.normalized(math3d.vec3(*SHADOW_KEY))
     scene = blocker_scene("jax", int(r["w"]), int(r["h"]))
     with _tiles_loop(str(r["mode"])):
         res, smap = shadows.render_with_shadows(
-            scene, key, shadows.ShadowSettings(size=int(r["size"])), backend="tiled",
-            collect_stats=True)
+            scene, key, shadows.ShadowSettings(size=int(r["size"])),
+            backend=str(r.get("backend", "tiled")), collect_stats=True)
     out = {k: np.asarray(getattr(res, k)) for k in ("color", "depth", "full_depth")}
     out.update(map=np.asarray(smap), stats=stats_vector(res.stats))
     return out
@@ -537,6 +689,82 @@ def _jax_dense(r):
                                                     interpret=True)
         out.update(depth=d, winner=wn, vary=v, depth_only=d0, winner_only=w0)
     return {k: np.asarray(v) for k, v in out.items()}
+
+
+def _jax_passes(scene):
+    """The JAX package's pass tuples of a scene, as its sharded route
+    builds them."""
+    from tinyrenderder_tpu import scene as scene_mod
+    from tinyrenderder_tpu.utils.stats import RenderStats
+    passes = []
+    for p in scene_mod._cull_passes(scene, True, RenderStats()):
+        attrs, uniforms = scene_mod._pass_inputs(scene, p, np.float32, device=True)
+        passes.append((attrs, p.shader, uniforms, p.exclude_from_output_depth))
+    return passes
+
+
+def _jax_row_costs(r):
+    """``dist.measure_tile_row_costs`` of a ``sharded_scene``."""
+    from tinyrenderder_tpu.parallel import dist
+    w, h = int(r["w"]), int(r["h"])
+    passes = _jax_passes(sharded_scene(str(r["scene"]), "jax", w, h))
+    return {"costs": dist.measure_tile_row_costs(passes, w, h, int(r["th"]))}
+
+
+def _clear_sharded():
+    from tinyrenderder_tpu.parallel import dist
+    for store in (dist._SHARD_FUSED_CAPS, dist._SHARD_FUSED_PENDING,
+                  dist._SHARD_FUSED_REFINED, dist._SHARD_FUSED_W_REFINED):
+        store.clear()
+
+
+def _jax_sharded(r):
+    """``dist.render_frame_fused_sharded`` (op "sharded_frame") or
+    ``render_frame_fused_image_sharded`` (op "sharded_image": the scene's
+    first pass) of a ``sharded_scene`` on ``n`` virtual devices (a grid of
+    ``n_cols`` columns, or row bands: ``interleave``, ``bands``), in
+    ``mode``: the rank-ordered tile planes and the output depth tiles, then
+    ``tiles_to_buffers_sharded`` and ``untile_one_sharded``; or the
+    image."""
+    from tinyrenderder_tpu.parallel import dist
+    w, h, n, n_cols = (int(r[k]) for k in ("w", "h", "n", "n_cols"))
+    passes = _jax_passes(sharded_scene(str(r["scene"]), "jax", w, h))
+    mesh = dist.make_mesh_grid(n // n_cols, n_cols) if n_cols > 1 else dist.make_mesh(n)
+    layout = {"interleave": bool(r["interleave"]),
+              "bands": tuple(map(tuple, r["bands"].tolist())) if "bands" in r else None}
+    with _tiles_loop(str(r["mode"])):
+        _clear_sharded()
+        if str(r["op"]) == "sharded_image":
+            image, _ = dist.render_frame_fused_image_sharded(mesh, passes[:1], w, h,
+                                                              **layout)
+            return {"image": np.asarray(image)}
+        ft, od, _ = dist.render_frame_fused_sharded(mesh, passes, w, h, **layout)
+        fb = dist.tiles_to_buffers_sharded(mesh, ft, w, h, **layout)
+        out_depth = dist.untile_one_sharded(mesh, od, w, h, **layout)
+        _clear_sharded()
+    return {"color_t": np.asarray(ft.color), "depth_t": np.asarray(ft.depth),
+            "winner_t": np.asarray(ft.winner), "out_depth_t": np.asarray(od),
+            "color": np.asarray(fb.color), "depth": np.asarray(fb.depth),
+            "winner": np.asarray(fb.winner), "out_depth": np.asarray(out_depth)}
+
+
+def _jax_sharded_scene(r):
+    """``Scene.render(backend)`` with stats and ``Scene.render_image(backend)``
+    of a ``sharded_scene`` on every virtual device, as the JAX package
+    routes them.  Only the "head" scene is one colour pass; any other's
+    image is the frame's colour (``scene.render_scene_image``, which
+    renders the frame again), so it is taken from the frame."""
+    kind = str(r["scene"])
+    scene = sharded_scene(kind, "jax", int(r["w"]), int(r["h"]))
+    backend = str(r["backend"])
+    _clear_sharded()
+    res = scene.render(backend=backend)
+    out = {k: np.asarray(getattr(res, k)) for k in ("color", "depth", "full_depth")}
+    out.update(stats=stats_vector(res.stats),
+               image=np.asarray(scene.render_image(backend)) if kind == "head"
+               else out["color"])
+    _clear_sharded()
+    return out
 
 
 def _jax_post(r):
@@ -603,7 +831,9 @@ def _main(req_path, out_path):
            "tiles_to_buffers": _jax_tiles_to_buffers, "image": _jax_image, "scene": _jax_scene,
            "post": _jax_post, "pre_fine": _jax_pre_fine, "pre_fine2": _jax_pre_fine2,
            "shadows": _jax_shadows, "dense": _jax_dense, "strip_proto": _jax_strip_proto,
-           "rank": _jax_rank, "inplace": _jax_inplace}
+           "rank": _jax_rank, "inplace": _jax_inplace, "pre_sparse": _jax_pre_sparse,
+           "row_costs": _jax_row_costs, "sharded_frame": _jax_sharded,
+           "sharded_image": _jax_sharded, "sharded_scene": _jax_sharded_scene}
     requests: dict = {}
     with np.load(req_path) as z:
         for key in z.files:

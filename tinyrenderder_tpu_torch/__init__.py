@@ -3,8 +3,9 @@ CUDA kernels for NVIDIA Hopper (sm_90a): the single-pass image route, the
 multi-pass tiled frame with exact render stats, each pass on the coarse,
 the strip or the grouped strip raster, depth-only passes and the
 two-pass shadowed frame, the dense-grid raster entry, the post pass, the
-orbit animation and the CLI, and the JAX repository's three experimental
-kernels of ``scripts/``.
+orbit animation and the CLI, the frame split over the ranks of a
+``torch.distributed`` process group (row bands or screen blocks), and the
+JAX repository's three experimental kernels of ``scripts/``.
 
 The JAX package ``tinyrenderder_tpu`` is the reference this package is
 held against.  Module names mirror it so each counterpart is easy to
@@ -12,8 +13,8 @@ find:
 
   tinyrenderder_tpu                 tinyrenderder_tpu_torch
   math3d.py, camera.py          ->  math3d.py, camera.py
-  models/ (mesh, procedural,    ->  models/ (the same four; the other
-    obj, manager)                     formats are not ported yet)
+  models/ (mesh, procedural,    ->  models/ (all of them: the seven
+    the seven loaders, manager)       loaders and the full manager)
   utils/ (tga, stats, native)   ->  utils/ (tga, stats, native: builds
                                       native/*.cpp with g++ on first use)
   ops/semantics.py              ->  ops/semantics.py
@@ -30,6 +31,8 @@ find:
   scene.py (Scene, cull, tiled) ->  scene.py
   shadows.py                    ->  shadows.py
   animation.py                  ->  animation.py
+  parallel/dist.py (row-band    ->  parallel/dist.py (torch.distributed:
+    and block backends)               NCCL or gloo ranks, or emulated ones)
   cli.py                        ->  cli.py
   scripts/experimental_fine_raster.py,  experimental/ (fine_raster,
     experimental_rank_kernel.py,          rank_kernel, inplace_blocks)

@@ -37,16 +37,16 @@ _F = ctypes.c_float
 #: C entry points: name -> argtypes (every function returns cudaError_t)
 SIGNATURES = {
     # tri_rec, rec_stride, sorted_tri, tile_ids (or null: every tile),
-    # start, count, n_active, origin_x, origin_y, n_tiles_x, tile_h, tile_w,
-    # n_vary, init_depth, depth, winner, vary, ev_count, ev_maxz, n_items,
-    # scratch, stream
-    "trt_coarse_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    # start, count, n_active, origin_x, origin_y, n_tiles_x, tile_h, y_stride,
+    # tile_w, n_vary, init_depth, depth, winner, vary, ev_count, ev_maxz,
+    # n_items, scratch, stream
+    "trt_coarse_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P, _I, _P, _P],
     # tri_rec, rec_stride, tri8, tile_ids, row_start, rows, n_active,
-    # origin_x, origin_y, n_tiles_x, tile_h, tile_w, n_vary,
+    # origin_x, origin_y, n_tiles_x, tile_h, y_stride, tile_w, n_vary,
     # init_depth, depth, winner, vary, ev_count, ev_maxz, n_items,
     # scratch (or null: one launch), stream
-    "trt_fine_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    "trt_fine_raster": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _I, _P, _P],
     # tri_rec, rec_stride, tri8, group_start, group_rows, x0y0, n_groups,
     # origin_x, origin_y, tile_h, tile_w, n_vary,

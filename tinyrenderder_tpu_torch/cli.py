@@ -1,7 +1,8 @@
 """Command-line front end of the PyTorch port (main.cpp:469-807).
 
     python -m tinyrenderder_tpu_torch.cli [model] --device cuda|cpu \\
-        [--backend tiled|oracle] [--width W] [--height H] [--outdir DIR] \\
+        [--backend tiled|oracle|sharded|sharded-2d|sharded-measured] \\
+        [--width W] [--height H] [--outdir DIR] \\
         [--no-cull] [--no-ssao] [--image-only] [--shadows [--shadow-size S]] \\
         [--animate N] [--profile]
 
@@ -19,6 +20,15 @@ place.  ``--animate N`` renders an N-frame orbit of the scene instead
 (``animation.py``, resumable from ``<outdir>/checkpoint.json``);
 ``--profile`` records a ``torch.profiler`` trace of the render (CPU, and
 CUDA on a CUDA device) into ``<outdir>/trace/trace.json``.
+
+The sharded backends split the frame over the ranks of a process group
+(``parallel/dist.py``).  Started under torchrun, every rank renders its
+share on its own card (``cuda:<LOCAL_RANK>``; gloo ranks with ``--device
+cpu``) and rank 0 alone writes the files:
+
+    torchrun --nproc-per-node=N -m tinyrenderder_tpu_torch.cli --backend sharded
+
+Started plainly, the world is one rank.
 """
 
 from __future__ import annotations
@@ -155,9 +165,13 @@ def run(argv=None) -> int:
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda: the hand-written kernels on the GPU; "
                              "cpu: their plain PyTorch versions")
-    parser.add_argument("--backend", choices=["tiled", "oracle"], default="tiled",
+    parser.add_argument("--backend", choices=["tiled", "oracle", *tscene.SHARDED_BACKENDS],
+                        default="tiled",
                         help="tiled: the tiled frame on --device; oracle: the serial "
-                             "NumPy oracle on the host (slow; keep frames small)")
+                             "NumPy oracle on the host (slow; keep frames small); "
+                             "sharded, sharded-2d, sharded-measured: the frame split "
+                             "over the ranks (row bands, screen blocks, measured "
+                             "bands; under torchrun, one rank a process)")
     parser.add_argument("--width", type=int, default=WIDTH)
     parser.add_argument("--height", type=int, default=HEIGHT)
     parser.add_argument("--outdir", default=".")
@@ -176,12 +190,35 @@ def run(argv=None) -> int:
                         help="write a torch.profiler trace to <outdir>/trace")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    if args.backend == "tiled" and args.device == "cuda" and not torch.cuda.is_available():
+    if args.backend != "oracle" and args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
-    if args.backend == "oracle" and args.animate:
+    if args.backend != "tiled" and args.animate:
         parser.error("--animate renders on the tiled backend")
+    rank = _init_ranks(args)
+    try:
+        return _run(args, rank)
+    finally:
+        if rank is not None:
+            torch.distributed.destroy_process_group()
 
-    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
+
+def _init_ranks(args) -> int | None:
+    """Join the process group torchrun describes (its ``WORLD_SIZE``,
+    ``RANK``, ``LOCAL_RANK`` and rendezvous address in the environment),
+    NCCL on the cards or gloo on the CPU, for a sharded backend -> this
+    rank; None when the process was started plainly (a world of one
+    rank)."""
+    if args.backend not in tscene.SHARDED_BACKENDS or "WORLD_SIZE" not in os.environ:
+        return None
+    if args.device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    torch.distributed.init_process_group("nccl" if args.device == "cuda" else "gloo")
+    return torch.distributed.get_rank()
+
+
+def _run(args, rank: int | None) -> int:
+    logging.basicConfig(level=(logging.WARNING if rank else
+                               logging.DEBUG if args.verbose else logging.INFO),
                         format="%(message)s")
     log.info("=== tinyrenderder_tpu_torch: renderer with ModelManager and "
              "frustum culling ===")
@@ -202,14 +239,14 @@ def run(argv=None) -> int:
         return 0
 
     profiler = None
-    if args.profile:
+    if args.profile and not rank:          # rank 0 traces a sharded run
         activities = [torch.profiler.ProfilerActivity.CPU]
         if args.device == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.__enter__()
     try:
-        return _render_and_write(args, scene)
+        return _render_and_write(args, scene, rank)
     finally:
         # finalize the trace even when the render raises: the trace of a
         # failing run is exactly the artifact worth keeping
@@ -221,7 +258,8 @@ def run(argv=None) -> int:
             log.info("Saved profiler trace to %s", trace_dir)
 
 
-def _render_and_write(args, scene) -> int:
+def _render_and_write(args, scene, rank: int | None = None) -> int:
+    """Render, and on rank 0 (or without ranks) write the files."""
     t0 = time.perf_counter()
     cull = not args.no_cull
     os.makedirs(args.outdir, exist_ok=True)
@@ -233,6 +271,8 @@ def _render_and_write(args, scene) -> int:
             log.warning("every model culled — phong.tga not written")
             return 0
         image = scene.render_image(args.device, cull, backend=args.backend)
+        if rank:
+            return 0
         write_rgb(os.path.join(args.outdir, "phong.tga"), image)
         log.info("Render time: %.3f s (%s, image-only)",
                  time.perf_counter() - t0, _where(args))
@@ -246,9 +286,11 @@ def _render_and_write(args, scene) -> int:
     elif args.shadows:
         # the scene's key light: the shadows track it
         result, _ = shadows.render_with_shadows(scene, KEY_LIGHT_DIR, settings, args.device,
-                                                frustum_cull=cull)
+                                                frustum_cull=cull, backend=args.backend)
     else:
         result = scene.render(args.device, cull, backend=args.backend)
+    if rank:
+        return 0
     log.info("Render time: %.3f s (%s)", time.perf_counter() - t0, _where(args))
     for name, dt in result.pass_timings.items():
         log.info("  pass %-10s %.3f s", name, dt)

@@ -87,7 +87,7 @@ struct Coarse {
   const int* tile_ids;  // null: block a is tile a (the dense launch)
   const int* start;
   const int* count;
-  int n_active, origin_x, origin_y, n_tiles_x, n_vary;
+  int n_active, origin_x, origin_y, n_tiles_x, y_stride, n_vary;
   const float* init_depth;
   float* depth;
   int* winner;
@@ -99,12 +99,13 @@ struct Coarse {
   int* part_w;     // (items, TH, 128) its winner
 };
 
-// The global pixel of output block a's top-left corner.
-template <int TH>
+// The global pixel of output block a's top-left corner: tile row j starts
+// y_stride pixel rows below row j - 1 (TH, or TH * s for a rank that owns
+// every s-th tile row of the frame, interleaved row bands).
 __device__ __forceinline__ void tile_origin(const Coarse& p, int a, int& x0, int& y0) {
   const int tile = p.tile_ids ? p.tile_ids[a] : a;
   x0 = p.origin_x + (tile % p.n_tiles_x) * kTileW;
-  y0 = p.origin_y + (tile / p.n_tiles_x) * TH;
+  y0 = p.origin_y + (tile / p.n_tiles_x) * p.y_stride;
 }
 
 // A walk's thread map: warp w owns kWarpCols columns of a tile row pair,
@@ -168,7 +169,7 @@ coarse_walk_kernel(const Coarse p) {
   const int p0 = ar.y * kRangePairs;
   const int base = walk_offset();
   int x0, y0;
-  tile_origin<TH>(p, a, x0, y0);
+  tile_origin(p, a, x0, y0);
   const float fx = static_cast<float>(x0 + base % kTileW);
   const int gy0 = y0 + base / kTileW;
   const size_t plane = static_cast<size_t>(TH) * kTileW;
@@ -212,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) coarse_merge_kernel(const Coarse p) 
   const int m = trt::range_items<kRangePairs>(p.count[a]);
   if (m == 1) return;  // written by its walk
   int x0, y0;
-  tile_origin<TH>(p, a, x0, y0);
+  tile_origin(p, a, x0, y0);
   const float fx = static_cast<float>(x0 + threadIdx.x % kTileW);
   const int gy0 = y0 + threadIdx.x / kTileW;
   trt::merge_ranges<TH, STATS>(p.tri_rec, p.rec_stride, a, blockIdx.y, p.starts[a], m, fx,
@@ -237,7 +238,7 @@ coarse_events_kernel(const Coarse p) {
   if (trt::range_items<kRangePairs>(n) == 1) return;  // no range to seed
   const int base = walk_offset();
   int x0, y0;
-  tile_origin<TH>(p, a, x0, y0);
+  tile_origin(p, a, x0, y0);
   const float fx = static_cast<float>(x0 + base % kTileW);
   const int gy0 = y0 + base / kTileW;
   const size_t plane = static_cast<size_t>(TH) * kTileW;
@@ -276,7 +277,8 @@ int launch(const Coarse& p, int n_items, cudaStream_t s) {
 extern "C" int trt_coarse_range_pairs() { return kRangePairs; }
 
 // tile_ids: (A,) tile of each block, or null for the dense launch over
-// tiles 0 .. A - 1; ev_count and ev_maxz: both null (no stats) or both
+// tiles 0 .. A - 1; y_stride: pixel rows from one tile row to the next
+// (tile_h, or tile_h * s for interleaved row bands); ev_count and ev_maxz: both null (no stats) or both
 // (A, TH, 128); n_items: A + ceil(n_pairs / trt_coarse_range_pairs()), the
 // walk's grid; scratch: n_items * TH * 128 floats, as many ints, then A + 1
 // ints
@@ -284,19 +286,19 @@ extern "C" int trt_coarse_raster(const float* tri_rec, int rec_stride,
                                  const int* sorted_tri, const int* tile_ids,
                                  const int* start, const int* count, int n_active,
                                  int origin_x, int origin_y, int n_tiles_x,
-                                 int tile_h, int tile_w, int n_vary,
+                                 int tile_h, int y_stride, int tile_w, int n_vary,
                                  const float* init_depth, float* depth,
                                  int* winner, float* vary, int* ev_count,
                                  float* ev_maxz, int n_items, void* scratch,
                                  void* stream) {
-  if (tile_w != kTileW || (tile_h != 16 && tile_h != 32) || n_active <= 0 ||
-      n_items < n_active || (ev_count == nullptr) != (ev_maxz == nullptr))
+  if (tile_w != kTileW || (tile_h != 16 && tile_h != 32) || y_stride < tile_h ||
+      n_active <= 0 || n_items < n_active || (ev_count == nullptr) != (ev_maxz == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t part = static_cast<size_t>(n_items) * tile_h * kTileW;
   float* part_d = static_cast<float*>(scratch);
   int* part_w = reinterpret_cast<int*>(part_d + part);
   const Coarse p{tri_rec, rec_stride, sorted_tri, tile_ids, start, count, n_active,
-                 origin_x, origin_y, n_tiles_x, n_vary, init_depth, depth, winner, vary,
+                 origin_x, origin_y, n_tiles_x, y_stride, n_vary, init_depth, depth, winner, vary,
                  ev_count, ev_maxz, part_w + part, part_d, part_w};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool stats = ev_count != nullptr;

@@ -80,13 +80,15 @@ constexpr int min_blocks() {
   return TH == 32 && STATS ? kTileMinBlocksStats32 : kTileMinBlocks;
 }
 
-// slot k of active tile a: strip k of tile tile_ids[a]
+// slot k of active tile a: strip k of tile tile_ids[a]; tile row j starts
+// y_stride pixel rows below row j - 1 (the tile height, or tile_h * s for a
+// rank that owns every s-th tile row of the frame, interleaved row bands)
 struct TileOrigins {
   const int* tile_ids;
-  int n_tiles_x, tile_h;
+  int n_tiles_x, y_stride;
   __device__ int2 operator()(int a, int k) const {
     const int tile = tile_ids[a];
-    return make_int2((tile % n_tiles_x) * kTileW + k * kStripW, (tile / n_tiles_x) * tile_h);
+    return make_int2((tile % n_tiles_x) * kTileW + k * kStripW, (tile / n_tiles_x) * y_stride);
   }
 };
 
@@ -102,7 +104,8 @@ int launch(const trt::StripLaunch& p, const TileOrigins& origin, int n_items, cu
 // and scratch sizes.
 extern "C" int trt_fine_range_area() { return kTileRangeArea; }
 
-// init_depth: (A, TH, 128); ev_count and ev_maxz: both null (no stats) or
+// y_stride: pixel rows from one tile row to the next (tile_h, or tile_h * s
+// for interleaved row bands); init_depth: (A, TH, 128); ev_count and ev_maxz: both null (no stats) or
 // both (A, TH, 128); n_items: A + ceil(n_rows / (trt_fine_range_area() /
 // TH)), the walk's grid; scratch: n_items * TH * 128 floats, as many ints,
 // then A + 1 ints, or null for the one launch (every tile walks all of its
@@ -110,12 +113,13 @@ extern "C" int trt_fine_range_area() { return kTileRangeArea; }
 extern "C" int trt_fine_raster(const float* tri_rec, int rec_stride, const int* tri8,
                                const int* tile_ids, const int* row_start,
                                const int* rows, int n_active, int origin_x,
-                               int origin_y, int n_tiles_x, int tile_h, int tile_w,
+                               int origin_y, int n_tiles_x, int tile_h, int y_stride,
+                               int tile_w,
                                int n_vary, const float* init_depth, float* depth,
                                int* winner, float* vary, int* ev_count,
                                float* ev_maxz, int n_items, void* scratch, void* stream) {
-  if (tile_w != kTileW || (tile_h != 16 && tile_h != 32) || n_active <= 0 ||
-      n_items < n_active || init_depth == nullptr ||
+  if (tile_w != kTileW || (tile_h != 16 && tile_h != 32) || y_stride < tile_h ||
+      n_active <= 0 || n_items < n_active || init_depth == nullptr ||
       (ev_count == nullptr) != (ev_maxz == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t part = static_cast<size_t>(n_items) * tile_h * kTileW;
@@ -125,7 +129,7 @@ extern "C" int trt_fine_raster(const float* tri_rec, int rec_stride, const int* 
                            origin_x, origin_y, n_vary, init_depth, depth, winner, vary,
                            ev_count, ev_maxz, scratch ? part_w + part : nullptr, part_d,
                            part_w};
-  const TileOrigins origin{tile_ids, n_tiles_x, tile_h};
+  const TileOrigins origin{tile_ids, n_tiles_x, y_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool stats = ev_count != nullptr;
   if (tile_h == 32)

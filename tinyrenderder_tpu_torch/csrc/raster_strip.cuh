@@ -7,7 +7,11 @@
 // block_start[b] .. + block_rows[b] - 1 (a strip's bin is a prefix of its
 // column).  The two rasters differ only in where slot k's pixels lie: the
 // Origin policy, a functor origin(b, k) -> the pixel offset of slot k of
-// block b's top-left corner (the pass origin is added here).  The kernels:
+// block b's top-left corner (the pass origin is added here; the tile
+// policy's row origin carries the y_stride of interleaved row bands, the
+// group policy's slot origins x0y0 carry it already, so every global row
+// below, lane_pixel's and the merge's, is origin_y + o.y + a row in the
+// block).  The kernels:
 //  * strip_walk_kernel: one block of 8 warps per work item, warp k on slot
 //    k.  With the item scan (starts non-null), a block's rows are cut into
 //    ranges of R rows: a block of one range walks it from its running depth

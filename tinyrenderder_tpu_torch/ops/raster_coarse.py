@@ -29,6 +29,9 @@ Contract (shared by both versions, bitwise):
   tile_ids, start, count  (A,) i32 active tiles and their CSR segments
               (the dense launch: every tile, tile_ids = 0 .. T - 1)
   origin      global pixel offset (x, y) of tile 0
+  y_stride    global pixel rows from one tile row to the next (default
+              tile_h; tile_h * s for interleaved row bands, where a
+              rank's tile row j is global tile row ty_lo + j * s)
   init_depth  (A, th, tw) f32 running depth per active tile
   -> depth (A, th, tw) f32, winner (A, th, tw) i32 (-1 = background),
      vary (A, V, th, tw) f32 (0 where no winner)
@@ -124,7 +127,7 @@ def check_tensors(tri_rec, n_vary: int, specs) -> None:
 
 def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
                   n_tiles_x: int, tile_h: int, tile_w: int, n_vary: int,
-                  origin=(0, 0), collect_stats: bool = False):
+                  origin=(0, 0), collect_stats: bool = False, y_stride: int | None = None):
     """Raster the active tiles (contract in the module docstring).
     Returns (depth, winner, vary), and ev as a fourth item with
     ``collect_stats``.  CPU tensors take the plain version; CUDA tensors
@@ -137,9 +140,9 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
     if tri_rec.device.type == "cpu":
         return coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
                                    init_depth, n_tiles_x, tile_h, tile_w,
-                                   n_vary, origin, collect_stats)
+                                   n_vary, origin, collect_stats, y_stride)
     out = _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x,
-                  tile_h, tile_w, n_vary, origin, collect_stats)
+                  tile_h, tile_w, n_vary, origin, collect_stats, y_stride)
     if count.shape[0]:
         if collect_stats:
             STATS_LAUNCHES += 1
@@ -164,7 +167,8 @@ def walk_scratch(n_items: int, n_blocks: int, tile_h: int, device) -> torch.Tens
 
 
 def _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x: int,
-            tile_h: int, tile_w: int, n_vary: int, origin, collect_stats: bool):
+            tile_h: int, tile_w: int, n_vary: int, origin, collect_stats: bool,
+            y_stride: int | None = None):
     """Launch the kernels on CUDA tensors (the item scan, the split walk,
     the ordered merge and, with ``collect_stats``, the events walk): block
     a's bin is on tile ``tile_ids[a]`` or, with ``tile_ids`` None, on tile
@@ -189,7 +193,8 @@ def _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x: 
     _build.call("trt_coarse_raster", tri_rec.device,
                 tri_rec.data_ptr(), tri_rec.shape[1], sorted_tri.data_ptr(),
                 None if tile_ids is None else tile_ids.data_ptr(), start.data_ptr(),
-                count.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x, tile_h, tile_w,
+                count.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x, tile_h,
+                y_stride or tile_h, tile_w,
                 n_vary, init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
                 vary.data_ptr() if n_vary else None, ev[0].data_ptr() if ev else None,
                 ev[1].data_ptr() if ev else None, n_items, scratch.data_ptr())
@@ -259,12 +264,13 @@ def depth_resolve(setup: dict, bins: Bins, init_depth, height: int, width: int,
     return depth, winner
 
 
-def tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, dtype):
+def tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, dtype, y_stride=None):
     """Global integer pixel coords of each tile as exact floats:
-    x (C, 1, 1, tw), y (C, 1, th, 1)."""
+    x (C, 1, 1, tw), y (C, 1, th, 1); tile row j starts at pixel row
+    origin y + j * y_stride (default tile_h)."""
     dev = tile_ids.device
     gx0 = origin[0] + (tile_ids % n_tiles_x) * tile_w
-    gy0 = origin[1] + torch.div(tile_ids, n_tiles_x, rounding_mode="floor") * tile_h
+    gy0 = origin[1] + torch.div(tile_ids, n_tiles_x, rounding_mode="floor") * (y_stride or tile_h)
     xi = (gx0[:, None] + torch.arange(tile_w, device=dev)).to(dtype)
     yi = (gy0[:, None] + torch.arange(tile_h, device=dev)).to(dtype)
     return xi[:, None, None, :], yi[:, None, :, None]
@@ -272,7 +278,8 @@ def tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, dtype):
 
 def coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
                         init_depth, n_tiles_x: int, tile_h: int, tile_w: int,
-                        n_vary: int, origin=(0, 0), collect_stats: bool = False):
+                        n_vary: int, origin=(0, 0), collect_stats: bool = False,
+                        y_stride: int | None = None):
     """Plain PyTorch version, vectorised over tiles and SUB-pair steps
     and chunked over tiles.  Loop 1 is the TPU kernel's form: per step,
     the first-minimum argmin over SUB pairs, then a strict-less merge.
@@ -297,7 +304,7 @@ def coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
         c1 = min(a, c0 + TILE_CHUNK)
         st, cnt = start[c0:c1].long(), count[c0:c1].long()
         x, y = tile_pixels(tile_ids[c0:c1].long(), n_tiles_x, tile_h, tile_w,
-                            origin, f32)
+                           origin, f32, y_stride)
         px, py = x + 0.5, y + 0.5
         zbuf = init_depth[c0:c1].clone()
         wbuf = torch.full_like(zbuf, -1, dtype=torch.int32)
@@ -373,7 +380,7 @@ def split_walks(walk, init_depth, steps, range_len: int, collect_stats: bool):
 def coarse_raster_split_plain(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
                               n_tiles_x: int, tile_h: int, tile_w: int, n_vary: int,
                               origin=(0, 0), collect_stats: bool = False,
-                              range_len: int = 64):
+                              range_len: int = 64, y_stride: int | None = None):
     """``coarse_raster_plain`` computed as the CUDA kernels split it, for
     the tests: ``coarse_raster_plain`` over each range of ``range_len``
     pairs of every bin, merged by ``split_walks``, then loop 2.  Equal to
@@ -381,10 +388,12 @@ def coarse_raster_split_plain(tri_rec, sorted_tri, tile_ids, start, count, init_
     def walk(r, init, stats):
         sub = torch.clamp(count - r * range_len, 0, range_len)
         return coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start + r * range_len, sub,
-                                   init, n_tiles_x, tile_h, tile_w, 0, origin, stats)
+                                   init, n_tiles_x, tile_h, tile_w, 0, origin, stats,
+                                   y_stride)
 
     depth, winner, ev = split_walks(walk, init_depth, count, range_len, collect_stats)
-    x, y = tile_pixels(tile_ids.long(), n_tiles_x, tile_h, tile_w, origin, torch.float32)
+    x, y = tile_pixels(tile_ids.long(), n_tiles_x, tile_h, tile_w, origin, torch.float32,
+                       y_stride)
     vary = (interpolate_winners(tri_rec, winner, x[:, 0] + 0.5, y[:, 0] + 0.5, n_vary)
             if n_vary else depth.new_empty((depth.shape[0], 0, tile_h, tile_w)))
     return (depth, winner, vary) + ((ev,) if collect_stats else ())

@@ -52,9 +52,9 @@ from tinyrenderder_tpu_torch.ops.raster_coarse import (GEOM, build_tri_records,
                                                        check_inputs, interpolate_winners,
                                                        split_walks, tile_pixels, walk_items,
                                                        walk_scratch)
-from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids,
-                                                      build_bins, cdiv, shader_varyings,
-                                                      tile_pair_counts, tile_spans,
+from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, active_ids,
+                                                      band_spans, build_bins,
+                                                      shader_varyings, tile_pair_counts,
                                                       vertex_stage)
 
 __all__ = ["STRIP_W", "STRIPS", "MAX_VARY", "LAUNCHES", "STATS_LAUNCHES", "PreFine",
@@ -92,18 +92,19 @@ class PreFine(NamedTuple):
 
 
 def pre_fine(attrs: dict, uniforms: dict, shader, width: int, height: int,
-             tile_h: int = TILE_H, tile_w: int = TILE_W) -> PreFine:
+             tile_h: int = TILE_H, tile_w: int = TILE_W, band: Band | None = None) -> PreFine:
     """Vertex stage, strip binning, the slot table, per-triangle records
-    and active-tile compaction (``_pre_fine_jit``).  Holds the pass's one
+    and active-tile compaction (``_pre_fine_jit``), over every tile or
+    over ``band``'s window (band-local tile ids).  Holds the pass's one
     host readback."""
     if tile_w != STRIPS * STRIP_W:
         raise ValueError(f"the strip raster takes {STRIPS * STRIP_W}-px tiles, not {tile_w}")
-    setup, varyings = vertex_stage(attrs, uniforms, shader, width, height)
-    n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
-    n_tiles = n_tiles_x * n_tiles_y
-    n_strips_x = n_tiles_x * STRIPS
+    setup, varyings = vertex_stage(attrs, uniforms, shader, width, height,
+                                   band.geom if band else None)
+    (tx0, ty0, span_x, span_y, spans), (n_strips_x, n_tiles_y) = band_spans(
+        setup, tile_w, tile_h, width, height, band, STRIP_W)
+    n_tiles = n_strips_x // STRIPS * n_tiles_y
     dev = setup["bbox"].device
-    tx0, ty0, span_x, span_y, spans = tile_spans(setup, STRIP_W, tile_h)
     per_strip = tile_pair_counts(tx0, ty0, span_x, span_y, n_strips_x, n_tiles_y)
     rows_t = per_strip.view(n_tiles, STRIPS).amax(dim=1)
     pairs, row_total, n_active, max_rows = torch.stack(
@@ -137,13 +138,16 @@ def range_rows(tile_h: int) -> int:
 
 def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x: int,
                 tile_h: int, tile_w: int, n_vary: int, origin=(0, 0),
-                collect_stats: bool = False, max_rows: int | None = None):
+                collect_stats: bool = False, max_rows: int | None = None,
+                y_stride: int | None = None):
     """Raster the active tiles strip by strip (contract in the module
     docstring).  Returns (depth, winner, vary), and ev as a fourth item
     with ``collect_stats``.  CPU tensors take the plain version; CUDA
     tensors launch the kernels: the split walk, or, where ``max_rows``
     (``rows.max()``, e.g. ``PreFine.max_rows``) is given and no larger
-    than a range, the walk alone."""
+    than a range, the walk alone.  ``y_stride`` (default ``tile_h``):
+    global pixel rows from one tile row to the next, as in
+    ``coarse_raster``."""
     global LAUNCHES, STATS_LAUNCHES
     if tri8.dim() != 2 or tri8.shape[1] != STRIPS:
         raise ValueError(f"tri8 must be (R, {STRIPS}), got {tuple(tri8.shape)}")
@@ -153,7 +157,8 @@ def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x:
         raise ValueError(f"the strip raster takes {STRIPS * STRIP_W}-px tiles, not {tile_w}")
     if tri_rec.device.type == "cpu":
         return fine_raster_plain(tri_rec, tri8, tile_ids, row_start, rows, init_depth,
-                                 n_tiles_x, tile_h, tile_w, n_vary, origin, collect_stats)
+                                 n_tiles_x, tile_h, tile_w, n_vary, origin, collect_stats,
+                                 y_stride)
     if tri_rec.device.type != "cuda":
         raise ValueError(f"no strip raster for device {tri_rec.device}")
     if tile_h not in (16, 32):
@@ -177,7 +182,8 @@ def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x:
     _build.call("trt_fine_raster", dev,
                 tri_rec.data_ptr(), tri_rec.shape[1], tri8.data_ptr(), tile_ids.data_ptr(),
                 row_start.data_ptr(), rows.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x,
-                tile_h, tile_w, n_vary, init_depth.data_ptr(), depth.data_ptr(), winner.data_ptr(),
+                tile_h, y_stride or tile_h, tile_w, n_vary, init_depth.data_ptr(), depth.data_ptr(),
+                winner.data_ptr(),
                 vary.data_ptr() if n_vary else None, ev[0].data_ptr() if ev else None,
                 ev[1].data_ptr() if ev else None, n_items,
                 None if scratch is None else scratch.data_ptr())
@@ -190,31 +196,33 @@ def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x:
 
 def fine_raster_plain(tri_rec, tri8, tile_ids, row_start, rows, init_depth,
                       n_tiles_x: int, tile_h: int, tile_w: int, n_vary: int,
-                      origin=(0, 0), collect_stats: bool = False):
+                      origin=(0, 0), collect_stats: bool = False, y_stride: int | None = None):
     """Plain PyTorch version: ``strip_raster_plain`` over the active
     tiles, each pixel at its tile's place on the screen."""
     return strip_raster_plain(
         tri_rec, tri8, row_start, rows, init_depth, n_vary, collect_stats,
-        _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin))
+        _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, y_stride))
 
 
 def fine_raster_split_plain(tri_rec, tri8, tile_ids, row_start, rows, init_depth,
                             n_tiles_x: int, tile_h: int, tile_w: int, n_vary: int,
-                            origin=(0, 0), collect_stats: bool = False, range_len: int = 64):
+                            origin=(0, 0), collect_stats: bool = False, range_len: int = 64,
+                            y_stride: int | None = None):
     """``fine_raster_plain`` computed as the CUDA kernels split it, for the
     tests: ``strip_raster_split_plain`` over the active tiles, their rows
     cut into ranges of ``range_len``.  Equal to ``fine_raster_plain``
     bitwise."""
     return strip_raster_split_plain(
         tri_rec, tri8, row_start, rows, init_depth, n_vary, collect_stats,
-        _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin), range_len)
+        _tile_pixels(tile_ids, n_tiles_x, tile_h, tile_w, origin, y_stride), range_len)
 
 
-def _tile_pixels(tile_ids, n_tiles_x: int, tile_h: int, tile_w: int, origin):
+def _tile_pixels(tile_ids, n_tiles_x: int, tile_h: int, tile_w: int, origin,
+                 y_stride: int | None = None):
     """pixels(c0, c1) of ``strip_raster_plain``: active tiles c0..c1's
     global pixel coordinates."""
     return lambda c0, c1: tile_pixels(tile_ids[c0:c1].long(), n_tiles_x, tile_h, tile_w,
-                                      origin, torch.float32)
+                                      origin, torch.float32, y_stride)
 
 
 def strip_raster_plain(tri_rec, tri8, row_start, rows, init_depth, n_vary: int,

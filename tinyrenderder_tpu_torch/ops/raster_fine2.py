@@ -70,10 +70,10 @@ from tinyrenderder_tpu_torch.ops.raster_coarse import (build_tri_records, check_
                                                        walk_items, walk_scratch)
 from tinyrenderder_tpu_torch.ops.raster_fine import (STRIP_W, STRIPS, strip_raster_plain,
                                                      strip_raster_split_plain)
-from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids,
-                                                      build_bins, cdiv, shader_varyings,
-                                                      tile_pair_counts, tile_spans,
-                                                      vertex_stage)
+from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, active_ids,
+                                                      band_spans, build_bins,
+                                                      shader_varyings, tile_pair_counts,
+                                                      tile_spans, vertex_stage)
 
 __all__ = ["LAUNCHES", "STATS_LAUNCHES", "PreFine2", "pre_fine2", "probe_rows",
            "fine2_raster", "fine2_raster_plain", "fine2_raster_split_plain", "init_strips",
@@ -104,27 +104,33 @@ class PreFine2(NamedTuple):
     setup: dict                # the triangle setup (valid, screen, ..., bbox)
 
 
-def _strip_counts(setup: dict, width: int, height: int, tile_h: int):
-    """The strip spans and the (T * 8,) pair count of each strip."""
-    n_tiles_x, n_tiles_y = cdiv(width, TILE_W), cdiv(height, tile_h)
-    tx0, ty0, span_x, span_y, spans = tile_spans(setup, STRIP_W, tile_h)
-    counts = tile_pair_counts(tx0, ty0, span_x, span_y, n_tiles_x * STRIPS, n_tiles_y)
-    return (tx0, ty0, span_x, spans), counts
+def _strip_counts(setup: dict, width: int, height: int, tile_h: int,
+                  band: Band | None = None):
+    """The strip spans over every tile or ``band``'s window, the (T * 8,)
+    pair count of each strip and the (tile columns, tile rows) of the
+    grid."""
+    (tx0, ty0, span_x, span_y, spans), (n_strips_x, n_tiles_y) = band_spans(
+        setup, TILE_W, tile_h, width, height, band, STRIP_W)
+    counts = tile_pair_counts(tx0, ty0, span_x, span_y, n_strips_x, n_tiles_y)
+    return (tx0, ty0, span_x, spans), counts, (n_strips_x // STRIPS, n_tiles_y)
 
 
 def pre_fine2(attrs: dict, uniforms: dict, shader, width: int, height: int,
-              tile_h: int = TILE_H, tile_w: int = TILE_W) -> PreFine2:
+              tile_h: int = TILE_H, tile_w: int = TILE_W, band: Band | None = None) -> PreFine2:
     """Vertex stage, strip binning, grouping, slot table, slot origins,
-    per-triangle records and the active-tile map (``_pre_fine2_jit``).
-    Holds the pass's one host readback."""
+    per-triangle records and the active-tile map (``_pre_fine2_jit``),
+    over every tile or over ``band``'s window: tile ids are then
+    band-local and a slot's row origin steps ``tile_h * ty_stride`` a band
+    tile row, so the kernel needs only the band's origin.  Holds the
+    pass's one host readback."""
     if tile_w != STRIPS * STRIP_W:
         raise ValueError(f"the strip raster takes {STRIPS * STRIP_W}-px tiles, not {tile_w}")
-    setup, varyings = vertex_stage(attrs, uniforms, shader, width, height)
-    n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
+    setup, varyings = vertex_stage(attrs, uniforms, shader, width, height,
+                                   band.geom if band else None)
+    spans, counts, (n_tiles_x, n_tiles_y) = _strip_counts(setup, width, height, tile_h, band)
     n_tiles = n_tiles_x * n_tiles_y
     n_strips = n_tiles * STRIPS
     dev = setup["bbox"].device
-    spans, counts = _strip_counts(setup, width, height, tile_h)
     # rank r -> strip order[r]; JAX's argsort is stable, torch's only on request
     order = torch.argsort(-counts, stable=True)
     group_rows = counts[order][0::STRIPS]                                 # descending
@@ -149,8 +155,9 @@ def pre_fine2(attrs: dict, uniforms: dict, shader, width: int, height: int,
 
     sid_of = order[:n_groups * STRIPS].view(n_groups, STRIPS)
     tile = sid_of // STRIPS
+    y_step = tile_h * (band.ty_stride if band else 1)        # interleave-aware
     x0y0 = torch.stack([(tile % n_tiles_x) * tile_w + (sid_of % STRIPS) * STRIP_W,
-                        (tile // n_tiles_x) * tile_h], dim=-1).to(torch.int32)
+                        (tile // n_tiles_x) * y_step], dim=-1).to(torch.int32)
     tri_rec = build_tri_records(setup, shader_varyings(varyings, shader))
     ids = active_ids(active, n_active)
     idl = ids.long()
@@ -175,7 +182,7 @@ def probe_rows(attrs: dict, uniforms: dict, shader, width: int, height: int,
     binning and one readback (``_probe_both_jit`` and the coarse
     ``_tile_spans`` total)."""
     setup, _ = vertex_stage(attrs, uniforms, shader, width, height)
-    _, counts = _strip_counts(setup, width, height, tile_h)
+    _, counts, _ = _strip_counts(setup, width, height, tile_h)
     rows_t = counts.view(-1, STRIPS).amax(dim=1)
     group_rows = torch.sort(counts, descending=True).values[0::STRIPS]
     pairs = tile_spans(setup, tile_w, tile_h)[4].sum()

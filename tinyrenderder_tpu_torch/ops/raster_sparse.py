@@ -42,10 +42,10 @@ from tinyrenderder_tpu_torch import _build, shaders
 from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2
 from tinyrenderder_tpu_torch.ops.raster import BACKGROUND, FrameBuffers
 from tinyrenderder_tpu_torch.ops.raster_coarse import build_tri_records, coarse_raster
-from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, active_ids,
-                                                      build_bins, cdiv, n_vary_of,
-                                                      shader_varyings, tile_pair_counts,
-                                                      tile_spans, vertex_stage)
+from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, active_ids,
+                                                      band_spans, build_bins, cdiv,
+                                                      n_vary_of, shader_varyings,
+                                                      tile_pair_counts, vertex_stage)
 
 __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
            "untile_one_plain", "untile3", "untile3_plain", "untile_image",
@@ -322,13 +322,14 @@ class PreSparse(NamedTuple):
 
 
 def pre_sparse(attrs: dict, uniforms: dict, shader, width: int, height: int,
-               tile_h: int = TILE_H, tile_w: int = TILE_W) -> PreSparse:
+               tile_h: int = TILE_H, tile_w: int = TILE_W, band: Band | None = None) -> PreSparse:
     """Vertex stage, binning, per-triangle records and active-tile
-    compaction.  Holds the frame's one host readback."""
-    setup, varyings = vertex_stage(attrs, uniforms, shader, width, height)
-    n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
-    n_tiles = n_tiles_x * n_tiles_y
-    tx0, ty0, span_x, span_y, spans = tile_spans(setup, tile_w, tile_h)
+    compaction (``_pre_sparse_jit``), over every tile or over ``band``'s
+    window (band-local tile ids).  Holds the pass's one host readback."""
+    setup, varyings = vertex_stage(attrs, uniforms, shader, width, height,
+                                   band.geom if band else None)
+    (tx0, ty0, span_x, span_y, spans), (n_tiles_x, n_tiles_y) = band_spans(
+        setup, tile_w, tile_h, width, height, band)
     per_tile = tile_pair_counts(tx0, ty0, span_x, span_y, n_tiles_x, n_tiles_y)
     total, n_active = torch.stack([per_tile.sum(), (per_tile > 0).sum()]).tolist()
     sorted_tri, start, counts = build_bins(tx0, ty0, span_x, spans, total,
@@ -481,37 +482,45 @@ def decide_mode(attrs: dict, uniforms: dict, shader, width: int, height: int,
 
 
 def raster_pass(mode: str, attrs: dict, uniforms: dict, shader, width: int, height: int,
-                tile_h: int, tile_w: int, init_depth, collect_stats: bool = False):
-    """One pass's pre-stage and raster on the coarse or the strip route.
-    ``init_depth(ids)`` gives the running depth of the active tiles.
-    Returns (ids, setup, (depth, winner, vary[, ev])) in the raster
-    contract both routes share."""
-    n_tiles_x = cdiv(width, tile_w)
+                tile_h: int, tile_w: int, init_depth, collect_stats: bool = False,
+                band: Band | None = None):
+    """One pass's pre-stage and raster on the coarse or the strip route,
+    over every tile or over ``band``'s window (its tiles at their global
+    pixels: the band's origin and row stride).  ``init_depth(ids)`` gives
+    the running depth of the active tiles.  Returns (ids, setup, (depth,
+    winner, vary[, ev])) in the raster contract both routes share."""
+    n_tiles_x = band.grid(width, tile_w)[0] if band else cdiv(width, tile_w)
     n_vary = n_vary_of(shader)
+    place = ({"origin": band.origin(tile_h, tile_w), "y_stride": band.y_stride(tile_h)}
+             if band else {})
     if mode == "fine":
-        pre = raster_fine.pre_fine(attrs, uniforms, shader, width, height, tile_h, tile_w)
+        pre = raster_fine.pre_fine(attrs, uniforms, shader, width, height, tile_h, tile_w,
+                                   band)
         out = raster_fine.fine_raster(pre.tri_rec, pre.tri8, pre.ids, pre.row_start,
                                       pre.rows, init_depth(pre.ids), n_tiles_x, tile_h,
                                       tile_w, n_vary, collect_stats=collect_stats,
-                                      max_rows=pre.max_rows)
+                                      max_rows=pre.max_rows, **place)
     else:
-        pre = pre_sparse(attrs, uniforms, shader, width, height, tile_h, tile_w)
+        pre = pre_sparse(attrs, uniforms, shader, width, height, tile_h, tile_w, band)
         out = coarse_raster(pre.tri_rec, pre.sorted_tri, pre.ids, pre.start, pre.counts,
                             init_depth(pre.ids), n_tiles_x, tile_h, tile_w, n_vary,
-                            collect_stats=collect_stats)
+                            collect_stats=collect_stats, **place)
     return pre.ids, pre.setup, out
 
 
 def grouped_pass(attrs: dict, uniforms: dict, shader, width: int, height: int,
-                 tile_h: int, depth_tiles=None, collect_stats: bool = False):
-    """One pass's pre-stage and raster on the grouped strip route: -> (the
-    ``raster_fine2.PreFine2``, its group-space outputs).  Pass-local, or
-    seeded with the frame's ``depth_tiles`` (T, th, 128) when given."""
-    pre = raster_fine2.pre_fine2(attrs, uniforms, shader, width, height, tile_h)
+                 tile_h: int, depth_tiles=None, collect_stats: bool = False,
+                 band: Band | None = None):
+    """One pass's pre-stage and raster on the grouped strip route, over
+    every tile or over ``band``'s window: -> (the ``raster_fine2.PreFine2``,
+    its group-space outputs).  Pass-local, or seeded with the frame's
+    ``depth_tiles`` (T, th, 128) when given."""
+    pre = raster_fine2.pre_fine2(attrs, uniforms, shader, width, height, tile_h, band=band)
     init = None if depth_tiles is None else raster_fine2.init_strips(depth_tiles, pre)
     out = raster_fine2.fine2_raster(pre.tri_rec, pre.tri8, pre.group_start, pre.group_rows,
-                                    pre.x0y0, tile_h, n_vary_of(shader),
-                                    init, collect_stats=collect_stats)
+                                    pre.x0y0, tile_h, n_vary_of(shader), init,
+                                    origin=band.origin(tile_h, TILE_W) if band else (0, 0),
+                                    collect_stats=collect_stats)
     return pre, out
 
 
@@ -527,12 +536,17 @@ def compact_to_image(c_tiles, ids, n_tiles_x: int, n_tiles_y: int, tile_h: int,
 
 def render_frame_fused_image(passes, width: int, height: int,
                              tile_h: int = TILE_H, tile_w: int = TILE_W,
-                             return_depth: bool = False):
+                             return_depth: bool = False, band: Band | None = None):
     """Render a single color pass straight to an (H, W, 3) uint8 image on
     the pass's device.  ``passes``: [(attrs, shader, uniforms, exclude)]
     with tensor attrs/uniforms (``convert.pass_to_torch``).  With
     ``return_depth`` also returns the (H, W) f32 depth, +inf where
-    empty."""
+    empty.
+
+    With ``band`` only the band's tiles are rendered (``_fused_image_body``
+    with the band arguments, as a rank of ``parallel/dist.py`` runs it),
+    and the image is the band's uncropped rows: (nty_band * th, ntx * tw,
+    3), band tile row j at rows j * th .. (j + 1) * th - 1."""
     if len(passes) != 1:
         raise ValueError("render_frame_fused_image takes exactly one pass")
     attrs, shader, uniforms, _exclude = passes[0]
@@ -540,10 +554,15 @@ def render_frame_fused_image(passes, width: int, height: int,
         raise ValueError("render_frame_fused_image needs a color shader")
     if attrs["position"].shape[0] == 0:
         raise ValueError("render_frame_fused_image requires a non-empty pass")
-    n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
+    if band is None:
+        n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
+        crop = (height, width)
+    else:
+        n_tiles_x, n_tiles_y = band.grid(width, tile_w)
+        crop = (n_tiles_y * tile_h, n_tiles_x * tile_w)
     mode = decide_mode(attrs, uniforms, shader, width, height, tile_h, tile_w)
     if mode == "fine2":
-        pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h)
+        pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h, band=band)
         ids = pre.ids
         c_img, depth_c = raster_fine2.post_fine2_image(
             pre, out, lambda v: _shade_packed(v, uniforms, shader))
@@ -551,19 +570,18 @@ def render_frame_fused_image(passes, width: int, height: int,
         ids, _, (depth_c, winner_c, vary_c) = raster_pass(
             mode, attrs, uniforms, shader, width, height, tile_h, tile_w,
             lambda ids: torch.full((ids.shape[0], tile_h, tile_w), torch.inf,
-                                   dtype=torch.float32, device=ids.device))
+                                   dtype=torch.float32, device=ids.device), band=band)
         c_img = shade_compact_fresh(winner_c, vary_c, uniforms, shader)
-    image = untile_image(c_img, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, height, width,
-                         rgb=True)
+    image = untile_image(c_img, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, *crop, rgb=True)
     if not return_depth:
         return image
-    return image, untile_image(depth_c, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, height,
-                               width, fill=torch.inf)
+    return image, untile_image(depth_c, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, *crop,
+                               fill=torch.inf)
 
 
 def render_frame_fused(passes, width: int, height: int, device,
                        tile_h: int = TILE_H, tile_w: int = TILE_W,
-                       collect_stats: bool = False):
+                       collect_stats: bool = False, band: Band | None = None):
     """Render a multi-pass frame in tiled layout on ``device``.
 
     ``passes``: [(attrs, shader, uniforms, exclude_from_output_depth)]
@@ -574,8 +592,18 @@ def render_frame_fused(passes, width: int, height: int, device,
     the output depth is the snapshot when the frame ends inside an
     excluded run; ``events`` is one ``PassEvents`` per pass with faces
     when ``collect_stats``, else None.  Updates the frame's tiles in
-    place, so the snapshot is a copy."""
-    ft = new_frame_tiles(width, height, device, tile_h, tile_w)
+    place, so the snapshot is a copy.
+
+    With ``band`` the frame is the band's tiles only (``_fused_frame_body``
+    with the band arguments, the body a rank of ``parallel/dist.py`` runs):
+    binning is clipped to the band's window, tile ids are band-local and
+    the rasters draw each tile at its global pixels; a pass's events are
+    the band's, its setup the whole pass's."""
+    if band is None:
+        ft = new_frame_tiles(width, height, device, tile_h, tile_w)
+    else:
+        ntx, nty = band.grid(width, tile_w)
+        ft = new_frame_tiles(ntx * tile_w, nty * tile_h, device, tile_h, tile_w)
     events = [] if collect_stats else None
     snapshot = None
     in_excluded = False
@@ -598,7 +626,7 @@ def render_frame_fused(passes, width: int, height: int, device,
         if mode == "fine2":
             # pass-local, or seeded with the running depth for exact events
             pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h,
-                                    ft.depth if collect_stats else None, collect_stats)
+                                    ft.depth if collect_stats else None, collect_stats, band)
             setup = pre.setup
             raster_fine2.post_fine2(ft, pre, out, winner_offset,
                                     (lambda v: _shade_packed(v, uniforms, shader))
@@ -606,7 +634,7 @@ def render_frame_fused(passes, width: int, height: int, device,
         else:
             ids, setup, out = raster_pass(mode, attrs, uniforms, shader, width, height,
                                           tile_h, tile_w, lambda ids: ft.depth[ids.long()],
-                                          collect_stats)
+                                          collect_stats, band)
             post_sparse(ft, ids, *out[:3], uniforms, shader, winner_offset)
         if collect_stats:
             events.append(PassEvents(setup, *reduce_events(out[3], out[0], out[1])))

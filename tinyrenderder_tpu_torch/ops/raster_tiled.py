@@ -6,6 +6,12 @@ from the clamped bbox, and the (tile, triangle) pair bins in CSR form
 (``Bins`` / ``bin_triangles_csr`` over every tile, for the dense raster
 entry ``raster_coarse.rasterize``).
 
+A rank of the sharded frame (``parallel/dist.py``) bins only its
+``Band`` of the tile grid: ``tile_spans`` clips each triangle's tile
+range to the band's window and returns band-local tile coordinates, and
+``vertex_stage`` can split the triangles over the ranks
+(``GeomSplit``).
+
 Everything is sized exactly from the true pair total, which the caller
 reads back once (``raster_sparse.pre_sparse``): there is no static
 capacity, no padding and no overflow.  The TPU's exact-f32 divmod
@@ -14,16 +20,16 @@ capacity, no padding and no overflow.  The TPU's exact-f32 divmod
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from tinyrenderder_tpu_torch import math3d, shaders
 from tinyrenderder_tpu_torch.ops import semantics
 
-__all__ = ["TILE_H", "TILE_W", "cdiv", "vertex_stage", "tile_spans",
-           "tile_pair_counts", "build_bins", "Bins", "bin_triangles_csr", "to_tiles",
-           "flatten_varyings", "n_vary_of", "shader_varyings"]
+__all__ = ["TILE_H", "TILE_W", "cdiv", "Band", "GeomSplit", "vertex_stage", "tile_spans",
+           "band_spans", "tile_pair_counts", "build_bins", "Bins", "bin_triangles_csr",
+           "to_tiles", "flatten_varyings", "n_vary_of", "shader_varyings"]
 
 TILE_H = 16
 TILE_W = 128
@@ -33,9 +39,88 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def vertex_stage(attrs: dict, uniforms: dict, shader, width: int, height: int):
+class GeomSplit(NamedTuple):
+    """The vertex stage split over ``world`` ranks (``_vertex_stage``'s
+    ``geom_axis``): this rank transforms the ``rank``-th of ``world``
+    contiguous slices of the triangles, and ``gather(mine, stage)`` returns
+    every rank's tensors concatenated in rank order, ``mine`` being this
+    rank's list of per-triangle tensors and ``stage(r)`` computing rank r's
+    (a process group gathers them; one process that emulates the ranks
+    computes them)."""
+
+    rank: int
+    world: int
+    gather: Callable
+
+
+class Band(NamedTuple):
+    """A rank's window of the frame's tile grid: a static shape of
+    ``nty_band`` x ``ntx_band`` tiles (``ntx_band`` None: every tile
+    column), tile ids band-local and row-major in it.  Band row j is global
+    tile row ``ty_lo + j * ty_stride`` (``ty_stride`` > 1: interleaved row
+    bands), band column i global column ``tx_lo + i`` (2-D blocks); with
+    ``ty_rows`` only the first ``ty_rows`` rows are the rank's (measured
+    bands of unequal height under one shape), the rest bin nothing.
+    ``geom`` splits the vertex stage over the ranks (None: every rank
+    transforms every triangle)."""
+
+    ty_lo: int
+    nty_band: int
+    ty_stride: int = 1
+    tx_lo: int | None = None
+    ntx_band: int | None = None
+    ty_rows: int | None = None
+    geom: GeomSplit | None = None
+
+    def origin(self, tile_h: int, tile_w: int) -> tuple[int, int]:
+        """The global pixel of band tile 0's top-left corner."""
+        return (self.tx_lo or 0) * tile_w, self.ty_lo * tile_h
+
+    def y_stride(self, tile_h: int) -> int:
+        """Global pixel rows from one band tile row to the next."""
+        return tile_h * self.ty_stride
+
+    def grid(self, width: int, tile_w: int) -> tuple[int, int]:
+        """(tile columns, tile rows) of the band's shape."""
+        ntx = self.ntx_band if self.ntx_band is not None else cdiv(width, tile_w)
+        return ntx, self.nty_band
+
+
+def vertex_stage(attrs: dict, uniforms: dict, shader, width: int, height: int,
+                 geom: GeomSplit | None = None):
     """Vertex transform + triangle setup over all F triangles
-    (main.cpp:660-665 + our_gl.cpp:89-135).  Returns (setup, varyings)."""
+    (main.cpp:660-665 + our_gl.cpp:89-135).  Returns (setup, varyings).
+
+    With ``geom`` each rank transforms a contiguous slice of cdiv(F, N)
+    triangles (zero-padded to N slices) and the slices are gathered in
+    rank order and cut back to F (``_vertex_stage`` with ``geom_axis``).
+    Every operation is per triangle, so the result equals the unsplit
+    stage bitwise; with fewer triangles than ranks the stage is not
+    split."""
+    if geom is None or attrs["position"].shape[0] < geom.world:
+        return _vertex_setup(attrs, uniforms, shader, width, height)
+    f = attrs["position"].shape[0]
+    chunk = cdiv(f, geom.world)
+    pad = chunk * geom.world - f
+    padded = {k: (torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))]) if pad else v)
+              for k, v in attrs.items()}
+    names = {}
+
+    def stage(r):
+        setup, varyings = _vertex_setup({k: v[r * chunk:(r + 1) * chunk]
+                                         for k, v in padded.items()},
+                                        uniforms, shader, width, height)
+        names["setup"], names["vary"] = sorted(setup), sorted(varyings)
+        return ([setup[k] for k in names["setup"]]
+                + [varyings[k] for k in names["vary"]])
+
+    full = [t[:f] for t in geom.gather(stage(geom.rank), stage)]
+    n_setup = len(names["setup"])
+    return (dict(zip(names["setup"], full[:n_setup])),
+            dict(zip(names["vary"], full[n_setup:])))
+
+
+def _vertex_setup(attrs: dict, uniforms: dict, shader, width: int, height: int):
     clip, varyings = shaders.vertex(shader, uniforms, attrs)
     pos = attrs["position"]
     vp = torch.as_tensor(math3d.viewport(0, 0, width, height),
@@ -43,10 +128,18 @@ def vertex_stage(attrs: dict, uniforms: dict, shader, width: int, height: int):
     return semantics.triangle_setup_planes(clip, vp, width, height), varyings
 
 
-def tile_spans(setup: dict, tile_w: int, tile_h: int):
-    """Per-triangle tile range from the clamped bbox.  Returns (tx0, ty0,
-    span_x, span_y, spans) int32 (F,); spans = span_x * span_y pairs,
-    zero for rejected triangles."""
+def tile_spans(setup: dict, tile_w: int, tile_h: int, ty_lo=None, ty_hi=None,
+               tx_lo=None, tx_hi=None, ty_stride: int = 1):
+    """Per-triangle tile range from the clamped bbox (``_tile_spans``).
+    Returns (tx0, ty0, span_x, span_y, spans) int32 (F,); spans = span_x *
+    span_y pairs, zero for rejected triangles.
+
+    ``ty_lo``/``ty_hi`` and ``tx_lo``/``tx_hi`` (inclusive) clip the range
+    to a block of the grid, and tx0/ty0 are then block-local.  With
+    ``ty_stride`` > 1 the block owns the interleaved rows ty_lo, ty_lo +
+    stride, ..., ``ty_hi`` is the last one's index in stride units, and
+    owned rows are consecutive in block-local space, so ``build_bins`` and
+    ``tile_pair_counts`` do not change."""
     bbox = setup["bbox"]
     valid = setup["valid"]
     tx0 = torch.div(bbox[:, 0], tile_w, rounding_mode="floor")
@@ -54,10 +147,50 @@ def tile_spans(setup: dict, tile_w: int, tile_h: int):
     ty0 = torch.div(bbox[:, 2], tile_h, rounding_mode="floor")
     ty1 = torch.div(bbox[:, 3], tile_h, rounding_mode="floor")
     zero = torch.zeros_like(tx0)
-    span_y = torch.where(valid, ty1 - ty0 + 1, zero)
-    span_x = torch.where(valid, tx1 - tx0 + 1, zero)
+    if ty_lo is not None and ty_stride > 1:
+        m0 = torch.div(torch.clamp(ty0 - ty_lo, min=0) + (ty_stride - 1), ty_stride,
+                       rounding_mode="floor")
+        m1 = torch.clamp(torch.div(ty1 - ty_lo, ty_stride, rounding_mode="floor"), max=ty_hi)
+        span_y = torch.where(valid & (m1 >= m0), m1 - m0 + 1, zero)
+        ty0 = m0
+    elif ty_lo is not None:
+        ty0c = torch.clamp(ty0, min=ty_lo)
+        ty1c = torch.clamp(ty1, max=ty_hi)
+        span_y = torch.where(valid & (ty1c >= ty0c), ty1c - ty0c + 1, zero)
+        ty0 = ty0c - ty_lo
+    else:
+        span_y = torch.where(valid, ty1 - ty0 + 1, zero)
+    if tx_lo is not None:
+        tx0c = torch.clamp(tx0, min=tx_lo)
+        tx1c = torch.clamp(tx1, max=tx_hi)
+        span_x = torch.where(valid & (tx1c >= tx0c), tx1c - tx0c + 1, zero)
+        tx0 = tx0c - tx_lo
+    else:
+        span_x = torch.where(valid, tx1 - tx0 + 1, zero)
     spans = torch.where(span_y > 0, span_x, zero) * span_y
     return tx0, ty0, span_x, span_y, spans
+
+
+def band_spans(setup: dict, tile_w: int, tile_h: int, width: int, height: int,
+               band: Band | None = None, span_w: int | None = None):
+    """``tile_spans`` at ``span_w``-px columns (the tile's width, or a
+    strip of it) over a band's window, or over every tile without a band,
+    as the JAX pre-stages clip it -> (spans, (columns, rows) of the grid in
+    ``span_w`` units)."""
+    span_w = span_w or tile_w
+    per_tile = tile_w // span_w
+    if band is None:
+        return (tile_spans(setup, span_w, tile_h),
+                (cdiv(width, tile_w) * per_tile, cdiv(height, tile_h)))
+    ntx, nty = band.grid(width, tile_w)
+    ty_hi = (nty - 1 if band.ty_stride > 1
+             else band.ty_lo + ((band.ty_rows if band.ty_rows is not None else nty) - 1))
+    tx_lo = tx_hi = None
+    if band.tx_lo is not None:
+        tx_lo = band.tx_lo * per_tile
+        tx_hi = tx_lo + ntx * per_tile - 1
+    return (tile_spans(setup, span_w, tile_h, band.ty_lo, ty_hi, tx_lo, tx_hi, band.ty_stride),
+            (ntx * per_tile, nty))
 
 
 def tile_pair_counts(tx0, ty0, span_x, span_y, n_tiles_x: int, n_tiles_y: int):

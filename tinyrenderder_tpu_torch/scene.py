@@ -5,9 +5,11 @@ Counterpart of ``tinyrenderder_tpu/scene.py``: the scene description
 ``RenderResult``), the per-model frustum cull (main.cpp:623-736) and the
 per-pass inputs (``build_uniforms`` and the face attributes, in NumPy),
 then ``render_scene`` (the tiled backend's frame loop) and
-``render_scene_image``; ``ops.raster_sparse`` renders.  ``oracle_render``
-is the scene on the NumPy oracle (``_render_oracle``), the bitwise
-reference.
+``render_scene_image``; ``ops.raster_sparse`` renders.  The backends
+"sharded", "sharded-2d" and "sharded-measured" split the frame over the
+ranks of a process group (``parallel.dist``) with the JAX package's
+routing (``_render_sharded``).  ``oracle_render`` is the scene on the
+NumPy oracle (``_render_oracle``), the bitwise reference.
 
 A pass's inputs reach the device once and are reused, as the JAX package
 keeps them: the face attributes on the mesh
@@ -40,6 +42,7 @@ from tinyrenderder_tpu_torch.math3d import Frustum
 from tinyrenderder_tpu_torch.models import procedural
 from tinyrenderder_tpu_torch.models.mesh import Mesh
 from tinyrenderder_tpu_torch.ops import raster, raster_sparse
+from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_H, TILE_W, cdiv
 from tinyrenderder_tpu_torch.shaders import (EyeShader, GouraudShader, PhongShader,
                                              Shader, TexturedShader)
 from tinyrenderder_tpu_torch.utils.stats import RenderStats
@@ -108,30 +111,37 @@ class Scene:
         return "\n".join(lines)
 
     def render(self, device="cuda", frustum_cull: bool = True, collect_stats: bool = True,
-               backend: str = "tiled") -> RenderResult:
+               backend: str = "tiled", mesh=None) -> RenderResult:
         """The frame: ``render_scene`` on ``device`` (the card unless the
-        caller asks for ``"cpu"``), or ``oracle_render`` with
-        ``backend="oracle"``."""
+        caller asks for ``"cpu"``) with ``backend`` "tiled" or one of the
+        sharded backends (over ``mesh``, see ``render_scene``), or
+        ``oracle_render`` with ``backend="oracle"``."""
         if _backend(backend) == "oracle":
             return oracle_render(self, frustum_cull)
-        return render_scene(self, device, frustum_cull, collect_stats)
+        return render_scene(self, device, frustum_cull, collect_stats, backend, mesh)
 
     def render_image(self, device="cuda", frustum_cull: bool = True,
-                     backend: str = "tiled"):
+                     backend: str = "tiled", mesh=None):
         """The (H, W, 3) uint8 image: ``render_scene_image`` on ``device``,
         or the oracle's colour with ``backend="oracle"``."""
         if _backend(backend) == "oracle":
             return oracle_render(self, frustum_cull).color
-        return render_scene_image(self, device, frustum_cull)
+        return render_scene_image(self, device, frustum_cull, backend, mesh)
+
+
+#: the backends that split the frame over a process group's ranks
+SHARDED_BACKENDS = ("sharded", "sharded-2d", "sharded-measured")
 
 
 def _backend(backend: str) -> str:
-    """``backend`` if the port renders it: "tiled" or "oracle"."""
-    if backend in ("tiled", "oracle"):
+    """``backend`` if the port renders it: "tiled", "oracle" or one of
+    ``SHARDED_BACKENDS``."""
+    if backend in ("tiled", "oracle") + SHARDED_BACKENDS:
         return backend
-    if backend.startswith("sharded"):
+    if backend == "sharded-geometry":
         raise NotImplementedError(
-            f"backend {backend!r}: multi-device rendering is not ported yet "
+            "backend 'sharded-geometry': the triangle-sharded frame "
+            "(render_frame_geometry_tiles, its pmin/psum merge) is not ported yet "
             "(ROADMAP.md Queue 1 item 13)")
     if backend == "xla":
         raise NotImplementedError(
@@ -301,7 +311,8 @@ def pass_tensors(scene: Scene, device, frustum_cull: bool = True) -> list:
 
 
 def render_scene(scene: Scene, device, frustum_cull: bool = True,
-                 collect_stats: bool = True) -> RenderResult:
+                 collect_stats: bool = True, backend: str = "tiled",
+                 mesh=None) -> RenderResult:
     """Render every pass of ``scene`` into one tiled frame on ``device``
     (the JAX package's ``render_scene(backend="tiled")``).  ``color``
     (H, W, 3) uint8, ``depth`` (the output depth: the snapshot when the
@@ -310,7 +321,14 @@ def render_scene(scene: Scene, device, frustum_cull: bool = True,
     are exact (``fragments_exact``): each pass reads back its counters
     once, and ``pass_timings["frame"]`` holds the frame's host seconds.
     On a CUDA device every kernel of the route runs on the card; on the
-    CPU the kernels' plain versions run."""
+    CPU the kernels' plain versions run.
+
+    The sharded backends split the frame over ``mesh``'s ranks (default
+    ``dist.make_mesh(device=device)``: the ranks of the initialised
+    process group, each on its own card, or one rank) and render on the
+    mesh's device, with the same pixels and stats (``_render_sharded``)."""
+    if _backend(backend) in SHARDED_BACKENDS:
+        return _render_sharded(scene, device, frustum_cull, collect_stats, backend, mesh)
     device = convert.device_key(device)
     stats = RenderStats()
     visible = _cull_passes(scene, frustum_cull, stats)
@@ -320,20 +338,139 @@ def render_scene(scene: Scene, device, frustum_cull: bool = True,
                                       collect_stats)
     timings = {}
     if collect_stats:
-        for ev in events:
-            agg = raster.pass_stats(ev.setup)
-            stats.triangles_rasterized += agg["triangles"]
-            if agg["valid_triangles"]:
-                stats.merge_bbox(agg["min_x"], agg["min_y"], agg["max_x"], agg["max_y"])
-            frags, min_z, max_z = torch.stack(
-                [ev.fragments.double(), ev.min_z.double(), ev.max_z.double()]).tolist()
-            stats.fragments_drawn += int(frags)
-            if np.isfinite(min_z):
-                stats.merge_z(min_z, max_z)
-        stats.fragments_exact = True
+        _add_events(stats, events)
         timings["frame"] = time.perf_counter() - t0
     return RenderResult(color=fb.color, depth=depth, full_depth=fb.depth,
                         stats=stats, pass_timings=timings)
+
+
+def _add_events(stats: RenderStats, events) -> None:
+    """Each pass's counters into ``stats``: the triangle count and bbox of
+    its setup, its exact fragment count and z range (one readback a
+    pass)."""
+    for ev in events:
+        agg = raster.pass_stats(ev.setup)
+        stats.triangles_rasterized += agg["triangles"]
+        if agg["valid_triangles"]:
+            stats.merge_bbox(agg["min_x"], agg["min_y"], agg["max_x"], agg["max_y"])
+        frags, min_z, max_z = torch.stack(
+            [ev.fragments.double(), ev.min_z.double(), ev.max_z.double()]).tolist()
+        stats.fragments_drawn += int(frags)
+        if np.isfinite(min_z):
+            stats.merge_z(min_z, max_z)
+    stats.fragments_exact = True
+
+
+#: the sharded backends interleave the row bands (rank b owns tile rows b,
+#: b + N, ...), which spreads coverage hot spots over the ranks; False: the
+#: contiguous layout (the same pixels)
+SHARDED_INTERLEAVE = True
+
+
+def _sharded_mesh(device, mesh, backend: str, width: int, height: int):
+    """The mesh a sharded backend renders over: ``mesh`` (its device must
+    be of ``device``'s type) or ``dist.make_mesh(device=device)``, as row
+    bands, or for "sharded-2d" as the most-square grid of blocks that
+    tiles the frame (``_pick_grid``) when it has more than one column."""
+    from tinyrenderder_tpu_torch.parallel import dist
+    if mesh is None:
+        mesh = dist.make_mesh(device=device)
+    elif torch.device(device).type != mesh.device.type:
+        raise ValueError(f"the mesh renders on {mesh.device}, not {device}")
+    if backend == "sharded-2d":
+        grid = _pick_grid(mesh.size, width, height, TILE_H, TILE_W)
+        if grid is not None and grid[1] > 1:
+            return mesh.as_grid(*grid)
+    return mesh.as_rows()
+
+
+def _pick_grid(n_dev: int, width: int, height: int, th: int, tw: int):
+    """Most-square (n_rows, n_cols) factorization of ``n_dev`` whose
+    blocks tile-align with the frame, or None."""
+    best = None
+    for n_cols in range(1, n_dev + 1):
+        if n_dev % n_cols:
+            continue
+        n_rows = n_dev // n_cols
+        if height % (n_rows * th) or width % (n_cols * tw):
+            continue
+        score = abs(n_rows - n_cols)
+        if best is None or score < best[0]:
+            best = (score, n_rows, n_cols)
+    return None if best is None else best[1:]
+
+
+def _sharded_layout(scene: Scene, passes, mesh, backend: str):
+    """(interleave, bands) of a sharded frame, as the JAX package routes
+    it: measured bands for "sharded-measured" on more than one rank,
+    ``even_unequal_bands`` when the frame's tile rows do not divide over
+    the row bands, else interleaved rows (``SHARDED_INTERLEAVE``)."""
+    from tinyrenderder_tpu_torch.parallel import dist
+    n = mesh.size
+    nty = cdiv(scene.height, TILE_H)
+    bands = None
+    if backend == "sharded-measured" and n > 1:
+        bands = _measured_bands_cached(scene, passes, n)
+    elif not mesh.two_d and n > 1 and nty % n:
+        bands = dist.even_unequal_bands(nty, n)
+    return SHARDED_INTERLEAVE and n > 1 and not mesh.two_d and bands is None, bands
+
+
+def _render_sharded(scene: Scene, device, frustum_cull: bool, collect_stats: bool,
+                    backend: str, mesh) -> RenderResult:
+    """The frame with its tile rows (or, "sharded-2d", screen blocks) split
+    over the mesh's ranks: ``dist.render_frame_fused_sharded``, then each
+    band untiled and the frame assembled on every rank.  The same pixels
+    and ``RenderStats`` as the tiled backend: each pass's triangle count
+    and bbox from its whole setup, its fragments summed over the ranks'
+    event planes and its z range their min and max.  A frame that is not
+    tile-aligned renders with the tiled route's cdiv tiles, cropped."""
+    from tinyrenderder_tpu_torch.parallel import dist
+    w, h = scene.width, scene.height
+    mesh = _sharded_mesh(device, mesh, backend, w, h)
+    stats = RenderStats()
+    visible = _cull_passes(scene, frustum_cull, stats)
+    passes = [_tensors(scene, p, mesh.device) for p in visible]
+    t0 = time.perf_counter()
+    if not passes:
+        fb = raster.FrameBuffers(
+            torch.zeros((h, w, 3), dtype=torch.uint8, device=mesh.device),
+            torch.full((h, w), torch.inf, dtype=torch.float32, device=mesh.device),
+            torch.full((h, w), raster.BACKGROUND, dtype=torch.int32, device=mesh.device))
+        depth, events = fb.depth, []
+    else:
+        inter, bands = _sharded_layout(scene, passes, mesh, backend)
+        ft, out_depth_t, events = dist.render_frame_fused_sharded(
+            mesh, passes, w, h, interleave=inter, bands=bands, collect_stats=collect_stats)
+        fb = dist.tiles_to_buffers_sharded(mesh, ft, w, h, interleave=inter, bands=bands)
+        depth = (dist.untile_one_sharded(mesh, out_depth_t, w, h, interleave=inter,
+                                         bands=bands)
+                 if visible[-1].exclude_from_output_depth else fb.depth)
+    timings = {}
+    if collect_stats:
+        _add_events(stats, events)
+        timings["frame"] = time.perf_counter() - t0
+    return RenderResult(color=fb.color, depth=depth, full_depth=fb.depth,
+                        stats=stats, pass_timings=timings)
+
+
+def _measured_bands_cached(scene: Scene, passes, n: int) -> tuple:
+    """The measured-load partition of "sharded-measured"
+    (``dist.balance_bands`` of ``measure_tile_row_costs``), cached on the
+    scene: kept while the frame size, the rank count and every pass's
+    attribute tensor and uniform dict (by identity; the per-pass caches
+    rebuild them when anything they hold changes) stay, else measured
+    again, synchronously (one readback).  Any legal partition gives the
+    same pixels."""
+    from tinyrenderder_tpu_torch.parallel import dist
+    refs = tuple(x for a, _s, u, *_ in passes for x in (a["position"], u))
+    shape = (scene.width, scene.height, n)
+    hit = scene.__dict__.get("_band_cache")
+    if hit is None or hit[0] != shape or not _ref_tuples_match(hit[1], refs):
+        costs = dist.measure_tile_row_costs(passes, scene.width, scene.height)
+        hit = (shape, refs, dist.balance_bands(costs, n))
+        scene.__dict__["_band_cache"] = hit
+    return hit[2]
 
 
 def render_passes(passes, width: int, height: int, device,
@@ -355,22 +492,35 @@ def render_passes(passes, width: int, height: int, device,
     return fb, depth, events
 
 
-def render_scene_image(scene: Scene, device, frustum_cull: bool = True):
+def render_scene_image(scene: Scene, device, frustum_cull: bool = True,
+                       backend: str = "tiled", mesh=None):
     """Render ``scene`` to an (H, W, 3) uint8 image tensor on ``device``.
     A frame of one non-empty colour pass goes straight to the image
-    (``render_frame_fused_image``); any other, a depth-only pass
-    included, goes through ``render_scene`` and returns its colour, as
-    the JAX package routes it.  On a CUDA device every kernel runs on the card; on the CPU the
+    (``render_frame_fused_image``; on the "sharded" backend
+    ``dist.render_frame_fused_image_sharded`` when the frame is
+    tile-aligned); any other, a depth-only pass included, goes through
+    ``render_scene`` and returns its colour, as the JAX package routes it.
+    On a CUDA device every kernel runs on the card; on the CPU the
     kernels' plain versions run."""
-    device = convert.device_key(device)
+    backend = _backend(backend)
     visible = _cull_passes(scene, frustum_cull, RenderStats())
-    if (len(visible) == 1 and visible[0].mesh.nfaces > 0
-            and visible[0].shader.writes_color
-            and not visible[0].exclude_from_output_depth):
+    single = (len(visible) == 1 and visible[0].mesh.nfaces > 0
+              and visible[0].shader.writes_color
+              and not visible[0].exclude_from_output_depth)
+    w, h = scene.width, scene.height
+    if single and backend == "tiled":
+        device = convert.device_key(device)
         return raster_sparse.render_frame_fused_image(
-            [_tensors(scene, visible[0], device)], scene.width, scene.height,
-            tile_h=raster_sparse.pick_tile_h(scene.width, scene.height))
-    return render_scene(scene, device, frustum_cull, collect_stats=False).color
+            [_tensors(scene, visible[0], device)], w, h,
+            tile_h=raster_sparse.pick_tile_h(w, h))
+    if single and backend == "sharded" and h % TILE_H == 0 and w % TILE_W == 0:
+        from tinyrenderder_tpu_torch.parallel import dist
+        mesh = _sharded_mesh(device, mesh, backend, w, h)
+        passes = [_tensors(scene, visible[0], mesh.device)]
+        inter, bands = _sharded_layout(scene, passes, mesh, backend)
+        return dist.render_frame_fused_image_sharded(mesh, passes, w, h, interleave=inter,
+                                                     bands=bands)
+    return render_scene(scene, device, frustum_cull, False, backend, mesh).color
 
 
 def oracle_render(scene: Scene, frustum_cull: bool = True,

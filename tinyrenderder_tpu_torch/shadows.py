@@ -126,14 +126,18 @@ def depth_scene(scene: Scene, light_cam: Camera, settings: ShadowSettings) -> Sc
 
 
 def render_depth_from_light(scene: Scene, light_cam: Camera, settings: ShadowSettings,
-                            device):
+                            device, backend: str = "tiled", mesh=None):
     """Pass 1: the depth of every mesh from the light, an (S, S) float32
     tensor on ``device`` (+inf where nothing is drawn).  One depth-only
     pass through ``render_frame_fused`` with 16-row tiles, no stats (the
-    map is all the pass returns), then ``untile_one`` of its depth."""
+    map is all the pass returns), then ``untile_one`` of its depth; on a
+    sharded backend, the full depth of ``render_scene`` of the light's
+    scene over ``mesh``'s ranks."""
     s = settings.size
-    passes = pass_tensors(depth_scene(scene, light_cam, settings), device,
-                          frustum_cull=False)
+    light = depth_scene(scene, light_cam, settings)
+    if backend != "tiled":
+        return render_scene(light, device, False, False, backend, mesh).full_depth
+    passes = pass_tensors(light, device, frustum_cull=False)
     ft, _, _ = raster_sparse.render_frame_fused(passes, s, s, device, tile_h=TILE_H)
     depth = raster_sparse.untile_one(ft.depth, cdiv(s, TILE_W), cdiv(s, TILE_H), TILE_H,
                                      TILE_W)
@@ -176,16 +180,18 @@ def shadowed_scene(scene: Scene, light_dir, shadow_map, light_cam: Camera,
 
 def render_with_shadows(scene: Scene, light_dir, settings: ShadowSettings | None = None,
                         device="cuda", frustum_cull: bool = True,
-                        collect_stats: bool = True):
+                        collect_stats: bool = True, backend: str = "tiled", mesh=None):
     """The two-pass shadowed frame on ``device`` -> (``RenderResult`` of
     ``render_scene`` on the lit scene, the (S, S) shadow map tensor).  On
     a CUDA device every kernel runs on the card; on the CPU the kernels'
-    plain versions run."""
+    plain versions run.  ``backend``: "tiled", or a sharded backend for
+    both passes (over ``mesh``, see ``scene.render_scene``)."""
     settings = settings or ShadowSettings()
     light_cam = light_camera_for_scene(scene, light_dir, settings)
-    shadow_map = render_depth_from_light(scene, light_cam, settings, device)
+    shadow_map = render_depth_from_light(scene, light_cam, settings, device, backend, mesh)
     lit = shadowed_scene(scene, light_dir, shadow_map, light_cam, settings)
-    return render_scene(lit, device, frustum_cull, collect_stats), shadow_map
+    return (render_scene(lit, device, frustum_cull, collect_stats, backend, mesh),
+            shadow_map)
 
 
 def oracle_render_with_shadows(scene: Scene, light_dir,
