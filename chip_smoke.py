@@ -127,7 +127,20 @@ Phases, one line each (any failure exits non-zero before the last line):
      2x2 grid, the stress scene on ``even_unequal_bands`` and measured
      bands) on the three rasters, every stitched frame and image == the
      f32 oracle; #1, #1s, #4 and #4s with ``y_stride`` on an interleaved
-     band == their plain versions.
+     band == their plain versions;
+ 18. the triangle-sharded backend (``sharded-geometry``: each pass's faces
+     split over the ranks, the coarse raster on every rank over the whole
+     frame, the min/min/sum merge): the headline through
+     ``Scene.render_image`` / ``Scene.render`` in a world of one rank ==
+     the f32 oracle; 4 ranks emulated on the card (the headline, the
+     stress scene, the 3-pass scene at 1200x800 and ``shadow_phong_800``
+     through ``render_with_shadows``), each frame with stats and without
+     == the f32 oracle, stats equal, and the headline on 7 ranks (a short
+     last block) == the oracle; the coarse raster launched once per rank
+     and pass whose block reaches a tile; the one-rank geometry frame timed
+     in five rounds of turns with ``render_frame_fused`` (and their
+     profiler device times), each emulated rank's body on the stress pass
+     (device time) and the bytes a colour pass's all-reduces would move.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -225,11 +238,12 @@ def event_ms(fn, warmup: int = WARMUP, reps: int = FRAMES, before=None) -> float
     return statistics.median(times)
 
 
-def device_ms(fn, names) -> dict[str, float]:
+def device_ms(fn, names, calls: dict | None = None) -> dict[str, float]:
     """Mean device time of one call of ``fn``, in ms, for each of ``names``
     that a CUDA kernel's name holds, from a ``torch.profiler`` trace of
     FRAMES calls after WARMUP; a name no kernel of the trace holds is
-    left out."""
+    left out.  ``calls``, if given, receives the mean number of those
+    device events (kernels, copies, fills) a call, by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -245,6 +259,8 @@ def device_ms(fn, names) -> dict[str, float]:
         hit = [n for n in names if n in e.name]
         if e.device_type == DeviceType.CUDA and hit:
             ms[hit[0]] = ms.get(hit[0], 0.0) + e.time_range.elapsed_us() / FRAMES / 1e3
+            if calls is not None:
+                calls[hit[0]] = calls.get(hit[0], 0.0) + 1 / FRAMES
     return ms
 
 
@@ -1646,6 +1662,197 @@ def sharded_phase(smi: str, head_scene, head_ref, stress_scene, stress_ref, reco
     return totals
 
 
+def geometry_launches(n_ranks: int, passes, width: int, height: int) -> int:
+    """The coarse raster launches of one triangle-sharded frame: one per
+    rank and pass whose block of faces reaches a tile of the frame."""
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    from tinyrenderder_tpu_torch.parallel import dist
+    total = 0
+    for attrs, shader, uniforms, _ in passes:
+        for r in range(n_ranks):
+            lo, hi = dist.face_block(attrs["position"].shape[0], n_ranks, r)
+            if hi > lo:
+                block = {k: v[lo:hi] for k, v in attrs.items()}
+                total += rs.pre_sparse(block, uniforms, shader, width, height).n_active > 0
+    return total
+
+
+def geometry_phase(smi: str, head_scene, head_ref, stress_scene, stress_ref, mm_scene, mm_ref,
+                   shadow) -> dict:
+    """[18 geometry]: the triangle-sharded backend (``sharded-geometry``).
+    A world of one rank: the headline through ``Scene.render_image`` and
+    ``Scene.render`` == the f32 oracle.  4 ranks emulated on the card
+    (``dist.emulated_mesh``; NCCL refuses two ranks on one GPU): the
+    headline (6,840 faces a rank), the stress scene (61,560), the 3-pass
+    scene at 1200x800 and ``shadow_phong_800`` through
+    ``render_with_shadows``, each frame with stats and without == the f32
+    oracle bitwise, stats equal; the headline on 7 ranks (27,360 faces in
+    blocks of 3,909, the last 3,906).  The coarse raster launches once per
+    rank and pass whose block reaches a tile (``geometry_launches``), the
+    three-plane untile once per frame, and a frame with stats also runs
+    the stats raster (its one-rank replay).  Then the one-rank geometry
+    frame against ``render_frame_fused`` in five rounds of turns, each
+    emulated rank's body on the stress pass and the all-reduce bytes.
+    ``shadow``: (scene, key light, settings, the oracle's frame and map,
+    the light pass and the lit passes).  -> main-path launches."""
+    import numpy as np
+    import torch
+
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch import shadows
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_H, TILE_W, cdiv
+    from tinyrenderder_tpu_torch.parallel import dist
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(launch_counts(), 0)
+    backend = "sharded-geometry"
+    sh_scene, sh_key, sh_settings, sh_ref, sh_map, light_passes, lit_passes = shadow
+
+    def count(fn, what, need):
+        """``counted(fn)``, the counts added to the phase's; fails unless
+        each kernel of ``need`` launched as many times as it says."""
+        result, counts = counted(fn)
+        for k, v in counts.items():
+            totals[k] += v
+        for k, n in need.items():
+            if (counts[k] != n) if n else not counts[k]:
+                fail(f"{what}: {k} launched {counts[k]} times, not {n or 'at least once'}: "
+                     f"{counts}")
+        return result, counts
+
+    def frames(what, sc, ref, mesh, passes, w, h, render=None):
+        """The frame with stats and without through ``render`` (default
+        ``sc.render``) on ``mesh``, == ``ref``; -> the launches of each."""
+        render = render or (lambda stats: sc.render(DEVICE, collect_stats=stats,
+                                                    backend=backend, mesh=mesh))
+        need = {"coarse_raster": geometry_launches(mesh.size, passes, w, h),
+                "untile3_image": 1}
+        res, ls = count(lambda: render(True), f"{what} with stats",
+                        {**need, "coarse_raster_stats": 0})
+        res0, l0 = count(lambda: render(False), f"{what} without stats", need)
+        same_frame(f"{what} with stats", res, ref)
+        for plane in ("color", "depth", "full_depth"):
+            if not torch.equal(getattr(res0, plane), getattr(res, plane)):
+                fail(f"{what}: the frame without stats differs ({plane})")
+        return ls, l0
+
+    # ---- a world of one rank ----
+    mesh1 = dist.make_mesh(device=DEVICE)
+    passes = tscene.pass_tensors(head_scene, DEVICE)
+    one = geometry_launches(1, passes, WIDTH, HEIGHT)
+    image, li = count(lambda: head_scene.render_image(DEVICE, backend=backend),
+                      "the one-rank geometry image", {"coarse_raster": one, "untile3_image": 1})
+    same_image("one-rank render_image(backend='sharded-geometry')", image, head_ref.color)
+    ls, l0 = frames("one-rank render(backend='sharded-geometry')", head_scene, head_ref, mesh1,
+                    passes, WIDTH, HEIGHT, lambda stats: head_scene.render(
+                        DEVICE, collect_stats=stats, backend=backend))
+    say(f"[18 geometry] world of one rank ({mesh1.size} rank on {mesh1.device}): headline "
+        f"{WIDTH}x{HEIGHT} render_image and render (with stats and without) with "
+        f"backend='sharded-geometry' == f32 oracle bitwise, stats equal; launches render_image "
+        f"{nonzero(li)}, render {nonzero(ls)}, no stats {nonzero(l0)}")
+
+    # ---- ranks emulated on the card ----
+    stress_passes = tscene.pass_tensors(stress_scene, DEVICE)
+    mm_passes = tscene.pass_tensors(mm_scene, DEVICE)
+    cases = {  # name: (scene, ref, passes, w, h, ranks)
+        "headline": (head_scene, head_ref, passes, WIDTH, HEIGHT, 4),
+        "stress": (stress_scene, stress_ref, stress_passes, WALL_W, WALL_H, 4),
+        f"multimesh_{REF_W}x{REF_H}": (mm_scene, mm_ref, mm_passes, REF_W, REF_H, 4),
+        "headline, uneven": (head_scene, head_ref, passes, WIDTH, HEIGHT, 7),
+    }
+    for name, (sc, ref, ps, w, h, n) in cases.items():
+        mesh = dist.emulated_mesh(n, device=DEVICE)
+        ls, l0 = frames(f"{name} on {n} ranks", sc, ref, mesh, ps, w, h)
+        blocks = [[hi - lo for lo, hi in (dist.face_block(a["position"].shape[0], n, r)
+                                          for r in range(n))] for a, *_ in ps]
+        say(f"[18 geometry] {name} {w}x{h} on {n} emulated ranks (faces a rank "
+            f"{blocks if len(blocks) > 1 else blocks[0]}): frame with stats and without == f32 "
+            f"oracle bitwise, stats equal; launches {nonzero(ls)}, no stats {nonzero(l0)}")
+    mesh4 = dist.emulated_mesh(4, device=DEVICE)
+
+    def shadowed(stats):
+        res, smap = shadows.render_with_shadows(sh_scene, sh_key, sh_settings, DEVICE,
+                                                frustum_cull=False, collect_stats=stats,
+                                                backend=backend, mesh=mesh4)
+        diff, err = bits_equal(smap.cpu(), torch.from_numpy(sh_map))
+        if diff:
+            fail(f"shadow_phong_{SHADOW_W} on 4 ranks: {diff} texels of the map differ from the "
+                 f"f32 oracle's light pass (max abs err {err})")
+        return res
+
+    need = {"coarse_raster": geometry_launches(4, light_passes, SHADOW_SIZE, SHADOW_SIZE)
+            + geometry_launches(4, lit_passes, SHADOW_W, SHADOW_H), "untile3_image": 2}
+    res, ls = count(lambda: shadowed(True), "the shadowed frame with stats",
+                    {**need, "coarse_raster_stats": 0})
+    res0, l0 = count(lambda: shadowed(False), "the shadowed frame without stats", need)
+    same_frame(f"shadow_phong_{SHADOW_W} on 4 ranks", res, sh_ref)
+    for plane in ("color", "depth", "full_depth"):
+        if not torch.equal(getattr(res0, plane), getattr(res, plane)):
+            fail(f"shadow_phong_{SHADOW_W} on 4 ranks: the frame without stats differs")
+    say(f"[18 geometry] shadow_phong_{SHADOW_W} through render_with_shadows on 4 emulated ranks "
+        f"(the {SHADOW_SIZE}² light pass and the lit frame split): map == f32 oracle light "
+        f"pass, frame with stats and without == f32 oracle bitwise, stats equal; launches "
+        f"{nonzero(ls)}, no stats {nonzero(l0)}")
+
+    # ---- timing: the one-rank geometry frame against the fused frame ----
+    th = rs.pick_tile_h(WIDTH, HEIGHT)
+
+    def geometry_frame():
+        ft, _ = dist.render_frame_geometry_tiles(mesh1, passes, WIDTH, HEIGHT, th)
+        return rs.tiles_to_buffers(ft, WIDTH, HEIGHT, th).color
+
+    def fused_frame():
+        ft, _, _ = rs.render_frame_fused(passes, WIDTH, HEIGHT, DEVICE, tile_h=th)
+        return rs.tiles_to_buffers(ft, WIDTH, HEIGHT, th).color
+
+    if not torch.equal(geometry_frame(), fused_frame()):
+        fail("the one-rank geometry frame differs from render_frame_fused's")
+    rounds = [[event_ms(fn) for fn in (geometry_frame, fused_frame, fused_frame,
+                                       geometry_frame)] for _ in range(MESH1_ROUNDS)]
+    arms = {"geometry": [t for r in rounds for t in (r[0], r[3])],
+            "fused": [t for r in rounds for t in (r[1], r[2])]}
+    ratios = [(r[0] + r[3]) / (r[1] + r[2]) for r in rounds]
+    device = {"geometry": device_total(geometry_frame), "fused": device_total(fused_frame)}
+    say(f"[18 timing] head_phong_{WIDTH} on one rank (th {th}): render_frame_geometry_tiles + "
+        f"tiles_to_buffers "
+        + "; render_frame_fused + tiles_to_buffers ".join(
+            f"{statistics.median(v):.3f} ms/frame (turns {min(v):.3f}-{max(v):.3f}, device "
+            f"{device[k]:.3f})" for k, v in arms.items())
+        + f"; geometry/fused a round {', '.join(f'{x:.3f}' for x in ratios)}, median "
+        f"{statistics.median(ratios):.3f}; device geometry - fused "
+        f"{device['geometry'] - device['fused']:.3f} ms (CUDA events, {WARMUP} warm-up + median "
+        f"of {FRAMES} a turn, {MESH1_ROUNDS} rounds of turns geometry, fused, fused, geometry; "
+        f"device: torch.profiler, every kernel, copy and fill of a frame) | {smi}")
+
+    # ---- each emulated rank's body on the stress pass, and the merge's bytes ----
+    s_attrs, s_shader, s_uniforms, _ = stress_passes[0]
+    block = cdiv(s_attrs["position"].shape[0], 4)
+
+    def body_device(mesh, r):
+        """(device ms, device events) of one call of rank r's body."""
+        calls = {}
+        ms = device_ms(lambda: dist.geometry_rank(mesh, r, s_attrs, s_shader, s_uniforms,
+                                                  WALL_W, WALL_H), ("",), calls)
+        return sum(ms.values()), sum(calls.values())
+
+    body = [body_device(mesh4, r) for r in range(4)]
+    whole = body_device(mesh1, 0)
+    say(f"[18 timing] stress {WALL_W}x{WALL_H} (th {TILE_H}), each emulated rank's body "
+        f"(geometry_rank: pre_sparse, the coarse raster, shading and the scatters of its "
+        f"{block} faces), device ms (device events a call): "
+        + ", ".join(f"rank {r} {t:.3f} ({k:.0f})" for r, (t, k) in enumerate(body))
+        + f"; sum {sum(t for t, _ in body):.3f}, the one-rank body {whole[0]:.3f} "
+        f"({whole[1]:.0f}) (emulated in turn, not a scaling result; torch.profiler) | {smi}")
+    for w, h, t in ((WIDTH, HEIGHT, th), (WALL_W, WALL_H, TILE_H)):
+        plane = cdiv(w, TILE_W) * cdiv(h, t) * t * TILE_W * 4
+        say(f"[18 merge] {w}x{h} (th {t}): a colour pass all-reduces 3 planes (min depth, min "
+            f"winner id, sum colour) of {plane} B each = {3 * plane} B a rank "
+            f"({3 * plane / 2**20:.1f} MiB); a depth-only pass 2 planes, {2 * plane} B")
+    say(f"[18 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
+    return totals
+
+
 def animation_phase(smi: str) -> dict:
     """[15 animation]: the orbit of ``bench.py::bench_animation`` /
     ``bench_animation_tga`` (the 3-mesh scene at 2048², no frustum cull)
@@ -2469,8 +2676,9 @@ def main() -> int:
 
     # ---- 12. shadow_phong_800: the shadowed frame against the oracle ----
     t0 = time.perf_counter()
-    ref, ref_map = shadows.oracle_render_with_shadows(sh_scene, sh_key, sh_settings,
-                                                      frustum_cull=False)
+    ref, ref_map = sh_oracle = shadows.oracle_render_with_shadows(sh_scene, sh_key,
+                                                                  sh_settings,
+                                                                  frustum_cull=False)
     sh_oracle_s = time.perf_counter() - t0
     l_attrs, l_shader, l_uniforms, _ = light_pass
     l_pre = rs.pre_sparse(l_attrs, l_uniforms, l_shader, SHADOW_SIZE, SHADOW_SIZE, TILE_H,
@@ -2556,6 +2764,12 @@ def main() -> int:
     # ---- 17. the sharded backends: one rank, and 4 ranks emulated ----
     add_launches(sharded_phase(smi, scene, head_ref, walls["stress"], oracles["stress"],
                                record))
+
+    # ---- 18. the triangle-sharded backend: one rank, 4 and 7 ranks emulated ----
+    add_launches(geometry_phase(smi, scene, head_ref, walls["stress"], oracles["stress"],
+                                frames["multimesh"], oracles["multimesh"],
+                                (sh_scene, sh_key, sh_settings, *sh_oracle, [light_pass],
+                                 lit_passes)))
 
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")

@@ -1,5 +1,6 @@
-"""The port's sharded backends ("sharded", "sharded-2d",
-"sharded-measured") through its entry points against the JAX package's:
+"""The port's pixel-split sharded backends ("sharded", "sharded-2d",
+"sharded-measured") through its entry points against the JAX package's
+("sharded-geometry" has tests/test_torch_parallel_geometry.py):
 ``Scene.render`` with exact stats, ``Scene.render_image``,
 ``shadows.render_with_shadows`` and the CLI.
 
@@ -17,19 +18,18 @@ bitwise, with the one exception the reference makes
 its own float32 NumPy oracle by 1 LSB (its colour contract), the port's
 is the oracle's."""
 
-import os
 import socket
 
 import pytest
 import torch
 
-from torch_parity import (SHADOW_KEY, assert_bits, assert_colour, blocker_scene, run_jax,
-                          sharded_scene, spawn_ranks, stats_vector)
+from torch_parity import (SHADOW_KEY, assert_bits, assert_colour, blocker_scene, cli_rank,
+                          run_jax, sharded_scene, spawn_ranks, stats_vector)
 from tinyrenderder_tpu_torch import cli, math3d, shadows
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.parallel import dist
 
-BACKENDS = tscene.SHARDED_BACKENDS
+BACKENDS = ("sharded", "sharded-2d", "sharded-measured")
 RANKS = 4
 #: scene cases: name -> (sharded_scene kind, w, h): the 3-pass frame (eyes
 #: excluded in the middle), one colour pass (the image route), a frame
@@ -115,13 +115,6 @@ def test_render_with_shadows_matches_jax(jax_side, oracles, backend):
     _check_frame(res, want, ref, f"shadowed {backend}")
 
 
-def test_sharded_geometry_is_not_ported():
-    scene = sharded_scene("head", "port", 128, 64)
-    for call in (scene.render, scene.render_image):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-            call("cpu", backend="sharded-geometry")
-
-
 def test_sharded_backends_render_on_the_card_unless_asked():
     """With no mesh given, the ranks of the process group (here one)
     render on the card: without one that raises; ``device="cpu"`` renders
@@ -139,14 +132,6 @@ def test_sharded_backends_render_on_the_card_unless_asked():
             scene.render("cuda", backend="sharded", mesh=_mesh())
 
 
-def _cli_rank(rank, world, port, argv):
-    """One torchrun-style rank of ``test_cli_under_two_gloo_ranks``."""
-    torch.set_num_threads(1)
-    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    assert cli.run(argv) == 0
-
-
 def test_cli_under_two_gloo_ranks(tmp_path):
     """The CLI with ``--backend sharded`` started as torchrun starts it (the
     process group from the environment, here two gloo ranks on the CPU):
@@ -157,7 +142,7 @@ def test_cli_under_two_gloo_ranks(tmp_path):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    spawn_ranks(_cli_rank, (2, port, args + ["--backend", "sharded", "--outdir",
+    spawn_ranks(cli_rank, (2, port, args + ["--backend", "sharded", "--outdir",
                                              str(tmp_path / "sharded")]), 2)
     for name in ("phong", "zbuffer", "ao", "final"):
         assert (tmp_path / "sharded" / f"{name}.tga").read_bytes() == \

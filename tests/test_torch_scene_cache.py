@@ -299,23 +299,19 @@ def test_default_device_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("name", list(FRAMES))
 def test_backends(name):
-    """"oracle" is ``oracle_render``; the row-band and block backends render
-    (here a world of one rank) the oracle's frame; "sharded-geometry" and
-    the XLA scan path raise, naming where they stand in ROADMAP.md."""
+    """"oracle" is ``oracle_render``; the sharded backends render (here a
+    world of one rank) the oracle's frame; the XLA scan path raises,
+    naming where it stands in ROADMAP.md."""
     sc = frame_scene(name)
     want = tscene.oracle_render(sc)
     same_frame(sc.render(backend="oracle"), want, "render oracle")
     assert_bits(sc.render_image(backend="oracle"), want.color, "render_image oracle")
     same_frame(sc.render(CPU), want, "tiled on the CPU")
     assert_bits(sc.render_image(CPU).numpy(), want.color, "image on the CPU")
-    for backend in ("sharded", "sharded-2d", "sharded-measured"):
+    for backend in tscene.SHARDED_BACKENDS:
         same_frame(sc.render(CPU, backend=backend), want, f"{backend} on the CPU")
         assert_bits(sc.render_image(CPU, backend=backend).numpy(), want.color,
                     f"{backend} image on the CPU")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sc.render(CPU, backend="sharded-geometry")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        sc.render_image(CPU, backend="sharded-geometry")
     with pytest.raises(NotImplementedError, match="out of the port's scope"):
         sc.render(CPU, backend="xla")
     with pytest.raises(ValueError, match="unknown backend"):

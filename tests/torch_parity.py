@@ -160,15 +160,26 @@ def sharded_scene(kind: str, side: str, w: int, h: int):
     """A scene of the sharded backends' tests: "multimesh" (3 passes, the
     eyes excluded in the middle), "eyes_last" (the same passes, the eyes
     last: the frame ends inside the excluded run), "head" (its first pass
-    alone: one colour pass) or "culled" (``culled_scene``, whose size is
-    its own)."""
+    alone: one colour pass), "depth_head" (the head through
+    ``DepthShader``, a depth-only pass, then the room) or "culled"
+    (``culled_scene``, whose size is its own)."""
     if kind == "culled":
         return culled_scene(side)
     scene = multimesh_scene(side, w, h)
     head, eyes, room = scene.passes
+    if kind == "depth_head":
+        head.shader = make_shader("depth", side)
     scene.passes = {"multimesh": [head, eyes, room], "eyes_last": [head, room, eyes],
-                    "head": [head]}[kind]
+                    "head": [head], "depth_head": [head, room]}[kind]
     return scene
+
+
+def cut_passes(passes, cut):
+    """Each pass tuple's faces cut to the first ``cut[i]`` (all where
+    negative): face counts that no rank count divides, or fewer faces
+    than ranks."""
+    return [({k: v if n < 0 else v[:n] for k, v in attrs.items()}, *rest)
+            for (attrs, *rest), n in zip(passes, cut)]
 
 
 def frame_scene(name: str, side: str = "port"):
@@ -271,6 +282,16 @@ def spawn_ranks(fn, args: tuple, nprocs: int, timeout: float = 180.0) -> None:
             for proc in ctx.processes:
                 proc.kill()
             raise AssertionError(f"{nprocs} ranks still running after {timeout} s")
+
+
+def cli_rank(rank, world, port, argv):
+    """One torchrun-style rank of ``cli.run(argv)`` (for ``spawn_ranks``):
+    the process group from the environment, as torchrun sets it."""
+    from tinyrenderder_tpu_torch import cli
+    torch.set_num_threads(1)
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    assert cli.run(argv) == 0
 
 
 def run_jax(requests: dict, tmp_dir, devices: int = 1) -> dict:
@@ -758,6 +779,7 @@ def _jax_sharded_scene(r):
     scene = sharded_scene(kind, "jax", int(r["w"]), int(r["h"]))
     backend = str(r["backend"])
     _clear_sharded()
+    _clear_capacities()        # the triangle-sharded frame's capacities
     res = scene.render(backend=backend)
     out = {k: np.asarray(getattr(res, k)) for k in ("color", "depth", "full_depth")}
     out.update(stats=stats_vector(res.stats),
@@ -765,6 +787,57 @@ def _jax_sharded_scene(r):
                else out["color"])
     _clear_sharded()
     return out
+
+
+def _jax_geometry(r):
+    """``dist.render_frame_geometry_tiles`` of a ``sharded_scene`` (its
+    passes cut by ``cut_passes`` where ``cut`` is given) on ``n`` virtual
+    devices, then ``tiles_to_buffers`` and the output depth untiled and
+    cropped: the tile planes, the buffers and the output depth."""
+    from tinyrenderder_tpu.ops import raster_sparse
+    from tinyrenderder_tpu.parallel import dist
+    w, h, n = int(r["w"]), int(r["h"]), int(r["n"])
+    passes = _jax_passes(sharded_scene(str(r["scene"]), "jax", w, h))
+    if "cut" in r:
+        passes = cut_passes(passes, r["cut"].tolist())
+    _clear_capacities()
+    ft, od = dist.render_frame_geometry_tiles(dist.make_mesh(n), passes, w, h)
+    fb = raster_sparse.tiles_to_buffers(ft, w, h)
+    out_depth = raster_sparse._untile_one_jit(od, -(-w // 128), -(-h // 16), 16, 128,
+                                              True)[:h, :w]
+    _clear_capacities()
+    return {"color_t": np.asarray(ft.color), "depth_t": np.asarray(ft.depth),
+            "winner_t": np.asarray(ft.winner), "out_depth_t": np.asarray(od),
+            "color": np.asarray(fb.color), "depth": np.asarray(fb.depth),
+            "winner": np.asarray(fb.winner), "out_depth": np.asarray(out_depth)}
+
+
+def view_pass(eye_z: float, w: int, h: int, side: str):
+    """One side's OraclePass of the standard head (normal-mapped Phong)
+    seen from (0, 0, ``eye_z``): tests/test_parallel.py's far and near
+    views of a moving camera."""
+    from helpers import default_view
+    view, proj = default_view(eye=(0, 0, eye_z), aspect=w / h)
+    return make_pass(standard_meshes(side)["head"], make_shader("phong", side), view, proj,
+                     side)
+
+
+def _jax_view_frame(r):
+    """``raster_sparse.render_frame_fused`` (interpret mode, 16-row tiles)
+    of ``view_pass`` and ``tiles_to_buffers``: the single-device frame."""
+    import jax.numpy as jnp
+
+    from tinyrenderder_tpu.ops import raster_sparse
+    w, h = int(r["w"]), int(r["h"])
+    p = view_pass(float(r["eye_z"]), w, h, "jax")
+    attrs = {k: jnp.asarray(v) for k, v in p.attrs.items()}
+    _clear_capacities()
+    ft, _, overflow = raster_sparse.render_frame_fused(
+        [(attrs, p.shader, dict(p.uniforms), False)], w, h, tile_h=16, strict_capacity=True,
+        interpret=True)
+    assert not bool(overflow)
+    fb = raster_sparse.tiles_to_buffers(ft, w, h, 16)
+    return {k: np.asarray(getattr(fb, k)) for k in ("color", "depth", "winner")}
 
 
 def _jax_post(r):
@@ -833,7 +906,8 @@ def _main(req_path, out_path):
            "shadows": _jax_shadows, "dense": _jax_dense, "strip_proto": _jax_strip_proto,
            "rank": _jax_rank, "inplace": _jax_inplace, "pre_sparse": _jax_pre_sparse,
            "row_costs": _jax_row_costs, "sharded_frame": _jax_sharded,
-           "sharded_image": _jax_sharded, "sharded_scene": _jax_sharded_scene}
+           "sharded_image": _jax_sharded, "sharded_scene": _jax_sharded_scene,
+           "geometry_frame": _jax_geometry, "view_frame": _jax_view_frame}
     requests: dict = {}
     with np.load(req_path) as z:
         for key in z.files:

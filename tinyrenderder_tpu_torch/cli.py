@@ -1,7 +1,7 @@
 """Command-line front end of the PyTorch port (main.cpp:469-807).
 
     python -m tinyrenderder_tpu_torch.cli [model] --device cuda|cpu \\
-        [--backend tiled|oracle|sharded|sharded-2d|sharded-measured] \\
+        [--backend tiled|oracle|sharded|sharded-2d|sharded-measured|sharded-geometry] \\
         [--width W] [--height H] [--outdir DIR] \\
         [--no-cull] [--no-ssao] [--image-only] [--shadows [--shadow-size S]] \\
         [--animate N] [--profile]
@@ -21,10 +21,11 @@ place.  ``--animate N`` renders an N-frame orbit of the scene instead
 ``--profile`` records a ``torch.profiler`` trace of the render (CPU, and
 CUDA on a CUDA device) into ``<outdir>/trace/trace.json``.
 
-The sharded backends split the frame over the ranks of a process group
-(``parallel/dist.py``).  Started under torchrun, every rank renders its
-share on its own card (``cuda:<LOCAL_RANK>``; gloo ranks with ``--device
-cpu``) and rank 0 alone writes the files:
+The sharded backends split the frame (or, ``sharded-geometry``, each
+pass's faces) over the ranks of a process group (``parallel/dist.py``).
+Started under torchrun, every rank renders its share on its own card
+(``cuda:<LOCAL_RANK>``; gloo ranks with ``--device cpu``) and rank 0
+alone writes the files:
 
     torchrun --nproc-per-node=N -m tinyrenderder_tpu_torch.cli --backend sharded
 
@@ -171,7 +172,8 @@ def run(argv=None) -> int:
                              "NumPy oracle on the host (slow; keep frames small); "
                              "sharded, sharded-2d, sharded-measured: the frame split "
                              "over the ranks (row bands, screen blocks, measured "
-                             "bands; under torchrun, one rank a process)")
+                             "bands), sharded-geometry: each pass's faces split over "
+                             "the ranks (under torchrun, one rank a process)")
     parser.add_argument("--width", type=int, default=WIDTH)
     parser.add_argument("--height", type=int, default=HEIGHT)
     parser.add_argument("--outdir", default=".")

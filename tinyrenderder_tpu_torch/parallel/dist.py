@@ -1,13 +1,15 @@
 """Multi-rank rendering over ``torch.distributed``: the frame's tile rows
-(or screen blocks) split over the ranks of a process group.
+(or screen blocks), or each pass's faces, split over the ranks of a
+process group.
 
-Counterpart of the row-band and block backends of
+Counterpart of the row-band, block and triangle-sharded backends of
 ``tinyrenderder_tpu/parallel/dist.py`` (``render_frame_fused_sharded``,
 ``render_frame_fused_image_sharded`` and their untile helpers, the
-partition helpers of measured bands).  There ``shard_map`` runs the fused
-frame once per device of a mesh; here each rank of a process group runs
-the same band body, ``raster_sparse.render_frame_fused`` (or the image
-route) with a ``raster_tiled.Band``:
+partition helpers of measured bands, ``render_frame_geometry_tiles``).
+There ``shard_map`` runs the fused frame once per device of a mesh; here
+each rank of a process group runs the same band body,
+``raster_sparse.render_frame_fused`` (or the image route) with a
+``raster_tiled.Band``:
 
   * every rank bins the triangles against its own band of the tile grid
     only and rasterizes its tiles at their global pixels (the band's
@@ -35,9 +37,22 @@ the one device and the gathers are concatenations.  The tests and
 ``chip_smoke.py`` use it, as the JAX tests use virtual CPU devices; NCCL
 refuses two ranks on one GPU.
 
+The triangle-sharded frame (``render_frame_geometry_tiles``, the JAX
+package's function of that name) splits the other way: per-triangle work,
+for high-poly scenes at small frames.  Rank r takes the contiguous,
+submission-ordered block of each pass's faces ``face_block`` gives it,
+bins it over every tile of the frame and rasterizes it on +inf tiles with
+the coarse raster (``geometry_rank``), whatever ``FINE_MODE`` says.  The
+ranks' pass-local full-frame planes merge exactly
+(``render_pass_geometry_tiles``): depth is the all-reduce min, the winner
+the least global face id among the ranks that reach that depth (the
+first-drawn rule, our_gl.cpp:165) and the colour an all-reduce sum with
+exactly one contributor a pixel.  The frame is replicated on every rank.
+
 Each rank reads back its totals once per pass, as the single-rank route
 does, so the JAX package's capacity cache, its async capacity bookkeeping
-and its overflow flags have no counterpart here.
+and its overflow flags have no counterpart here: the first frame after a
+camera move is exact.
 """
 
 from __future__ import annotations
@@ -52,15 +67,17 @@ import torch.distributed as tdist
 from tinyrenderder_tpu_torch import convert
 from tinyrenderder_tpu_torch.ops import raster_sparse
 from tinyrenderder_tpu_torch.ops.raster import FrameBuffers
+from tinyrenderder_tpu_torch.ops.raster_coarse import coarse_raster
 from tinyrenderder_tpu_torch.ops.raster_sparse import FrameTiles, PassEvents
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, GeomSplit, cdiv,
-                                                      vertex_stage)
+                                                      n_vary_of, vertex_stage)
 
 __all__ = ["Mesh", "make_mesh", "make_mesh_grid", "emulated_mesh", "band_of", "render_rank",
            "render_frame_fused_sharded", "render_frame_fused_image_sharded",
            "tiles_to_buffers_sharded", "untile_one_sharded", "blocks_to_flat_tiles",
            "even_unequal_bands", "balance_bands", "measure_tile_row_costs",
-           "measure_tile_row_costs_device"]
+           "measure_tile_row_costs_device", "face_block", "geometry_rank",
+           "render_pass_geometry_tiles", "render_frame_geometry_tiles"]
 
 
 @dataclass(frozen=True)
@@ -154,6 +171,22 @@ def _all_gather(mesh: Mesh, tensors) -> list[list[torch.Tensor]]:
         tdist.all_gather(parts, x)
         out.append([p.to(torch.bool) for p in parts] if t.dtype == torch.bool else parts)
     return [list(col) for col in zip(*out)]
+
+
+def _all_reduce(mesh: Mesh, xs, op: str) -> torch.Tensor:
+    """The element-wise ``op`` ("min" or "sum") over the ranks: on a process
+    group ``xs`` holds this rank's one tensor, reduced by ``all_reduce``
+    (NCCL on CUDA ranks, gloo on CPU ranks); on an emulated mesh it holds
+    every rank's, in rank order."""
+    if mesh.rank is not None and mesh.size > 1:
+        (x,) = xs
+        out = x.clone()
+        tdist.all_reduce(out, tdist.ReduceOp.MIN if op == "min" else tdist.ReduceOp.SUM)
+        return out
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch.minimum(out, x) if op == "min" else out + x
+    return out
 
 
 def _cat(xs, dim: int = 0):
@@ -522,3 +555,115 @@ def blocks_to_flat_tiles(x, width: int, height: int, n_rows: int, n_cols: int,
     dev = (ty // band_ty) * n_cols + (tx // band_tx)
     local = (ty % band_ty) * band_tx + (tx % band_tx)
     return x[dev * (band_ty * band_tx) + local]
+
+
+# ---------------------------------------------------------------------------
+# the triangle-sharded frame
+# ---------------------------------------------------------------------------
+
+#: the merge's "no candidate" face id: above every face id of a frame
+_GEOM_BIG = 1 << 30
+
+
+def face_block(n_faces: int, n_ranks: int, rank: int) -> tuple[int, int]:
+    """[lo, hi) of ``rank``'s contiguous block of ``n_faces`` faces: blocks
+    of ceil(max(F, 1) / N) faces in rank order, the last ones short or
+    empty.  The JAX package pads the faces to N blocks with degenerate
+    ones instead; the face ids come out the same."""
+    size = cdiv(max(n_faces, 1), n_ranks)
+    return min(rank * size, n_faces), min((rank + 1) * size, n_faces)
+
+
+def geometry_rank(mesh: Mesh, rank: int, attrs: dict, shader, uniforms: dict, width: int,
+                  height: int, tile_h: int = TILE_H, tile_w: int = TILE_W):
+    """The body ``rank`` runs for one pass of the triangle-sharded frame:
+    its block of the faces (``face_block``) through ``pre_sparse`` over
+    every tile of the frame and the coarse raster on +inf tiles, scattered
+    into pass-local full-frame planes -> (FrameTiles, the block's first
+    face id).  Depth is +inf, the winner (the block's own face id) -1 and
+    the packed colour 0 where the block draws nothing; a depth-only pass
+    shades nothing.  An empty block launches nothing."""
+    lo, hi = face_block(attrs["position"].shape[0], mesh.size, rank)
+    ft = raster_sparse.new_frame_tiles(width, height, mesh.device, tile_h, tile_w)
+    if hi == lo:
+        return ft, lo
+    block = {k: v[lo:hi] for k, v in attrs.items()}
+    pre = raster_sparse.pre_sparse(block, uniforms, shader, width, height, tile_h, tile_w)
+    init = torch.full((pre.n_active, tile_h, tile_w), torch.inf, dtype=torch.float32,
+                      device=mesh.device)
+    depth_c, winner_c, vary_c = coarse_raster(pre.tri_rec, pre.sorted_tri, pre.ids, pre.start,
+                                              pre.counts, init, cdiv(width, tile_w), tile_h,
+                                              tile_w, n_vary_of(shader))
+    idl = pre.ids.long()
+    ft.depth.index_copy_(0, idl, depth_c)
+    ft.winner.index_copy_(0, idl, winner_c)
+    if shader.writes_color:
+        ft.color.index_copy_(0, idl, raster_sparse.shade_compact_fresh(winner_c, vary_c,
+                                                                       uniforms, shader))
+    return ft, lo
+
+
+def render_pass_geometry_tiles(mesh: Mesh, ft: FrameTiles, attrs: dict, shader,
+                               uniforms: dict, width: int, height: int, winner_offset: int = 0,
+                               tile_h: int = TILE_H, tile_w: int = TILE_W) -> FrameTiles:
+    """One pass with its faces split over ``mesh``'s ranks, merged into
+    the replicated frame ``ft`` (not written in place) -> the new frame.
+    Each rank runs ``geometry_rank`` (every rank in turn on an emulated
+    mesh); the merge is the JAX package's, exact:
+
+      depth   the all-reduce min ``zmin``, where it beats the frame's;
+      winner  the all-reduce min of the global ids (block id + the block's
+              first face) of the ranks whose depth is ``zmin`` there: the
+              first-drawn of the pass's faces at that depth;
+      colour  the all-reduce sum of each rank's packed colour where it
+              holds that winner (one rank does), 0 elsewhere.
+
+    A depth-only pass keeps the frame's colour and makes only the two min
+    reductions.  A pass with no faces renders nothing."""
+    if attrs["position"].shape[0] == 0:
+        return ft
+    ranks = range(mesh.size) if mesh.rank is None else (mesh.rank,)
+    parts = [geometry_rank(mesh, r, attrs, shader, uniforms, width, height, tile_h, tile_w)
+             for r in ranks]
+    zmin = _all_reduce(mesh, [p.depth for p, _ in parts], "min")
+    better = zmin < ft.depth
+    cand = [torch.where((p.winner >= 0) & (p.depth == zmin) & better, p.winner + lo, _GEOM_BIG)
+            for p, lo in parts]
+    gwin = _all_reduce(mesh, cand, "min")
+    drawn = better & (gwin < _GEOM_BIG)
+    depth = torch.where(better, zmin, ft.depth)
+    winner = torch.where(drawn, gwin + winner_offset, ft.winner)
+    if not shader.writes_color:
+        return FrameTiles(ft.color, depth, winner)
+    color = _all_reduce(mesh, [torch.where(drawn & (c == gwin), p.color, 0)
+                               for (p, _), c in zip(parts, cand)], "sum")
+    return FrameTiles(torch.where(drawn, color, ft.color), depth, winner)
+
+
+def render_frame_geometry_tiles(mesh: Mesh, passes, width: int, height: int,
+                                tile_h: int = TILE_H, tile_w: int = TILE_W):
+    """Render a multi-pass frame with each pass's faces split over
+    ``mesh``'s ranks (``render_pass_geometry_tiles``) -> (FrameTiles,
+    output depth tiles), replicated on every rank.  ``passes`` as
+    ``raster_sparse.render_frame_fused`` takes them, on the mesh's device;
+    winner ids run on over the passes.  Depth is snapshot before the first
+    pass of a run of excluded passes and restored before the next pass
+    that is not excluded (main.cpp:700,730); the output depth is the
+    snapshot when the frame ends inside an excluded run.  A frame that is
+    not tile-aligned renders on ``cdiv`` tiles; crop after the untile."""
+    ft = raster_sparse.new_frame_tiles(width, height, mesh.device, tile_h, tile_w)
+    offset = 0
+    snapshot = None
+    in_excluded = False
+    for attrs, shader, uniforms, exclude in passes:
+        if exclude:
+            if not in_excluded:
+                snapshot = ft.depth                    # main.cpp:700
+                in_excluded = True
+        elif in_excluded:
+            ft = ft._replace(depth=snapshot)           # main.cpp:730
+            in_excluded = False
+        ft = render_pass_geometry_tiles(mesh, ft, attrs, shader, uniforms, width, height,
+                                        offset, tile_h, tile_w)
+        offset += attrs["position"].shape[0]
+    return ft, (snapshot if in_excluded else ft.depth)

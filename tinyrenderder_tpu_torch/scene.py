@@ -6,10 +6,11 @@ Counterpart of ``tinyrenderder_tpu/scene.py``: the scene description
 per-pass inputs (``build_uniforms`` and the face attributes, in NumPy),
 then ``render_scene`` (the tiled backend's frame loop) and
 ``render_scene_image``; ``ops.raster_sparse`` renders.  The backends
-"sharded", "sharded-2d" and "sharded-measured" split the frame over the
-ranks of a process group (``parallel.dist``) with the JAX package's
-routing (``_render_sharded``).  ``oracle_render`` is the scene on the
-NumPy oracle (``_render_oracle``), the bitwise reference.
+"sharded", "sharded-2d" and "sharded-measured" split the frame, and
+"sharded-geometry" each pass's faces, over the ranks of a process group
+(``parallel.dist``) with the JAX package's routing (``_render_sharded``).
+``oracle_render`` is the scene on the NumPy oracle (``_render_oracle``),
+the bitwise reference.
 
 A pass's inputs reach the device once and are reused, as the JAX package
 keeps them: the face attributes on the mesh
@@ -129,8 +130,9 @@ class Scene:
         return render_scene_image(self, device, frustum_cull, backend, mesh)
 
 
-#: the backends that split the frame over a process group's ranks
-SHARDED_BACKENDS = ("sharded", "sharded-2d", "sharded-measured")
+#: the backends that split the frame (or, "sharded-geometry", each pass's
+#: faces) over a process group's ranks
+SHARDED_BACKENDS = ("sharded", "sharded-2d", "sharded-measured", "sharded-geometry")
 
 
 def _backend(backend: str) -> str:
@@ -138,11 +140,6 @@ def _backend(backend: str) -> str:
     ``SHARDED_BACKENDS``."""
     if backend in ("tiled", "oracle") + SHARDED_BACKENDS:
         return backend
-    if backend == "sharded-geometry":
-        raise NotImplementedError(
-            "backend 'sharded-geometry': the triangle-sharded frame "
-            "(render_frame_geometry_tiles, its pmin/psum merge) is not ported yet "
-            "(ROADMAP.md Queue 1 item 13)")
     if backend == "xla":
         raise NotImplementedError(
             "backend 'xla': the JAX package's scan path is out of the port's scope "
@@ -323,10 +320,11 @@ def render_scene(scene: Scene, device, frustum_cull: bool = True,
     On a CUDA device every kernel of the route runs on the card; on the
     CPU the kernels' plain versions run.
 
-    The sharded backends split the frame over ``mesh``'s ranks (default
-    ``dist.make_mesh(device=device)``: the ranks of the initialised
-    process group, each on its own card, or one rank) and render on the
-    mesh's device, with the same pixels and stats (``_render_sharded``)."""
+    The sharded backends split the frame (or each pass's faces) over
+    ``mesh``'s ranks (default ``dist.make_mesh(device=device)``: the ranks
+    of the initialised process group, each on its own card, or one rank)
+    and render on the mesh's device, with the same pixels and stats
+    (``_render_sharded``)."""
     if _backend(backend) in SHARDED_BACKENDS:
         return _render_sharded(scene, device, frustum_cull, collect_stats, backend, mesh)
     device = convert.device_key(device)
@@ -424,7 +422,14 @@ def _render_sharded(scene: Scene, device, frustum_cull: bool, collect_stats: boo
     and ``RenderStats`` as the tiled backend: each pass's triangle count
     and bbox from its whole setup, its fragments summed over the ranks'
     event planes and its z range their min and max.  A frame that is not
-    tile-aligned renders with the tiled route's cdiv tiles, cropped."""
+    tile-aligned renders with the tiled route's cdiv tiles, cropped.
+
+    "sharded-geometry" splits each pass's faces over the ranks instead
+    (``dist.render_frame_geometry_tiles``) and untiles the replicated
+    frame.  A rank's running depth is not the frame's there, so with
+    ``collect_stats`` the counters come from a replay of the passes
+    through the one-rank stats route on the mesh's device (the JAX
+    package's ``_accumulate_exact_events``)."""
     from tinyrenderder_tpu_torch.parallel import dist
     w, h = scene.width, scene.height
     mesh = _sharded_mesh(device, mesh, backend, w, h)
@@ -438,6 +443,12 @@ def _render_sharded(scene: Scene, device, frustum_cull: bool, collect_stats: boo
             torch.full((h, w), torch.inf, dtype=torch.float32, device=mesh.device),
             torch.full((h, w), raster.BACKGROUND, dtype=torch.int32, device=mesh.device))
         depth, events = fb.depth, []
+    elif backend == "sharded-geometry":
+        ft, out_depth_t = dist.render_frame_geometry_tiles(mesh, passes, w, h)
+        fb, depth = _buffers(ft, out_depth_t, passes, w, h, TILE_H)
+        events = (raster_sparse.render_frame_fused(passes, w, h, mesh.device, TILE_H,
+                                                   collect_stats=True)[2]
+                  if collect_stats else None)
     else:
         inter, bands = _sharded_layout(scene, passes, mesh, backend)
         ft, out_depth_t, events = dist.render_frame_fused_sharded(
@@ -483,13 +494,18 @@ def render_passes(passes, width: int, height: int, device,
     th = raster_sparse.pick_tile_h(width, height)
     ft, out_depth_t, events = raster_sparse.render_frame_fused(
         passes, width, height, device, tile_h=th, collect_stats=collect_stats)
-    fb = raster_sparse.tiles_to_buffers(ft, width, height, tile_h=th)
+    return (*_buffers(ft, out_depth_t, passes, width, height, th), events)
+
+
+def _buffers(ft, out_depth_t, passes, width: int, height: int, tile_h: int):
+    """A tiled frame -> (FrameBuffers, output depth (H, W)): the output
+    depth of a frame that ends inside a run of excluded passes is the
+    snapshot, untiled on its own."""
+    fb = raster_sparse.tiles_to_buffers(ft, width, height, tile_h=tile_h)
     if not (passes and passes[-1][3]):
-        return fb, fb.depth, events
-    tw = raster_sparse.TILE_W
-    depth = raster_sparse.untile_image(out_depth_t, None, raster_sparse.cdiv(width, tw),
-                                       raster_sparse.cdiv(height, th), th, tw, height, width)
-    return fb, depth, events
+        return fb, fb.depth
+    return fb, raster_sparse.untile_image(out_depth_t, None, cdiv(width, TILE_W),
+                                          cdiv(height, tile_h), tile_h, TILE_W, height, width)
 
 
 def render_scene_image(scene: Scene, device, frustum_cull: bool = True,
