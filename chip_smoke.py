@@ -47,8 +47,11 @@ Phases, one line each (any failure exits non-zero before the last line):
      scripts' kernels (``tinyrenderder_tpu_torch/experimental``): the
      prototype strip raster on the script's head, soup and cube Gouraud
      passes at 128x64 (with the script's own check against
-     ``coarse_raster_plain`` over 8-row tiles) and on the headline head at
-     2048² (8-row tiles, through ``strip_rasterize``), the pair-rank kernel
+     ``coarse_raster_plain`` over 8-row tiles; one launch each), on two
+     piles of ties cut into several ranges, and on the headline head at
+     2048² (8-row tiles, through ``strip_rasterize``; its split's items,
+     the kernels a call launches, and in turns the walk alone over every
+     group against the split walk), the pair-rank kernel
      on the script's 60,000 synthetic triangles, on 246,240 of the same
      distribution and on a one-strip pile of 246,240 (also against
      ``reference_ranks``), the in-place block update on the probe's image
@@ -180,10 +183,12 @@ SHADED_SIZE = 800
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 #: the replaced designs' times through the user function (PERF.md §6,
 #: NVIDIA H100 80GB HBM3 at 700 W): the rank kernel's one block walking its
-#: 128-triangle chunks in order, and the block update's on-device
-#: deduplication launches before its kernel; printed as "before"
+#: 128-triangle chunks in order, the block update's on-device
+#: deduplication launches before its kernel, and the prototype strip
+#: raster's one block a group walking all of its rows (the headline head);
+#: printed as "before"
 SERIAL_MS = {"rank_pairs 60000 synthetic": 2.3708, "rank_pairs 246240 synthetic": 8.3540,
-             "inplace_blocks": 0.3364}
+             "inplace_blocks": 0.3364, "strip_raster_proto": 0.3219}
 #: bytes written before a cold-L2 timing: twice the H100's 50 MB L2
 FLUSH_BYTES = 128 << 20
 #: a 3-pass frame whose width is not a multiple of 16 (nor its height of
@@ -829,11 +834,11 @@ def untile_sass(lib: Path) -> dict:
     return counts
 
 
-#: the split-walk kernels of the three rasters: raster_coarse.cu's, and
-#: raster_strip.cuh's, shared by the strip and grouped strip rasters
+#: the split-walk kernels of the rasters: raster_coarse.cu's, raster_strip.cuh's,
+#: shared by the strip and grouped strip rasters, and fine_raster.cu's (#7)
 SPLIT_KERNELS = ("item_scan_kernel", "coarse_walk_kernel", "coarse_merge_kernel",
                  "coarse_events_kernel", "strip_walk_kernel", "strip_merge_kernel",
-                 "strip_events_kernel")
+                 "strip_events_kernel", "proto_walk_kernel", "proto_merge_kernel")
 
 
 def ptxas_kernels(log: str, names) -> dict[str, str]:
@@ -1037,6 +1042,7 @@ def experimental_kernels(head_pass, active_ids, th: int, smi: str):
     import numpy as np
     import torch
 
+    from tinyrenderder_tpu_torch import _build
     from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
     from tinyrenderder_tpu_torch.experimental import inplace_blocks as xib
     from tinyrenderder_tpu_torch.experimental import rank_kernel as xrk
@@ -1056,39 +1062,82 @@ def experimental_kernels(head_pass, active_ids, th: int, smi: str):
 
     # #7 the prototype strip raster: the script's three Gouraud passes at
     # 128x64 (and the script's own check against the production raster),
-    # then the headline head at 2048², 8-row tiles
+    # the tie piles, then the headline head at 2048², 8-row tiles
+    r7 = xfr.range_rows()
+
+    def proto_kernels(fn, recs):
+        """The kernels a call launches, failing unless they are the split
+        walk's three where the records outgrow one range, else the walk alone."""
+        want = (["item_scan_kernel", "proto_walk_kernel", "proto_merge_kernel"]
+                if recs.shape[1] > r7 else ["proto_walk_kernel"])
+        got = call_kernels(fn)
+        if got != want:
+            fail(f"strip_raster_proto on records {tuple(recs.shape)} launched {got}, not {want}")
+        return got
+
     w, h = 128, 64
     for name, setup in xfr.script_setups(DEVICE, w, h).items():
-        recs, rows, ntx, _ = xfr.build_strip_records(setup, w, h)
+        recs, rows, ntx, _, total = xfr.build_strip_records(setup, w, h)
         init = torch.full((recs.shape[0], xfr.TILE_H, TILE_W), torch.inf, device=DEVICE)
-        same_planes(f"strip_raster_proto, script's {name}", ("depth", "winner"),
-                    xfr.strip_raster(recs, rows, init, ntx),
+        call = partial(xfr.strip_raster, recs, rows, init, ntx, row_total=total)
+        same_planes(f"strip_raster_proto, script's {name}", ("depth", "winner"), call(),
                     xfr.strip_raster_plain(recs, rows, init, ntx))
+        kern = proto_kernels(call, recs)
         cov_ok, win_ok, ulps, shape = xfr.check_against_coarse(setup, w, h)
         if not cov_ok or ulps > 4:
             fail(f"the script's check on {name}: coverage_ok={cov_ok} depth_ulps={ulps}")
         say(f"[3 experimental] strip_raster_proto, script's {name} {w}x{h}: kernel == plain "
-            f"bitwise; the script's check against coarse_raster_plain over 8-row tiles: "
-            f"coverage_ok={cov_ok} winners_ok={win_ok} depth_ulps={ulps} recs={shape}")
+            f"bitwise, {len(kern)} launch a call ({', '.join(kern)}); the script's check "
+            f"against coarse_raster_plain over 8-row tiles: coverage_ok={cov_ok} "
+            f"winners_ok={win_ok} depth_ulps={ulps} recs={shape}")
+    for n_tie in (100, 300):
+        recs, rows, init, ntx = (t.to(DEVICE) if torch.is_tensor(t) else t
+                                 for t in xfr.tie_pile(n_tie))
+        got = xfr.strip_raster(recs, rows, init, ntx)
+        same_planes(f"strip_raster_proto, tie pile of {n_tie}", ("depth", "winner"), got,
+                    xfr.strip_raster_plain(recs, rows, init, ntx))
+        wins = sorted(torch.unique(got[1]).tolist())
+        if wins != [0, 1, n_tie + 2]:
+            fail(f"strip_raster_proto, tie pile of {n_tie}: winners {wins}")
+        kern = proto_kernels(partial(xfr.strip_raster, recs, rows, init, ntx,
+                                     row_total=int(rows[0])), recs)
+        say(f"[3 experimental] strip_raster_proto, tie pile of {n_tie} ties + 3 rows "
+            f"({-(-int(rows[0]) // r7)} ranges of {r7}): kernel == plain bitwise; winners "
+            f"{wins} (the first drawn keeps every tie across the ranges, the nearer "
+            f"triangle where it covers); {len(kern)} launches a call ({', '.join(kern)})")
     h_attrs, h_shader, h_uniforms = head_pass
     setup = vertex_stage(h_attrs, h_uniforms, h_shader, WIDTH, HEIGHT)[0]
     init_img = torch.full((HEIGHT, WIDTH), torch.inf, device=DEVICE)
     (d_img, w_img, shape), n7 = main_path(
         "strip_raster_proto", lambda: xfr.strip_rasterize(setup, init_img, WIDTH, HEIGHT))
-    recs, rows, ntx, nty = xfr.build_strip_records(setup, WIDTH, HEIGHT)
+    recs, rows, ntx, nty, row_sum = xfr.build_strip_records(setup, WIDTH, HEIGHT)
     init_t = to_tiles(init_img, nty, ntx, xfr.TILE_H, TILE_W, torch.inf)
-    k7 = xfr.strip_raster(recs, rows, init_t, ntx)
+    call7 = partial(xfr.strip_raster, recs, rows, init_t, ntx, row_total=row_sum)
+    k7 = call7()
     err7 = same_planes("strip_raster_proto, headline", ("depth", "winner"), k7,
                        xfr.strip_raster_plain(recs, rows, init_t, ntx))
     from tinyrenderder_tpu_torch.ops.raster_sparse import untile_one_plain
     same_planes("strip_rasterize, headline", ("depth", "winner"), (d_img, w_img),
                 [untile_one_plain(x, ntx, nty, xfr.TILE_H, TILE_W)[:HEIGHT, :WIDTH]
                  for x in k7])
-    ms7 = event_ms(lambda: xfr.strip_raster(recs, rows, init_t, ntx))
-    plain7 = time_plain(lambda: xfr.strip_raster_plain(recs, rows, init_t, ntx))
     g = recs.shape[0]
+
+    def walk_alone():
+        """The walk alone over every group: one block a group walking all
+        of its rows, the schedule of the kernel before the split."""
+        d, wn = torch.empty_like(init_t), torch.empty_like(init_t, dtype=torch.int32)
+        _build.call("trt_strip_proto", recs.device, recs.data_ptr(), rows.data_ptr(), g,
+                    recs.shape[1], init_t.data_ptr(), d.data_ptr(), wn.data_ptr(), ntx, g, None)
+        return d, wn
+    same_planes("strip_raster_proto, headline, the walk alone", ("depth", "winner"),
+                walk_alone(), k7)
+    kern7 = proto_kernels(call7, recs)
+    ms7 = event_ms(call7)
+    alone_ms, split_ms = in_turns(walk_alone, call7)
+    dev7 = device_ms(call7, ("item_scan", "proto_walk", "proto_merge"))
+    plain7 = time_plain(lambda: xfr.strip_raster_plain(recs, rows, init_t, ntx))
+    items7, longest7 = split_shape(rows, r7)
     pairs = int((recs.view(g, recs.shape[1], 8, 16)[..., 9] >= 0).sum())
-    row_sum = int(rows.sum())
     b7 = bound(row_sum * TILE_W * 4 + g * 4 + 3 * g * xfr.TILE_H * TILE_W * 4,
                pairs * xfr.TILE_H * 16 * OPS_TEST)
     bins = bin_triangles_csr(setup, WIDTH, HEIGHT, TILE_W, th)
@@ -1099,8 +1148,14 @@ def experimental_kernels(head_pass, active_ids, th: int, smi: str):
                                                 TILE_W, 0))
     say(f"[3 experimental] strip_raster_proto, headline head {WIDTH}x{HEIGHT} ({g} groups of "
         f"8x128, recs {shape}, {pairs} strip pairs, {row_sum} rows walked, "
-        f"{int((w_img >= 0).sum())} pixels won): kernel == plain bitwise, strip_rasterize == "
-        f"the kernel's tiles untiled; kernel {ms7:.4f} ms, plain {plain7:.4f} ms, library none, "
+        f"{int((w_img >= 0).sum())} pixels won): kernel == plain bitwise, == the walk alone, "
+        f"strip_rasterize == the kernel's tiles untiled; split: {items7} items of <= {r7} rows "
+        f"(longest {longest7}, the longest group {int(rows.max())}), "
+        f"{int((rows > r7).sum())} groups of more than one range, {int((rows == 0).sum())} "
+        f"of no row, {len(kern7)} launches a call ({', '.join(kern7)}); kernel {ms7:.4f} ms, "
+        f"device {device_text(dev7)}; in turns the walk alone (one block a group) "
+        f"{alone_ms:.4f} -> split {split_ms:.4f} ms; the serial kernel before (recorded): "
+        f"{ms_text(SERIAL_MS['strip_raster_proto'])}; plain {plain7:.4f} ms, library none, "
         f"bound {b7[0]:.4f} ms ({b7[1]}); yardstick: the depth-only dense coarse launch on "
         f"the same pass ({th}-row tiles) {dense_ms:.4f} ms; launches {n7} | {smi}")
     entries["strip_raster_proto"] = {
@@ -2039,7 +2094,8 @@ def main() -> int:
     range_rows = _build.constant("trt_fine2_range_rows")
     say(f"[2 build] split walks: ranges of {range_pairs} pairs (coarse), {rf.range_rows(16)} "
         f"and {rf.range_rows(32)} slot rows (strips, 16- and 32-row tiles), {range_rows} slot "
-        f"rows (grouped strips); " + "; ".join(
+        f"rows (grouped strips), {_build.constant('trt_proto_range_rows')} record rows "
+        f"(prototype strips, #7); " + "; ".join(
             f"{k} {v}" for k, v in ptxas_kernels(lib.with_suffix(".log").read_text(),
                                                  SPLIT_KERNELS).items()))
 

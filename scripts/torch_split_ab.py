@@ -5,14 +5,18 @@
     python3 scripts/torch_split_ab.py kernels --root DIR --tag NAME
     python3 scripts/torch_split_ab.py stages --root DIR --tag NAME
 
+``--only TEXT`` (variants, kernels) keeps the workloads whose name holds
+TEXT, and "#4 headline", the yardstick.
+
 ``variants``: builds the kernel library once for each combination of the
 ``--set`` values of integer constants of ``csrc/*.cu*`` (``constexpr int
 NAME = V;``, e.g. ``kRangePairs`` and ``kWarpCols`` of
 ``raster_coarse.cu``, ``kRangeRows`` of ``raster_fine2.cu``, both files'
 ``kMinBlocks`` and ``kMinBlocksStats32``, ``kTileRangeArea``,
 ``kTileMinBlocks`` and ``kTileMinBlocksStats32`` of ``raster_fine.cu``,
-``kMergeRows`` and ``kMergeAhead`` of ``raster_common.cuh``, edited in a
-copy of ``csrc`` under ``build/split_ab/``), checks every raster of each
+``kMergeRows`` and ``kMergeAhead`` of ``raster_common.cuh``,
+``kProtoRangeRows`` of ``fine_raster.cu``, edited in a copy of ``csrc``
+under ``build/split_ab/``), checks every raster of each
 build bitwise against its plain version, and times them in turns (the
 builds in order, then in reverse; the mean of each build's two CUDA-event
 medians): the coarse raster on the 2048² headline pass and on the 246k
@@ -21,8 +25,9 @@ strip raster on the headline pass, on the stress pass, and with stats on
 the 2048² head pass after the room and on the room pass after the head
 (whose tiles all fit one range: as the route calls it), the grouped strip
 raster on the stress pass pass-local and seeded with the 1280x800 room's
-depth with stats, and the dense launch on the headline pass and on the
-1024² light pass of shadow_phong_800.  Each line also gives the
+depth with stats, the dense launch on the headline pass and on the
+1024² light pass of shadow_phong_800, and the prototype strip raster (#7)
+on the headline head's 8x128 groups.  Each line also gives the
 profiler's device time per kernel and the ratio to the strip raster on
 the headline pass.
 
@@ -163,10 +168,28 @@ def workloads(cs):
              TILE_W, n_vary_of(d_shader))
         out[name] = (lambda d=d: rc.dense_raster(*d),
                      lambda d=d, e=every: rc.coarse_raster_plain(*d[:2], e, *d[2:]))
+
+    # #7 through the wrapper as strip_rasterize calls it (with the row
+    # total where the checkout's build_strip_records returns one)
+    from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
+    setup7 = vertex_stage(head[0], head[2], head[1], w, h)[0]
+    recs7, rows7, ntx7, nty7, *total7 = xfr.build_strip_records(setup7, w, h)
+    kw7 = {"row_total": total7[0]} if total7 else {}
+    init7 = to_tiles(torch.full((h, w), torch.inf, device=dev), nty7, ntx7, xfr.TILE_H, TILE_W,
+                     torch.inf)
+    out["#7 headline head"] = (lambda: xfr.strip_raster(recs7, rows7, init7, ntx7, **kw7),
+                               lambda: xfr.strip_raster_plain(recs7, rows7, init7, ntx7))
     return out
 
 
-def variants(settings: dict[str, list[int]]) -> None:
+def selected(cs, only: str | None):
+    """``workloads`` whose name holds ``only`` (all where it is None), and
+    the yardstick "#4 headline"."""
+    return {k: v for k, v in workloads(cs).items()
+            if only is None or only in k or k == "#4 headline"}
+
+
+def variants(settings: dict[str, list[int]], only: str | None = None) -> None:
     import itertools
 
     import chip_smoke as cs
@@ -187,7 +210,7 @@ def variants(settings: dict[str, list[int]]) -> None:
         _build._CONSTANT_VALUES.clear()
 
     use(builds[0])
-    work = workloads(cs)
+    work = selected(cs, only)
     for name, (kernel, plain) in work.items():
         want = plain()
         for n in builds:
@@ -222,10 +245,10 @@ def checkout(root: Path):
     return cs
 
 
-def kernels(root: Path, tag: str) -> None:
+def kernels(root: Path, tag: str, only: str | None = None) -> None:
     cs = checkout(root)
     smi = cs.nvidia_smi()
-    for name, (kernel, _) in workloads(cs).items():
+    for name, (kernel, _) in selected(cs, only).items():
         print(json.dumps({"tag": tag, "workload": name, "ms": cs.event_ms(kernel),
                           "card": smi}), flush=True)
 
@@ -268,17 +291,22 @@ def main() -> None:
     sub = ap.add_subparsers(dest="mode", required=True)
     v = sub.add_parser("variants")
     v.add_argument("--set", action="append", required=True, metavar="NAME=V1,V2")
+    v.add_argument("--only")
     for mode in ("kernels", "stages"):
         s = sub.add_parser(mode)
         s.add_argument("--root", type=Path, default=ROOT)
         s.add_argument("--tag", required=True)
+        if mode == "kernels":
+            s.add_argument("--only")
     args = ap.parse_args()
     if args.mode == "variants":
         sys.path.insert(0, str(ROOT))
         variants({k: [int(x) for x in vs.split(",")]
-                  for k, vs in (item.split("=", 1) for item in args.set)})
+                  for k, vs in (item.split("=", 1) for item in args.set)}, args.only)
+    elif args.mode == "kernels":
+        kernels(args.root.resolve(), args.tag, args.only)
     else:
-        {"kernels": kernels, "stages": stages}[args.mode](args.root.resolve(), args.tag)
+        stages(args.root.resolve(), args.tag)
 
 
 if __name__ == "__main__":

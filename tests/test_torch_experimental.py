@@ -115,8 +115,10 @@ def jax_out(strip_inputs, rank_inputs, tmp_path_factory):
 @pytest.mark.parametrize("name", list(STRIP))
 def test_strip_records_match_script(strip_inputs, jax_out, name):
     _, w, h, _ = STRIP[name]
-    recs, rows, ntx, nty = fine_raster.build_strip_records(strip_inputs[name][0], w, h)
+    recs, rows, ntx, nty, row_total = fine_raster.build_strip_records(strip_inputs[name][0],
+                                                                      w, h)
     assert (ntx, nty) == (-(-w // 128), -(-h // 8))
+    assert row_total == int(rows.sum())
     assert_bits(recs.numpy(), jax_out[name]["recs"], "records")
     assert_bits(rows.numpy(), jax_out[name]["rows"], "rows")
 
@@ -144,13 +146,108 @@ def test_strip_prototype_passes_the_scripts_check(scene):
 
 
 def test_strip_raster_refuses_bad_shapes(strip_inputs):
-    recs, rows, ntx, nty = fine_raster.build_strip_records(strip_inputs["head_128x64"][0],
-                                                           128, 64)
+    recs, rows, ntx, _, _ = fine_raster.build_strip_records(strip_inputs["head_128x64"][0],
+                                                            128, 64)
     init = torch.full((rows.shape[0], 8, 128), torch.inf)
     with pytest.raises(ValueError, match="rows"):
         fine_raster.strip_raster(recs, rows.long(), init, ntx)
     with pytest.raises(ValueError, match="init_tiles"):
         fine_raster.strip_raster(recs, rows, init[:, :4].contiguous(), ntx)
+
+
+def _strip_case(strip_inputs, name, device="cpu"):
+    """(recs, rows, init tiles, n_tiles_x, row total) of STRIP case ``name``."""
+    setup, init = strip_inputs[name]
+    _, w, h, _ = STRIP[name]
+    setup = {k: v.to(device) for k, v in setup.items()}
+    recs, rows, ntx, nty, row_total = fine_raster.build_strip_records(setup, w, h)
+    init_t = fine_raster.to_tiles(torch.from_numpy(init).to(device), nty, ntx, 8, 128,
+                                  torch.inf)
+    return recs, rows, init_t, ntx, row_total
+
+
+def _zero_rows_case(strip_inputs):
+    """The ragged head_200x60 with every even group emptied (rows 0, every
+    slot empty) -> (recs, rows, init tiles, n_tiles_x, the emptied groups)."""
+    recs, rows, init_t, ntx, _ = _strip_case(strip_inputs, "head_200x60")
+    zero = torch.arange(rows.shape[0]) % 2 == 0
+    assert (rows[zero] > 0).any() and (rows[~zero] > 0).any()
+    recs = recs.clone()
+    slots = recs.view(rows.shape[0], recs.shape[1], 8, 16)
+    slots[zero] = 0.0
+    slots[zero, ..., fine_raster.NFIELD - 1] = -1.0
+    return recs, torch.where(zero, 0, rows), init_t, ntx, zero
+
+
+def _past_rows_case(strip_inputs):
+    """head_128x64 with each group's rows past ``rows[g]`` filled with a
+    live triangle over the whole screen, nearer than anything (id 7777):
+    the kernel must never read them.  -> (the dirty records, rows, init
+    tiles, n_tiles_x, the clean records)."""
+    recs, rows, init_t, ntx, _ = _strip_case(strip_inputs, "head_128x64")
+    g, m, _ = recs.shape
+    past = torch.arange(m)[None, :] >= rows[:, None]
+    assert past.any()
+    fill = torch.zeros(8, 16)
+    fill[:, :fine_raster.NFIELD] = torch.tensor([-1e4, -1e4, 3e4, -1e4, -1e4, 3e4,
+                                                 0.0, 0.0, 0.0, 7777.0])
+    dirty = recs.clone()
+    dirty.view(g, m, 8, 16)[past] = fill
+    return dirty, rows, init_t, ntx, recs
+
+
+@pytest.mark.parametrize("range_len", [1, 3, 8])
+@pytest.mark.parametrize("name", list(STRIP))
+def test_strip_split_plain_matches_plain(strip_inputs, name, range_len):
+    """The kernel's decomposition (ranges merged in order) == the serial
+    walk, bitwise."""
+    recs, rows, init_t, ntx, _ = _strip_case(strip_inputs, name)
+    want = fine_raster.strip_raster_plain(recs, rows, init_t, ntx)
+    got = fine_raster.strip_raster_split_plain(recs, rows, init_t, ntx, range_len)
+    for a, b in zip(got, want):
+        assert_bits(a.numpy(), b.numpy(), f"{name}, ranges of {range_len}")
+
+
+def test_strip_tie_pile_keeps_the_first_drawn():
+    """100 ties in every strip, cut into ranges of 32: the first drawn
+    (id 0; id 1 where slot 3 of row 0 is empty) wins, the farther
+    triangle never, the nearer one where it covers, past an empty row."""
+    recs, rows, init_t, ntx = fine_raster.tie_pile(100)
+    depth, winner = fine_raster.strip_raster_plain(recs, rows, init_t, ntx)
+    for a, b in zip(fine_raster.strip_raster_split_plain(recs, rows, init_t, ntx, 32),
+                    (depth, winner)):
+        assert_bits(a.numpy(), b.numpy(), "tie pile, ranges of 32")
+    w = winner[0].view(8, 8, 16)                                  # (row, strip, column)
+    nearer = w == 102
+    assert nearer.any() and not nearer.all() and not (w == 100).any()
+    assert (w[~nearer] == torch.where(torch.arange(8) == 3, 1, 0)[None, :, None]
+            .expand_as(w)[~nearer]).all()
+    assert (depth[0][winner[0] == 102] < 0.3).all() and (depth[0][winner[0] < 100] > 0.4).all()
+
+
+@pytest.mark.parametrize("version", ["plain", "wrapper", "split"])
+def test_strip_zero_rows_return_init(strip_inputs, version):
+    """A group of no row keeps its init depth and winner -1, on the plain
+    version, the wrapper's CPU path and the split decomposition; the other
+    groups are as before."""
+    recs, rows, init_t, ntx, zero = _zero_rows_case(strip_inputs)
+    fn = {"plain": fine_raster.strip_raster_plain, "wrapper": fine_raster.strip_raster,
+          "split": lambda *a: fine_raster.strip_raster_split_plain(*a, 3)}[version]
+    depth, winner = fn(recs, rows, init_t, ntx)
+    assert_bits(depth[zero].numpy(), init_t[zero].numpy(), "depth of the empty groups")
+    assert (winner[zero] == -1).all()
+    assert torch.isfinite(init_t[zero]).any()                    # the seeded init
+    want = fine_raster.strip_raster_plain(*_strip_case(strip_inputs, "head_200x60")[:4])
+    for a, b in zip((depth, winner), want):
+        assert_bits(a[~zero].numpy(), b[~zero].numpy(), "the other groups")
+
+
+def test_strip_split_plain_never_reads_past_rows(strip_inputs):
+    dirty, rows, init_t, ntx, clean = _past_rows_case(strip_inputs)
+    want = fine_raster.strip_raster_plain(clean, rows, init_t, ntx)
+    assert (fine_raster.strip_raster_plain(dirty, rows, init_t, ntx)[1] == 7777).any()
+    for a, b in zip(fine_raster.strip_raster_split_plain(dirty, rows, init_t, ntx, 8), want):
+        assert_bits(a.numpy(), b.numpy(), "rows past rows[g]")
 
 
 # ---------------------------------------------------------------------------
@@ -269,17 +366,58 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(STRIP))
 def test_cuda_strip_raster_matches_plain(strip_inputs, cuda_device, name):
-    setup, init = strip_inputs[name]
-    _, w, h, _ = STRIP[name]
-    setup = {k: v.to(cuda_device) for k, v in setup.items()}
-    recs, rows, ntx, nty = fine_raster.build_strip_records(setup, w, h)
-    init_t = fine_raster.to_tiles(torch.from_numpy(init).to(cuda_device), nty, ntx, 8, 128,
-                                  torch.inf)
+    recs, rows, init_t, ntx, row_total = _strip_case(strip_inputs, name, cuda_device)
     fine_raster.LAUNCHES = 0
-    got = fine_raster.strip_raster(recs, rows, init_t, ntx)
+    got = fine_raster.strip_raster(recs, rows, init_t, ntx, row_total=row_total)
     assert fine_raster.LAUNCHES == 1
     for g, p in zip(got, fine_raster.strip_raster_plain(recs, rows, init_t, ntx)):
         assert_bits(g.cpu().numpy(), p.cpu().numpy(), name)
+
+
+def _split_case(strip_inputs, case):
+    """-> (recs, rows, init tiles, n_tiles_x, the records the plain version
+    reads) of a split-walk case on the card."""
+    if case.startswith("tie_pile_"):
+        recs, rows, init_t, ntx = fine_raster.tie_pile(int(case.split("_")[-1]))
+        return recs, rows, init_t, ntx, recs
+    if case == "zero_rows":
+        recs, rows, init_t, ntx, _ = _zero_rows_case(strip_inputs)
+        return recs, rows, init_t, ntx, recs
+    return _past_rows_case(strip_inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tie_pile_100", "tie_pile_300", "zero_rows", "past_rows"])
+def test_cuda_strip_raster_split_cases(strip_inputs, cuda_device, case):
+    """Ties across the ranges (2 and 5 of them), groups of no row, rows
+    past rows[g] holding a live triangle: kernel == plain bitwise."""
+    recs, rows, init_t, ntx, clean = (t.to(cuda_device) if torch.is_tensor(t) else t
+                                      for t in _split_case(strip_inputs, case))
+    fine_raster.LAUNCHES = 0
+    got = fine_raster.strip_raster(recs, rows, init_t, ntx)     # reads rows.sum() back
+    assert fine_raster.LAUNCHES == 1
+    for g, p in zip(got, fine_raster.strip_raster_plain(clean, rows, init_t, ntx)):
+        assert_bits(g.cpu().numpy(), p.cpu().numpy(), case)
+
+
+@pytest.mark.cuda
+def test_cuda_strip_raster_launches(strip_inputs, cuda_device):
+    """The split walk where a group outgrows one range (scan, walk, merge);
+    the walk alone where the records fit one (the script's passes)."""
+    recs, rows, init_t, ntx = (t.to(cuda_device) if torch.is_tensor(t) else t
+                               for t in fine_raster.tie_pile(100))
+    assert recs.shape[1] > fine_raster.range_rows()
+    names = _device_kernels(lambda: fine_raster.strip_raster(recs, rows, init_t, ntx,
+                                                             row_total=103))
+    assert len(names) == 3, names
+    for phase, name in zip(("item_scan_kernel", "proto_walk_kernel", "proto_merge_kernel"),
+                           names):
+        assert phase in name, names
+    recs, rows, init_t, ntx, total = _strip_case(strip_inputs, "head_128x64", cuda_device)
+    assert recs.shape[1] <= fine_raster.range_rows()
+    names = _device_kernels(lambda: fine_raster.strip_raster(recs, rows, init_t, ntx,
+                                                             row_total=total))
+    assert len(names) == 1 and "proto_walk_kernel" in names[0], names
 
 
 @pytest.mark.cuda

@@ -65,8 +65,9 @@ SIGNATURES = {
     # color, depth, winner, rgb_out, depth_out, winner_out, n_tiles_x,
     # n_tiles_y, tile_h, tile_w, height, width, stream
     "trt_untile3_image": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # recs, rows, n_groups, max_rows, init, depth, winner, n_tiles_x, stream
-    "trt_strip_proto": [_P, _P, _I, _I, _P, _P, _P, _I, _P],
+    # recs, rows, n_groups, max_rows, init, depth, winner, n_tiles_x,
+    # n_items, scratch (or null: the walk alone), stream
+    "trt_strip_proto": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P],
     # tx0, ty0, span_x, spans, n_tri, nsx, n_ranges, range, work, strips,
     # ranks, stream
     "trt_rank_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -76,7 +77,8 @@ SIGNATURES = {
 }
 
 #: C functions of no argument that return a kernel's compile-time constant
-CONSTANTS = ("trt_coarse_range_pairs", "trt_fine_range_area", "trt_fine2_range_rows")
+CONSTANTS = ("trt_coarse_range_pairs", "trt_fine_range_area", "trt_fine2_range_rows",
+             "trt_proto_range_rows")
 
 _LIB: ctypes.CDLL | None = None
 _CONSTANT_VALUES: dict[str, int] = {}

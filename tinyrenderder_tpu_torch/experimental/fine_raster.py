@@ -16,7 +16,9 @@ and record row r of group g holds, in lanes 16k .. 16k + 9, the r-th
 triangle of strip k as ax ay bx by cx cy z0 z1 z2 id (screen xy, NDC z,
 the id as f32), zeros elsewhere and id -1 in an empty slot; the rows are
 padded to the largest group's count (at least 1).  The script's triple
-Python loop (``:147-164``) becomes one scatter on the device.
+Python loop (``:147-164``) becomes one scatter on the device.  Its one
+readback also gives the row total ``rows.sum()``, which sizes the
+kernel's grid and scratch.
 
 Raster contract (``strip_raster``, both versions bitwise, and equal to
 ``strip_rasterize(interpret=True)``):
@@ -27,6 +29,10 @@ Raster contract (``strip_raster``, both versions bitwise, and equal to
   ``semantics.barycentric`` at the pixel centre, ``coverage_mask``,
   ``affine_z``, covered &= isfinite(z) and id >= 0, then a strict-less
   depth update whose winner is the id.  No bbox test.
+The kernel cuts each group's rows into ranges of ``range_rows()`` and
+merges the ranges' first minima in order (``csrc/fine_raster.cu``);
+``strip_raster_split_plain`` is that decomposition in plain PyTorch, for
+the tests.
 
 ``strip_rasterize`` builds the records, tiles the init depth (+inf
 padding), rasters, untiles each plane with ``raster_sparse.untile_one``
@@ -44,12 +50,14 @@ import torch
 from tinyrenderder_tpu_torch import _build, convert, math3d
 from tinyrenderder_tpu_torch.models import procedural
 from tinyrenderder_tpu_torch.ops import semantics
+from tinyrenderder_tpu_torch.ops.raster_coarse import split_walks, walk_items, walk_scratch
 from tinyrenderder_tpu_torch.ops.raster_tiled import (build_bins, cdiv, tile_pair_counts,
                                                       tile_spans, to_tiles, vertex_stage)
 
 __all__ = ["LAUNCHES", "STRIP_W", "STRIPS", "TILE_H", "TILE_W", "NFIELD",
-           "build_strip_records", "strip_raster", "strip_raster_plain", "strip_rasterize",
-           "script_setups", "check_against_coarse", "main"]
+           "build_strip_records", "range_rows", "strip_raster", "strip_raster_plain",
+           "strip_raster_split_plain", "strip_rasterize", "tie_pile", "script_setups",
+           "check_against_coarse", "main"]
 
 STRIP_W = 16
 STRIPS = 8                      # strips per (8, 128) tile
@@ -63,14 +71,16 @@ LAUNCHES = 0
 
 def build_strip_records(setup: dict, width: int, height: int):
     """-> (recs (G, max_rows, 128) f32, rows (G,) i32, n_tiles_x,
-    n_tiles_y) on the setup's device (module docstring)."""
+    n_tiles_y, row_total = rows.sum()) on the setup's device (module
+    docstring)."""
     n_tiles_x, n_tiles_y = cdiv(width, TILE_W), cdiv(height, TILE_H)
     n_groups, nsx = n_tiles_x * n_tiles_y, n_tiles_x * STRIPS
     dev = setup["bbox"].device
     tx0, ty0, span_x, span_y, spans = tile_spans(setup, STRIP_W, TILE_H)
     per_strip = tile_pair_counts(tx0, ty0, span_x, span_y, nsx, n_tiles_y)
     rows = per_strip.view(n_groups, STRIPS).amax(dim=1).to(torch.int32)
-    total, max_rows = torch.stack([per_strip.sum(), rows.max()]).tolist()
+    total, max_rows, row_total = torch.stack([per_strip.sum(), rows.max(),
+                                              rows.sum()]).tolist()
     max_rows = max(max_rows, 1)
     recs = torch.zeros((n_groups, max_rows, STRIPS, STRIP_W), dtype=torch.float32, device=dev)
     recs[..., NFIELD - 1] = -1.0
@@ -88,7 +98,7 @@ def build_strip_records(setup: dict, width: int, height: int):
                             setup["ndc_z"].to(torch.float32)[tri],
                             tri.to(torch.float32)[:, None]], dim=1)
         recs[group, rank, col % STRIPS, :NFIELD] = fields
-    return recs.view(n_groups, max_rows, TILE_W), rows, n_tiles_x, n_tiles_y
+    return recs.view(n_groups, max_rows, TILE_W), rows, n_tiles_x, n_tiles_y, row_total
 
 
 def _check(recs, rows, init_tiles):
@@ -105,10 +115,19 @@ def _check(recs, rows, init_tiles):
         raise ValueError(f"recs must be (G, rows >= 1, {TILE_W}), got {tuple(recs.shape)}")
 
 
-def strip_raster(recs, rows, init_tiles, n_tiles_x: int):
+def range_rows() -> int:
+    """Record rows of one work item of the CUDA kernel's split walk."""
+    return _build.constant("trt_proto_range_rows")
+
+
+def strip_raster(recs, rows, init_tiles, n_tiles_x: int, *, row_total: int | None = None):
     """(depth, winner) tiles of the groups (contract in the module
     docstring).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    the kernel: the walk alone where every group fits one range
+    (``recs.shape[1] <= range_rows()``), else the item scan, the split
+    walk and the ordered merge, their grid and scratch sized from
+    ``row_total``, which must be ``rows.sum()`` (as
+    ``build_strip_records`` returns it; read back here when not given)."""
     global LAUNCHES
     _check(recs, rows, init_tiles)
     if recs.device.type == "cpu":
@@ -120,9 +139,17 @@ def strip_raster(recs, rows, init_tiles, n_tiles_x: int):
     winner = torch.empty(init_tiles.shape, dtype=torch.int32, device=recs.device)
     if g == 0:
         return depth, winner
+    n_items, scratch = g, None
+    r = range_rows()
+    if max_rows > r:
+        if row_total is None:
+            row_total = int(rows.sum())
+        n_items = walk_items(g, row_total, r)
+        scratch = walk_scratch(n_items, g, TILE_H, recs.device)
     _build.call("trt_strip_proto", recs.device,
                 recs.data_ptr(), rows.data_ptr(), g, max_rows, init_tiles.data_ptr(),
-                depth.data_ptr(), winner.data_ptr(), n_tiles_x)
+                depth.data_ptr(), winner.data_ptr(), n_tiles_x, n_items,
+                None if scratch is None else scratch.data_ptr())
     LAUNCHES += 1
     return depth, winner
 
@@ -156,14 +183,63 @@ def strip_raster_plain(recs, rows, init_tiles, n_tiles_x: int):
     return depth.view(g, TILE_H, TILE_W), winner.view(g, TILE_H, TILE_W)
 
 
+def strip_raster_split_plain(recs, rows, init_tiles, n_tiles_x: int, range_len: int):
+    """``strip_raster_plain`` computed as the CUDA kernel splits it, for
+    the tests: ``strip_raster_plain`` over each range of ``range_len``
+    record rows of every group, the rows past ``rows[g]`` read as empty
+    slots (the kernel never reads them), merged by
+    ``raster_coarse.split_walks``.  Equal to ``strip_raster_plain``
+    bitwise where those rows are empty, as the contract has them."""
+    _check(recs, rows, init_tiles)
+    g, max_rows, _ = recs.shape
+
+    def walk(r, init, stats):
+        part = recs[:, r * range_len:(r + 1) * range_len].clone()
+        at = r * range_len + torch.arange(part.shape[1], device=recs.device)
+        dead = at[None, :] >= rows[:, None]                             # (G, rows)
+        part.view(g, -1, STRIPS, STRIP_W)[..., NFIELD - 1].masked_fill_(dead[..., None], -1.0)
+        return strip_raster_plain(part, rows, init, n_tiles_x)
+
+    depth, winner, _ = split_walks(walk, init_tiles, rows.clamp(0, max_rows), range_len,
+                                   False)
+    return depth, winner
+
+
+def tie_pile(n_tie: int = 100, device="cpu"):
+    """One 8 x 128 group of ties: slot k of rows 0 .. n_tie - 1 holds one
+    triangle over the whole tile at one depth under ids 0 .. n_tie - 1
+    (slot 3 of row 0 empty: id 1 wins strip 3), then a farther triangle
+    over the tile (id n_tie), a row of empty slots, a nearer triangle
+    over columns 0 .. ~60 of the top rows (id n_tie + 2) and two padded
+    rows.  Its walk must keep the first-drawn triangle of every tie
+    across the kernel's range boundaries.  -> (recs, rows, init_tiles,
+    n_tiles_x)."""
+    n = n_tie + 5
+    recs = torch.zeros((1, n, STRIPS, STRIP_W), dtype=torch.float32)
+    recs[..., NFIELD - 1] = -1.0
+
+    def put(row, tri, tri_id):
+        recs[0, row, :, :NFIELD - 1] = torch.tensor(tri, dtype=torch.float32)
+        recs[0, row, :, NFIELD - 1] = tri_id
+    big = (-64.0, -64.0, 512.0, -64.0, -64.0, 512.0)
+    for r in range(n_tie):
+        put(r, big + (0.5, 0.5, 0.5), float(r))
+    recs[0, 0, 3, NFIELD - 1] = -1.0
+    put(n_tie, big + (0.75, 0.75, 0.75), float(n_tie))
+    put(n_tie + 2, (0.0, -1.0, 60.0, -1.0, 0.0, 30.0, 0.25, 0.25, 0.25), float(n_tie + 2))
+    rows = torch.tensor([n_tie + 3], dtype=torch.int32)
+    init = torch.full((1, TILE_H, TILE_W), torch.inf)
+    return (recs.view(1, n, TILE_W).to(device), rows.to(device), init.to(device), 1)
+
+
 def strip_rasterize(setup: dict, init_depth, width: int, height: int):
     """The script's ``strip_rasterize``: -> (depth (H, W) f32, winner
     (H, W) i32, the records' shape)."""
     from tinyrenderder_tpu_torch.ops.raster_sparse import untile_one  # imports raster_*
 
-    recs, rows, ntx, nty = build_strip_records(setup, width, height)
+    recs, rows, ntx, nty, row_total = build_strip_records(setup, width, height)
     init = to_tiles(init_depth, nty, ntx, TILE_H, TILE_W, torch.inf)
-    depth_t, winner_t = strip_raster(recs, rows, init, ntx)
+    depth_t, winner_t = strip_raster(recs, rows, init, ntx, row_total=row_total)
     depth = untile_one(depth_t, ntx, nty, TILE_H, TILE_W)[:height, :width]
     winner = untile_one(winner_t, ntx, nty, TILE_H, TILE_W)[:height, :width]
     return depth, winner, tuple(recs.shape)
