@@ -4,8 +4,8 @@ the multi-pass tiled frame with exact stats, each on the coarse raster, the
 strip raster and the grouped strip raster, the post pass, the CLI, the
 bench's two 246k-triangle scenes, the two-pass shadowed frame, the
 dense-grid raster entry, the ports of the scripts' three experimental
-kernels, the orbit animation, and the scene entry methods with their
-device caches on loaded models.
+kernels, the orbit animation (on every backend), the scene entry methods
+with their device caches on loaded models, and the sharded backends.
 
     python3 chip_smoke.py
 
@@ -143,7 +143,15 @@ Phases, one line each (any failure exits non-zero before the last line):
      and pass whose block reaches a tile; the one-rank geometry frame timed
      in five rounds of turns with ``render_frame_fused`` (and their
      profiler device times), each emulated rank's body on the stress pass
-     (device time) and the bytes a colour pass's all-reduces would move.
+     (device time) and the bytes a colour pass's all-reduces would move;
+ 19. the orbit of [15] through ``animation.render_animation`` on every
+     backend: each sharded backend on one rank and on 4 emulated ranks
+     (``sharded-2d`` as a 2x2 grid) writes the tiled orbit's TGAs byte for
+     byte, with #1 and #3i launched and one blocking cost measurement for
+     ``sharded-measured``; the oracle's orbit at 128x64 == ``oracle_render``
+     at its eyes; render-only orbit steps in rounds of turns, the one-rank
+     sharded orbit against the tiled one and 4 emulated ranks
+     ``sharded-measured`` against ``sharded``.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -202,6 +210,9 @@ RAGGED_SIZE = (1000, 600)
 OPS_TEST, OPS_WIN, OPS_WIN_PER_VARY = 25, 34, 6
 #: rounds of turns of [17 timing] (a frame moves ±30% between turns of one call)
 MESH1_ROUNDS = 5
+#: rounds of turns of [19 timing], and the oracle orbit's frame there
+ORBIT_ROUNDS = 3
+ORACLE_ORBIT = (128, 64)
 
 
 def fail(msg: str) -> None:
@@ -881,7 +892,10 @@ def call_kernels(fn, calls: int = 3) -> list[str]:
     """The CUDA kernels a call of ``fn`` launches, in order of their first
     launch, from a ``torch.profiler`` trace of ``calls`` calls after a
     warm-up call (a trace has been seen to drop a kernel of one call, and
-    to hold no kernel at all: such a trace is taken again, up to three)."""
+    to hold no kernel at all: such a trace, one where a kernel did not
+    launch a multiple of ``calls`` times, is taken again, up to three)."""
+    import collections
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -894,10 +908,10 @@ def call_kernels(fn, calls: int = 3) -> list[str]:
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-        if events:
+        names = [next((k for k in SPLIT_KERNELS if k in e.name), e.name.split("(")[0])
+                 for e in events]
+        if names and all(c % calls == 0 for c in collections.Counter(names).values()):
             break
-    names = [next((k for k in SPLIT_KERNELS if k in e.name), e.name.split("(")[0])
-             for e in events]
     return list(dict.fromkeys(names))
 
 
@@ -2044,6 +2058,130 @@ def animation_phase(smi: str) -> dict:
     return totals
 
 
+def animation_ranks_phase(smi: str) -> dict:
+    """[19 animation ranks]: the orbit of [15 animation] (the 3-mesh scene at
+    2048², ANIM_FRAMES frames, no frustum cull) through
+    ``animation.render_animation`` on every backend the JAX module renders
+    it on.  Each sharded backend on one rank (``dist.make_mesh``) and on 4
+    ranks emulated on the card ("sharded-2d" there as a 2x2 grid): its TGAs
+    == the tiled orbit's byte for byte, #1 and #3i launched, and one
+    blocking cost measurement for "sharded-measured" on 4 ranks.  The
+    oracle's orbit at ORACLE_ORBIT == ``oracle_render`` at its eyes.  Then
+    render-only orbit steps through ``Scene.render`` (the eye moves every
+    frame), in ORBIT_ROUNDS rounds of turns: the one-rank "sharded" orbit
+    against the "tiled" one, and 4 emulated ranks "sharded-measured"
+    against "sharded".  -> main-path launches."""
+    import math
+
+    from tinyrenderder_tpu_torch import animation
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch.parallel import dist
+    from tinyrenderder_tpu_torch.utils import tga
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(launch_counts(), 0)
+    n, size = ANIM_FRAMES, WIDTH
+    real_measure, blocking = dist.measure_tile_row_costs, []
+
+    def measure(*args, **kw):
+        blocking.append(1)
+        return real_measure(*args, **kw)
+
+    def files(d: Path) -> dict:
+        return {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+
+    def orbit(d: Path, backend: str, mesh=None, w: int = size, h: int = size):
+        cfg = animation.AnimationConfig(frames=n, backend=backend, device=DEVICE, mesh=mesh,
+                                        outdir=str(d), frustum_cull=False)
+        return animation.render_animation(tscene.multimesh_scene(w, h), cfg)
+
+    def count(fn, what):
+        blocking.clear()
+        summary, counts = counted(fn)
+        for k, v in counts.items():
+            totals[k] += v
+        if not (counts["coarse_raster"] and counts["untile3_image"]):
+            fail(f"a kernel of {what} never launched: {counts}")
+        if summary["frames_rendered"] != n:
+            fail(f"{what} rendered {summary['frames_rendered']} of {n} frames")
+        return summary, nonzero(counts), len(blocking)
+
+    meshes = {1: dist.make_mesh(device=DEVICE), 4: dist.emulated_mesh(4, device=DEVICE)}
+    dist.measure_tile_row_costs = measure
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            summary, counts, _ = count(lambda: orbit(tmp / "tiled", "tiled"), "the tiled orbit")
+            want = files(tmp / "tiled")
+            say(f"[19 animation ranks] tiled: multimesh {size}x{size}, {n} frames, no cull, "
+                f"{summary['seconds'] / n * 1e3:.3f} ms/frame written; launches {counts}")
+            for backend in tscene.SHARDED_BACKENDS:
+                for ranks, mesh in meshes.items():
+                    what = f"the {backend} orbit on {ranks} rank(s)"
+                    d = tmp / f"{backend}_{ranks}"
+                    summary, counts, measures = count(lambda: orbit(d, backend, mesh), what)
+                    if files(d) != want:
+                        fail(f"{what} wrote other files than the tiled orbit")
+                    if backend == "sharded-measured" and measures != int(ranks > 1):
+                        fail(f"{what} measured the row costs {measures} time(s), blocking")
+                    grid = tscene._sharded_mesh(DEVICE, mesh, backend, size, size)
+                    say(f"[19 animation ranks] {backend} on {ranks} "
+                        f"{'emulated ranks' if mesh.rank is None else 'rank'} "
+                        f"({grid.n_rows}x{grid.n_cols}): {n} TGAs == the tiled orbit's byte "
+                        f"for byte, {summary['seconds'] / n * 1e3:.3f} ms/frame written; "
+                        f"blocking measurements {measures}; launches {counts}")
+            ow, oh = ORACLE_ORBIT
+            summary = orbit(tmp / "oracle", "oracle", w=ow, h=oh)
+            sc = tscene.multimesh_scene(ow, oh)
+            eye0, target0 = sc.camera.params.eye.copy(), sc.camera.params.target.copy()
+            for i in range(n):
+                sc.camera.set_eye(animation.orbit_eye(eye0, target0, 2 * math.pi * i / n))
+                tga.TGAImage.from_rgb(tscene.oracle_render(sc, frustum_cull=False).color
+                                      ).write_tga_file(str(tmp / f"want{i}.tga"))
+                if (tmp / f"want{i}.tga").read_bytes() != \
+                        (tmp / "oracle" / f"frame_{i:04d}.tga").read_bytes():
+                    fail(f"oracle orbit frame {i} differs from oracle_render at its eye")
+            say(f"[19 animation ranks] oracle: multimesh {ow}x{oh}, {n} frames == oracle_render "
+                f"at their eyes byte for byte ({summary['seconds']:.1f} s on the host)")
+
+        # render-only orbit steps, as [15 animation] times the tiled one
+        sc = tscene.multimesh_scene(size, size)
+        eye0, target0 = sc.camera.params.eye.copy(), sc.camera.params.target.copy()
+        step = iter(range(10 ** 6))
+
+        def stepper(backend, mesh):
+            def frame():
+                i = next(step)
+                sc.camera.set_eye(animation.orbit_eye(eye0, target0, 2 * math.pi * i / 120))
+                return sc.render(DEVICE, False, collect_stats=False, backend=backend,
+                                 mesh=mesh).color
+            return frame
+
+        pairs = {"one-rank sharded / tiled": (stepper("sharded", meshes[1]),
+                                              stepper("tiled", None)),
+                 "4-rank sharded-measured / 4-rank sharded": (
+                     stepper("sharded-measured", meshes[4]), stepper("sharded", meshes[4]))}
+        for name, (fn_a, fn_b) in pairs.items():
+            blocking.clear()
+            rounds = [[event_ms(fn) for fn in (fn_a, fn_b, fn_b, fn_a)]
+                      for _ in range(ORBIT_ROUNDS)]
+            a = [t for r in rounds for t in (r[0], r[3])]
+            b = [t for r in rounds for t in (r[1], r[2])]
+            ratios = [(r[0] + r[3]) / (r[1] + r[2]) for r in rounds]
+            say(f"[19 timing] orbit steps {name}: {statistics.median(a):.3f} / "
+                f"{statistics.median(b):.3f} ms/frame (turns {min(a):.3f}-{max(a):.3f} / "
+                f"{min(b):.3f}-{max(b):.3f}); a round {', '.join(f'{x:.3f}' for x in ratios)}, "
+                f"median {statistics.median(ratios):.3f}; blocking measurements {len(blocking)} "
+                f"in {ORBIT_ROUNDS * 2 * (WARMUP + FRAMES)} measured frames (multimesh "
+                f"{size}x{size}, eye moving every frame, Scene.render without stats; CUDA "
+                f"events, {WARMUP} warm-up + median of {FRAMES} a turn, {ORBIT_ROUNDS} rounds "
+                f"of turns a, b, b, a) | {smi}")
+    finally:
+        dist.measure_tile_row_costs = real_measure
+    say(f"[19 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
+    return totals
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2826,6 +2964,9 @@ def main() -> int:
                                 frames["multimesh"], oracles["multimesh"],
                                 (sh_scene, sh_key, sh_settings, *sh_oracle, [light_pass],
                                  lit_passes)))
+
+    # ---- 19. the orbit on every backend ----
+    add_launches(animation_ranks_phase(smi))
 
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")

@@ -128,7 +128,7 @@ def test_failed_frame_restores_the_camera_and_resumes(orbit, tmp_path, monkeypat
     d, _ = orbit
     cfg = animation.AnimationConfig(frames=FRAMES, device="cpu", outdir=str(tmp_path),
                                     fine_mode="fine")
-    real, calls = animation.render_scene, []
+    real, calls = tscene.render_scene, []
 
     def failing(*args, **kw):
         calls.append(1)
@@ -138,14 +138,14 @@ def test_failed_frame_restores_the_camera_and_resumes(orbit, tmp_path, monkeypat
 
     sc = _scene()
     eye = sc.camera.params.eye.copy()
-    monkeypatch.setattr(animation, "render_scene", failing)
+    monkeypatch.setattr(tscene, "render_scene", failing)     # Scene.render's tiled frame
     with pytest.raises(RuntimeError, match="device lost"):
         animation.render_animation(sc, cfg)
     assert_bits(sc.camera.params.eye, eye, "camera restored")
     from tinyrenderder_tpu_torch.ops import raster_sparse
     assert raster_sparse.FINE_MODE == "auto"
     assert sorted(os.listdir(tmp_path)) == ["checkpoint.json", "frame_0000.tga"]
-    monkeypatch.setattr(animation, "render_scene", real)
+    monkeypatch.setattr(tscene, "render_scene", real)
     assert animation.render_animation(sc, cfg)["resumed_at"] == 1
     assert _files(tmp_path) == _files(d)          # the strip raster: the same frames
 

@@ -160,7 +160,12 @@ def jax_side(prepared, tmp_path_factory):
             req[f"frame_{name}_{mode}"] = {"op": "sharded_frame", "mode": mode, **layout}
             if name in IMAGE_LAYOUTS:
                 req[f"image_{name}_{mode}"] = {"op": "sharded_image", "mode": mode, **layout}
-    return run_jax(req, tmp_path_factory.mktemp("jax_parallel"), devices=4)
+    # two subprocesses, the band pre-stages and the sharded frames, so that
+    # each stays well inside run_jax's time limit on a loaded machine
+    frames = {k: v for k, v in req.items() if k.startswith(("frame_", "image_"))}
+    rest = {k: v for k, v in req.items() if k not in frames}
+    return {**run_jax(rest, tmp_path_factory.mktemp("jax_parallel"), devices=4),
+            **run_jax(frames, tmp_path_factory.mktemp("jax_parallel_frames"), devices=4)}
 
 
 # ---------------------------------------------------------------------------

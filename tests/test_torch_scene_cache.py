@@ -318,6 +318,21 @@ def test_backends(name):
         sc.render_image(CPU, backend="tiles")
 
 
+@pytest.mark.parametrize("name", list(FRAMES))
+def test_oracle_dtype_matches_jax(name):
+    """``Scene.render(backend="oracle", dtype=np.float64)`` is the float64
+    oracle's frame, the JAX package's ``render(backend="oracle",
+    dtype=np.float64)`` bitwise; the device backends render in float32
+    and refuse another dtype."""
+    got = frame_scene(name).render(backend="oracle", dtype=np.float64)
+    want = frame_scene(name, "jax").render(backend="oracle", dtype=np.float64)
+    assert got.depth.dtype == np.float64
+    same_frame(got, want, f"{name} float64 oracle")
+    for backend in ("tiled", *tscene.SHARDED_BACKENDS):
+        with pytest.raises(ValueError, match="float32"):
+            frame_scene(name).render(CPU, backend=backend, dtype=np.float64)
+
+
 def test_cull_cache_matches_a_fresh_cull():
     sc = frame_scene("multimesh")
     first, again = RenderStats(), RenderStats()

@@ -812,6 +812,27 @@ def _jax_geometry(r):
             "winner": np.asarray(fb.winner), "out_depth": np.asarray(out_depth)}
 
 
+def _jax_animation(r):
+    """``animation.render_animation(backend)`` of the 3-mesh scene
+    (``multimesh_scene``) at (w, h), ``frames`` frames of a full orbit, on
+    every virtual device: the frames as their TGA files decode."""
+    import tempfile
+
+    from tinyrenderder_tpu import animation
+    from tinyrenderder_tpu.utils import tga
+    w, h, n = int(r["w"]), int(r["h"]), int(r["frames"])
+    _clear_sharded()
+    _clear_capacities()
+    with tempfile.TemporaryDirectory() as d:
+        animation.render_animation(multimesh_scene("jax", w, h), animation.AnimationConfig(
+            frames=n, backend=str(r["backend"]), outdir=d))
+        frames = np.stack([tga.read(os.path.join(d, f"frame_{i:04d}.tga")).to_rgb()
+                           for i in range(n)])
+    _clear_sharded()
+    _clear_capacities()
+    return {"frames": frames}
+
+
 def view_pass(eye_z: float, w: int, h: int, side: str):
     """One side's OraclePass of the standard head (normal-mapped Phong)
     seen from (0, 0, ``eye_z``): tests/test_parallel.py's far and near
@@ -907,7 +928,8 @@ def _main(req_path, out_path):
            "rank": _jax_rank, "inplace": _jax_inplace, "pre_sparse": _jax_pre_sparse,
            "row_costs": _jax_row_costs, "sharded_frame": _jax_sharded,
            "sharded_image": _jax_sharded, "sharded_scene": _jax_sharded_scene,
-           "geometry_frame": _jax_geometry, "view_frame": _jax_view_frame}
+           "geometry_frame": _jax_geometry, "view_frame": _jax_view_frame,
+           "animation": _jax_animation}
     requests: dict = {}
     with np.load(req_path) as z:
         for key in z.files:

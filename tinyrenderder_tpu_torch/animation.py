@@ -6,12 +6,19 @@ to the camera), every frame is written as a TGA file, and a killed job
 resumes at the next unwritten frame from ``<outdir>/checkpoint.json``,
 written atomically with the JAX module's keys and read by its rule.
 
-Per frame, ``scene.render_scene(..., collect_stats=False)`` renders on
-``cfg.device``.  On a CUDA device the colour is copied into one of two
-pinned host buffers with ``non_blocking=True`` and a CUDA event is
-recorded; while the next frame renders, the previous one waits for its
-event, is encoded and written (the JAX module's one-frame write
-pipeline).  Files and checkpoints land strictly in frame order.
+Per frame, ``Scene.render(..., collect_stats=False, backend=cfg.backend,
+mesh=cfg.mesh)`` renders on ``cfg.device``: the tiled frame, the NumPy
+oracle, or one of the sharded backends over the mesh's ranks.  When the
+colour is on a CUDA device it is copied into one of two pinned host
+buffers with ``non_blocking=True`` and a CUDA event is recorded; while
+the next frame renders, the previous one waits for its event, is encoded
+and written (the JAX module's one-frame write pipeline).  Files and
+checkpoints land strictly in frame order.
+
+On a sharded backend over a process group (under torchrun) every rank
+renders every frame and rank 0 alone reads the checkpoint, encodes and
+writes; it broadcasts the start frame, so every rank runs the same orbit
+steps.  One process emulating the ranks writes as rank 0 does.
 
 The JAX module's overflow repair has no counterpart: the port sizes
 every buffer exactly from one readback per pass, so no frame can
@@ -32,8 +39,10 @@ import numpy as np
 import torch
 
 from tinyrenderder_tpu_torch import math3d
+from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.ops import raster_sparse
-from tinyrenderder_tpu_torch.scene import Scene, render_scene
+from tinyrenderder_tpu_torch.parallel import dist
+from tinyrenderder_tpu_torch.scene import Scene
 from tinyrenderder_tpu_torch.utils import tga
 
 log = logging.getLogger("tinyrenderder_tpu_torch.animation")
@@ -47,8 +56,13 @@ CHECKPOINT_NAME = "checkpoint.json"
 class AnimationConfig:
     frames: int = 120
     orbit_degrees: float = 360.0
+    #: "tiled", "oracle" or one of ``scene.SHARDED_BACKENDS`` (as ``Scene.render``)
+    backend: str = "tiled"
     #: where the frames render: "cuda" (the kernels) or "cpu" (their plain versions)
     device: str = "cuda"
+    #: the ranks of a sharded backend (``parallel.dist.Mesh``); None:
+    #: ``dist.make_mesh(device=device)``, the process group's ranks or one
+    mesh: object = None
     #: ``raster_sparse.FINE_MODE`` for the frames; None keeps the module's
     fine_mode: str | None = None
     outdir: str = "frames"
@@ -103,10 +117,20 @@ def render_animation(scene: Scene, cfg: AnimationConfig,
 
     ``stop_after`` caps the number of frames rendered *this run* (time-
     sliced jobs); the checkpoint lets the next run continue the schedule.
-    Returns {frames_rendered, resumed_at, seconds, fps, overflows_repaired}.
+    Returns {frames_rendered, resumed_at, seconds, fps, overflows_repaired},
+    the same on every rank.
     """
-    os.makedirs(cfg.outdir, exist_ok=True)
-    start_frame = _load_checkpoint(cfg)
+    backend = tscene._backend(cfg.backend)
+    mesh = None
+    if backend in tscene.SHARDED_BACKENDS:
+        mesh = cfg.mesh if cfg.mesh is not None else dist.make_mesh(device=cfg.device)
+    writer = mesh is None or not mesh.rank       # rank 0, or one process
+    start_frame = 0
+    if writer:
+        os.makedirs(cfg.outdir, exist_ok=True)
+        start_frame = _load_checkpoint(cfg)
+    if mesh is not None:
+        start_frame = dist.broadcast_from_rank0(mesh, start_frame)
     if start_frame >= cfg.frames:
         log.info("animation already complete (%d frames)", cfg.frames)
         return {"frames_rendered": 0, "resumed_at": start_frame, "seconds": 0.0, "fps": 0.0}
@@ -118,8 +142,6 @@ def render_animation(scene: Scene, cfg: AnimationConfig,
     end_frame = cfg.frames
     if stop_after is not None:
         end_frame = min(end_frame, start_frame + stop_after)
-    device = torch.device(cfg.device)
-    pinned = device.type == "cuda"
     host_bufs: list = [None, None]       # the two pinned colour buffers, alternating
 
     t0 = time.perf_counter()
@@ -130,7 +152,8 @@ def render_animation(scene: Scene, cfg: AnimationConfig,
         if event is not None:
             event.synchronize()
         path = os.path.join(cfg.outdir, cfg.frame_pattern % idx)
-        tga.TGAImage.from_rgb(color.numpy()).write_tga_file(path)
+        rgb = color.numpy() if isinstance(color, torch.Tensor) else color
+        tga.TGAImage.from_rgb(rgb).write_tga_file(path)
         _save_checkpoint(cfg, idx + 1)
 
     old_mode = raster_sparse.FINE_MODE
@@ -140,9 +163,13 @@ def render_animation(scene: Scene, cfg: AnimationConfig,
         for i in range(start_frame, end_frame):
             angle = math.radians(cfg.orbit_degrees) * i / cfg.frames
             scene.camera.set_eye(orbit_eye(base_eye, base_target, angle))
-            color = render_scene(scene, device, cfg.frustum_cull, collect_stats=False).color
+            color = scene.render(cfg.device, cfg.frustum_cull, collect_stats=False,
+                                 backend=backend, mesh=mesh).color
+            rendered += 1
+            if not writer:
+                continue
             event = None
-            if pinned:
+            if isinstance(color, torch.Tensor) and color.is_cuda:
                 slot = (i - start_frame) % 2
                 if host_bufs[slot] is None:
                     host_bufs[slot] = torch.empty(color.shape, dtype=color.dtype,
@@ -153,18 +180,18 @@ def render_animation(scene: Scene, cfg: AnimationConfig,
                 color = host_bufs[slot]
             if pending is not None:
                 write(*pending)
-                rendered += 1
             pending = (i, color, event)
             if i % 10 == 0:
                 log.info("frame %d/%d (%.2f s/frame)", i, cfg.frames,
                          (time.perf_counter() - t0) / max(i - start_frame + 1, 1))
         if pending is not None:
             write(*pending)
-            rendered += 1
     finally:
         raster_sparse.FINE_MODE = old_mode
         # a same-process retry must not orbit around a mid-orbit base eye
         scene.camera.set_eye(base_eye)
+    if mesh is not None:
+        dist.barrier(mesh)               # rank 0 returns once every rank has rendered
     dt = time.perf_counter() - t0
     return {"frames_rendered": rendered, "resumed_at": start_frame, "seconds": dt,
             "fps": rendered / dt if dt > 0 else 0.0, "overflows_repaired": 0}

@@ -16,8 +16,8 @@ composite on the same device, and the same four TGA files and log lines.
 ``--backend oracle`` renders on the serial NumPy oracle instead and runs
 the NumPy post in float64, as the JAX CLI does (slow; keep frames small).  ``--shadows`` renders
 the two-pass shadowed frame from the key light (``shadows.py``) in its
-place.  ``--animate N`` renders an N-frame orbit of the scene instead
-(``animation.py``, resumable from ``<outdir>/checkpoint.json``);
+place.  ``--animate N`` renders an N-frame orbit of the scene instead, on
+any backend (``animation.py``, resumable from ``<outdir>/checkpoint.json``);
 ``--profile`` records a ``torch.profiler`` trace of the render (CPU, and
 CUDA on a CUDA device) into ``<outdir>/trace/trace.json``.
 
@@ -29,7 +29,10 @@ alone writes the files:
 
     torchrun --nproc-per-node=N -m tinyrenderder_tpu_torch.cli --backend sharded
 
-Started plainly, the world is one rank.
+Started plainly, the world is one rank.  With ``--animate`` every rank
+renders every frame of the orbit and rank 0 writes them.  ``--backend
+xla`` (the JAX package's scan path) is out of the port's scope and is
+refused.
 """
 
 from __future__ import annotations
@@ -166,14 +169,16 @@ def run(argv=None) -> int:
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help="cuda: the hand-written kernels on the GPU; "
                              "cpu: their plain PyTorch versions")
-    parser.add_argument("--backend", choices=["tiled", "oracle", *tscene.SHARDED_BACKENDS],
+    parser.add_argument("--backend",
+                        choices=["xla", "tiled", "oracle", *tscene.SHARDED_BACKENDS],
                         default="tiled",
                         help="tiled: the tiled frame on --device; oracle: the serial "
                              "NumPy oracle on the host (slow; keep frames small); "
                              "sharded, sharded-2d, sharded-measured: the frame split "
                              "over the ranks (row bands, screen blocks, measured "
                              "bands), sharded-geometry: each pass's faces split over "
-                             "the ranks (under torchrun, one rank a process)")
+                             "the ranks (under torchrun, one rank a process); xla: "
+                             "the JAX package's scan path, not in the port (refused)")
     parser.add_argument("--width", type=int, default=WIDTH)
     parser.add_argument("--height", type=int, default=HEIGHT)
     parser.add_argument("--outdir", default=".")
@@ -192,10 +197,12 @@ def run(argv=None) -> int:
                         help="write a torch.profiler trace to <outdir>/trace")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
+    try:
+        tscene._backend(args.backend)
+    except NotImplementedError as e:
+        parser.error(str(e))
     if args.backend != "oracle" and args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
-    if args.backend != "tiled" and args.animate:
-        parser.error("--animate renders on the tiled backend")
     rank = _init_ranks(args)
     try:
         return _run(args, rank)
@@ -232,8 +239,8 @@ def _run(args, rank: int | None) -> int:
         for flag, on in (("--shadows", args.shadows), ("--profile", args.profile)):
             if on:
                 log.warning("%s is not supported with --animate and is ignored", flag)
-        cfg = AnimationConfig(frames=args.animate, device=args.device, outdir=args.outdir,
-                              frustum_cull=not args.no_cull)
+        cfg = AnimationConfig(frames=args.animate, backend=args.backend, device=args.device,
+                              outdir=args.outdir, frustum_cull=not args.no_cull)
         summary = render_animation(scene, cfg)
         log.info("animation: %d frames in %.1f s (%.2f fps), resumed at %d",
                  summary["frames_rendered"], summary["seconds"], summary["fps"],

@@ -72,7 +72,8 @@ from tinyrenderder_tpu_torch.ops.raster_sparse import FrameTiles, PassEvents
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, GeomSplit, cdiv,
                                                       n_vary_of, vertex_stage)
 
-__all__ = ["Mesh", "make_mesh", "make_mesh_grid", "emulated_mesh", "band_of", "render_rank",
+__all__ = ["Mesh", "make_mesh", "make_mesh_grid", "emulated_mesh", "broadcast_from_rank0",
+           "barrier", "band_of", "render_rank",
            "render_frame_fused_sharded", "render_frame_fused_image_sharded",
            "tiles_to_buffers_sharded", "untile_one_sharded", "blocks_to_flat_tiles",
            "even_unequal_bands", "balance_bands", "measure_tile_row_costs",
@@ -187,6 +188,24 @@ def _all_reduce(mesh: Mesh, xs, op: str) -> torch.Tensor:
     for x in xs[1:]:
         out = torch.minimum(out, x) if op == "min" else out + x
     return out
+
+
+def broadcast_from_rank0(mesh: Mesh, obj):
+    """Rank 0's ``obj`` on every rank of a process group
+    (``broadcast_object_list``: NCCL on CUDA ranks, gloo on CPU ranks); on
+    an emulated mesh or a world of one rank, ``obj``."""
+    if mesh.rank is None or mesh.size == 1:
+        return obj
+    box = [obj]
+    tdist.broadcast_object_list(box, src=0, device=mesh.device)
+    return box[0]
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait until every rank of a process group gets here; nothing on an
+    emulated mesh or a world of one rank."""
+    if mesh.rank is not None and mesh.size > 1:
+        tdist.barrier(device_ids=[mesh.device.index] if mesh.device.type == "cuda" else None)
 
 
 def _cat(xs, dim: int = 0):

@@ -112,13 +112,17 @@ class Scene:
         return "\n".join(lines)
 
     def render(self, device="cuda", frustum_cull: bool = True, collect_stats: bool = True,
-               backend: str = "tiled", mesh=None) -> RenderResult:
+               backend: str = "tiled", mesh=None, dtype=np.float32) -> RenderResult:
         """The frame: ``render_scene`` on ``device`` (the card unless the
         caller asks for ``"cpu"``) with ``backend`` "tiled" or one of the
         sharded backends (over ``mesh``, see ``render_scene``), or
-        ``oracle_render`` with ``backend="oracle"``."""
+        ``oracle_render`` in ``dtype`` with ``backend="oracle"`` (float64
+        reproduces the reference's double math).  The device backends
+        render in float32 and refuse any other ``dtype``."""
         if _backend(backend) == "oracle":
-            return oracle_render(self, frustum_cull)
+            return oracle_render(self, frustum_cull, dtype)
+        if np.dtype(dtype) != np.float32:
+            raise ValueError(f"backend {backend!r} renders in float32, not {np.dtype(dtype)}")
         return render_scene(self, device, frustum_cull, collect_stats, backend, mesh)
 
     def render_image(self, device="cuda", frustum_cull: bool = True,
@@ -467,21 +471,49 @@ def _render_sharded(scene: Scene, device, frustum_cull: bool, collect_stats: boo
 
 def _measured_bands_cached(scene: Scene, passes, n: int) -> tuple:
     """The measured-load partition of "sharded-measured"
-    (``dist.balance_bands`` of ``measure_tile_row_costs``), cached on the
-    scene: kept while the frame size, the rank count and every pass's
-    attribute tensor and uniform dict (by identity; the per-pass caches
-    rebuild them when anything they hold changes) stay, else measured
-    again, synchronously (one readback).  Any legal partition gives the
-    same pixels."""
+    (``dist.balance_bands`` of the per-tile-row costs), cached on the
+    scene, with the JAX package's rule of never blocking a frame on a
+    re-measure.  The first frame of a shape (frame size, rank count)
+    measures synchronously: bands of another shape would be illegal.
+    After that, when a pass's attribute tensor or uniform dict changes
+    identity (the per-pass caches rebuild them when anything they hold
+    changes: every frame of an orbit), the re-measure is started on the
+    device, its (nty,) int32 costs copied into pinned host memory without
+    blocking and an event recorded, and the previous bands serve this
+    frame.  A pending measurement is adopted at the start of the next
+    frame, after its event: a fixed rule, where a poll of the event could
+    come back ready on one rank and not on another, and the ranks would
+    gather bands of different shapes.  The costs are exact integer counts
+    over the replicated passes, so every rank computes the same bands;
+    under motion they lag one frame.  Any legal partition gives the same
+    pixels."""
     from tinyrenderder_tpu_torch.parallel import dist
     refs = tuple(x for a, _s, u, *_ in passes for x in (a["position"], u))
     shape = (scene.width, scene.height, n)
-    hit = scene.__dict__.get("_band_cache")
-    if hit is None or hit[0] != shape or not _ref_tuples_match(hit[1], refs):
+    cache = scene.__dict__.get("_band_cache")
+    if cache is None or cache["shape"] != shape:
         costs = dist.measure_tile_row_costs(passes, scene.width, scene.height)
-        hit = (shape, refs, dist.balance_bands(costs, n))
-        scene.__dict__["_band_cache"] = hit
-    return hit[2]
+        cache = {"shape": shape, "refs": refs, "pending": None,
+                 "bands": dist.balance_bands(costs, n)}
+        scene.__dict__["_band_cache"] = cache
+        return cache["bands"]
+    if cache["pending"] is not None:
+        costs, event = cache["pending"]
+        if event is not None:
+            event.synchronize()
+        cache["bands"] = dist.balance_bands(costs.numpy().astype(np.int64), n)
+        cache["pending"] = None
+    if not _ref_tuples_match(cache["refs"], refs):
+        costs = dist.measure_tile_row_costs_device(passes, scene.width, scene.height)
+        event = None
+        if costs.is_cuda:
+            host = torch.empty(costs.shape, dtype=costs.dtype, pin_memory=True)
+            host.copy_(costs, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(costs.device))
+            costs = host
+        cache["refs"], cache["pending"] = refs, (costs, event)
+    return cache["bands"]
 
 
 def render_passes(passes, width: int, height: int, device,
