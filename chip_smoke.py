@@ -151,7 +151,18 @@ Phases, one line each (any failure exits non-zero before the last line):
      ``sharded-measured``; the oracle's orbit at 128x64 == ``oracle_render``
      at its eyes; render-only orbit steps in rounds of turns, the one-rank
      sharded orbit against the tiled one and 4 emulated ranks
-     ``sharded-measured`` against ``sharded``.
+     ``sharded-measured`` against ``sharded``;
+ 20. the scan backend (``backend="xla"``, ``csrc/scan_resolve.cu``): the
+     resolve kernel, without and with its event sums, == the plain chunked
+     scan bitwise on the headline head at 512² (fresh, and seeded with the
+     3-pass scene's room) and at 2048²; ``Scene.render`` /
+     ``render_image`` of the headline at 2048² == the f32 oracle and the
+     tiled frame (stats equal), the 3-pass scene at 2048² == the tiled
+     frame and at 1200x800 == the oracle, ``render_with_shadows`` of
+     ``shadow_phong_800`` == the tiled shadowed frame and the oracle; the
+     kernel's CUDA-event time on the headline pass beside its plain
+     version's and its bound, and the scan frame against the tiled frame
+     in turns.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -213,10 +224,17 @@ MESH1_ROUNDS = 5
 #: rounds of turns of [19 timing], and the oracle orbit's frame there
 ORBIT_ROUNDS = 3
 ORACLE_ORBIT = (128, 64)
+#: the side of [20 scan]'s frame where the resolve kernel is held against
+#: the plain chunked scan on fresh and seeded passes
+SCAN_CHECK = 512
 
 
 def fail(msg: str) -> None:
+    """Print the failed check on standard output and on standard error (a
+    caller that keeps only the end of standard error still reads which
+    check failed), and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -773,6 +791,7 @@ def launch_counts():
     from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
     from tinyrenderder_tpu_torch.experimental import inplace_blocks as xib
     from tinyrenderder_tpu_torch.experimental import rank_kernel as xrk
+    from tinyrenderder_tpu_torch.ops import raster
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
@@ -783,17 +802,20 @@ def launch_counts():
             "fine2_raster": rf2.LAUNCHES, "fine2_raster_stats": rf2.STATS_LAUNCHES,
             **rs.VARIANT_LAUNCHES,
             "strip_raster_proto": xfr.LAUNCHES, "rank_pairs": xrk.LAUNCHES,
-            "inplace_blocks": xib.LAUNCHES}
+            "inplace_blocks": xib.LAUNCHES, "scan_resolve": raster.LAUNCHES,
+            "scan_resolve_stats": raster.STATS_LAUNCHES}
 
 
 def reset_counts():
     from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
     from tinyrenderder_tpu_torch.experimental import inplace_blocks as xib
     from tinyrenderder_tpu_torch.experimental import rank_kernel as xrk
+    from tinyrenderder_tpu_torch.ops import raster
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
     from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    raster.LAUNCHES = raster.STATS_LAUNCHES = 0
     rc.LAUNCHES = rc.STATS_LAUNCHES = rc.DENSE_LAUNCHES = 0
     rf.LAUNCHES = rf.STATS_LAUNCHES = 0
     rf2.LAUNCHES = rf2.STATS_LAUNCHES = 0
@@ -888,20 +910,22 @@ def split_shape(counts, range_len: int) -> tuple[int, int]:
             min(max(c, default=0), range_len))
 
 
-def call_kernels(fn, calls: int = 3) -> list[str]:
-    """The CUDA kernels a call of ``fn`` launches, in order of their first
-    launch, from a ``torch.profiler`` trace of ``calls`` calls after a
-    warm-up call (a trace has been seen to drop a kernel of one call, and
-    to hold no kernel at all: such a trace, one where a kernel did not
-    launch a multiple of ``calls`` times, is taken again, up to three)."""
-    import collections
-
+def call_kernels(fn, calls: int = 3, tries: int = 12) -> list[str] | None:
+    """The CUDA kernels one call of ``fn`` launches, in launch order, from
+    ``torch.profiler`` traces of ``calls`` calls after a warm-up call: the
+    first sequence that two consistent traces of ``tries`` show, else None.
+    A trace is consistent when its kernels are one sequence repeated
+    ``calls`` times.  The card's traces drop events now and then, and in
+    runs of several traces: a trace has been seen to hold no kernel, one
+    call's kernels, or the last kernel of the first call and everything
+    after; such a trace is taken again, after a pause."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    seen: list[list[str]] = []
+    for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -910,9 +934,17 @@ def call_kernels(fn, calls: int = 3) -> list[str]:
                         key=lambda e: e.time_range.start)
         names = [next((k for k in SPLIT_KERNELS if k in e.name), e.name.split("(")[0])
                  for e in events]
-        if names and all(c % calls == 0 for c in collections.Counter(names).values()):
-            break
-    return list(dict.fromkeys(names))
+        per_call = names[:len(names) // calls]
+        if per_call and per_call * calls == names:
+            if per_call in seen:
+                return per_call
+            seen.append(per_call)
+            continue
+        print(f"chip_smoke.py: profiler trace {attempt + 1} of {tries} is inconsistent "
+              f"({len(names)} kernels over {calls} calls): taken again", file=sys.stderr,
+              flush=True)
+        time.sleep(0.2)
+    return None
 
 
 def split_text(counts, range_len: int, fn, ms: float, yard_ms: float, yard: str) -> str:
@@ -921,8 +953,10 @@ def split_text(counts, range_len: int, fn, ms: float, yard_ms: float, yard: str)
     same pass (``yard_ms``)."""
     items, longest = split_shape(counts, range_len)
     kernels = call_kernels(fn)
+    launched = ("the profiler recorded no consistent trace" if kernels is None else
+                f"{len(kernels)} launches a call ({', '.join(kernels)})")
     return (f"split: {items} items of <= {range_len} (longest {longest}, the longest walk "
-            f"{int(counts.max())}), {len(kernels)} launches a call ({', '.join(kernels)}); "
+            f"{int(counts.max())}), {launched}; "
             f"/{yard} {ms / yard_ms:.3f}")
 
 
@@ -1085,6 +1119,9 @@ def experimental_kernels(head_pass, active_ids, th: int, smi: str):
         want = (["item_scan_kernel", "proto_walk_kernel", "proto_merge_kernel"]
                 if recs.shape[1] > r7 else ["proto_walk_kernel"])
         got = call_kernels(fn)
+        if got is None:
+            fail(f"strip_raster_proto on records {tuple(recs.shape)}: no consistent "
+                 f"profiler trace of its kernels")
         if got != want:
             fail(f"strip_raster_proto on records {tuple(recs.shape)} launched {got}, not {want}")
         return got
@@ -2181,6 +2218,186 @@ def animation_ranks_phase(smi: str) -> dict:
     say(f"[19 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
     return totals
 
+def scan_bound(setup, height: int, width: int, seeded: bool) -> tuple[float, str]:
+    """The scan resolve's bound: bytes = each triangle's 13 geometry floats
+    it uses (screen xy, NDC z, bbox) and its valid byte read once, the
+    running depth where ``seeded``, and depth and winner written once;
+    operations = OPS_TEST per pixel inside a valid triangle's bbox."""
+    import torch
+    valid = setup["valid"]
+    bb = setup["bbox"][valid].double()
+    tests = float(((bb[:, 1] - bb[:, 0] + 1) * (bb[:, 3] - bb[:, 2] + 1)).sum())
+    px = height * width
+    return bound(valid.shape[0] * (13 * 4 + 1) + px * (8 + 4 * seeded), OPS_TEST * tests)
+
+
+def scan_phase(smi: str, head_scene, head_ref, mm_scene, mm_ref, shadow, record) -> dict:
+    """[20 scan]: the scan backend (``backend="xla"``: ``ops/raster.py``,
+    ``csrc/scan_resolve.cu``).  The resolve kernel, without and with its
+    event sums, against the plain chunked scan bitwise on the headline
+    head at SCAN_CHECK² (fresh, and seeded with the 3-pass scene's room at
+    that size) and at 2048²; the headline through ``Scene.render`` (with
+    and without stats) and ``render_image`` == the f32 oracle and the
+    tiled frame, stats equal; the 3-pass scene at 2048² == the tiled frame
+    (stats equal) and at 1200x800 (``mm_scene``) == the f32 oracle;
+    ``render_with_shadows`` of ``shadow_phong_800`` (``shadow``: scene,
+    key light, settings, the oracle's frame and map) == the tiled
+    shadowed frame and the oracle.  Then the kernel's CUDA-event time on
+    the headline pass beside its plain version's and its bound, and the
+    scan frame against the tiled frame, ms/frame in turns, at 2048².
+    -> main-path launches."""
+    import numpy as np
+    import torch
+
+    from tinyrenderder_tpu_torch import shadows
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch.ops import raster
+    from tinyrenderder_tpu_torch.ops.raster_tiled import vertex_stage
+
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(launch_counts(), 0)
+
+    def count(fn, what, need):
+        result, counts = counted(fn)
+        for k, v in counts.items():
+            totals[k] += v
+        if not all(counts[k] for k in need):
+            fail(f"a kernel of {what} never launched: {counts}")
+        return result, counts
+
+    def setup_of(scene, index=0):
+        attrs, shader, uniforms, _ = tscene.pass_tensors(scene, DEVICE)[index]
+        return vertex_stage(attrs, uniforms, shader, scene.width, scene.height)[0]
+
+    def check_resolve(what, setup, h, w, init):
+        """The kernel == the plain scan, without and with the event sums;
+        -> (max abs err, events)."""
+        got = raster.depth_resolve_xla(setup, h, w, init_depth=init)
+        want = raster.depth_resolve_xla_plain(setup, h, w, init_depth=init)
+        err = same_planes(f"scan resolve vs plain, {what}", ("depth", "winner"), got, want)
+        seed = init if init is not None else torch.full((h, w), torch.inf, device=DEVICE)
+        ev = raster.pass_events_xla(setup, seed, h, w)
+        ev_want = raster.pass_events_xla_plain(setup, seed, h, w)
+        err = max(err, same_planes(f"scan resolve stats vs plain, {what}",
+                                   ("depth", "winner", "events", "min z", "max z"), ev,
+                                   ev_want))
+        same_planes(f"scan resolve stats vs without, {what}", ("depth", "winner"), ev[:2],
+                    got)
+        if int(ev[2]) <= 0:
+            fail(f"scan resolve stats, {what}: {int(ev[2])} events")
+        return err, int(ev[2])
+
+    # ---- the kernel against the plain scan ----
+    s = SCAN_CHECK
+    small = setup_of(tscene.headline_scene(s, s))
+    room = setup_of(tscene.multimesh_scene(s, s), 2)
+    room_depth, _ = raster.depth_resolve_xla(room, s, s)
+    checks = {"head fresh": (small, None), "head seeded by the room": (small, room_depth),
+              "room fresh": (room, None)}
+    errs, events = {}, {}
+    for what, (setup, init) in checks.items():
+        errs[what], events[what] = check_resolve(f"{what} {s}x{s}", setup, s, s, init)
+    head = setup_of(head_scene)
+    name = f"head {WIDTH}"
+    errs[name], events[name] = check_resolve(f"headline {WIDTH}x{HEIGHT}", head, HEIGHT,
+                                             WIDTH, None)
+    say(f"[20 scan] resolve kernel == plain chunked scan bitwise (depth, winner; with stats "
+        f"also the event count, min z, max z): " + "; ".join(
+            f"{k} ({events[k]} events)" for k in errs) + f"; faces {head['valid'].shape[0]}")
+
+    # ---- the scan frames at full width ----
+    res, lr = count(lambda: head_scene.render(DEVICE, backend="xla"), "the headline scan frame",
+                    ("scan_resolve_stats",))
+    res0, l0 = count(lambda: head_scene.render(DEVICE, backend="xla", collect_stats=False),
+                     "the headline scan frame without stats", ("scan_resolve",))
+    image, li = count(lambda: head_scene.render_image(DEVICE, backend="xla"),
+                      "the headline scan image", ("scan_resolve",))
+    same_frame("headline render(backend='xla')", res, head_ref)
+    tiled = head_scene.render(DEVICE)
+    same_frame("headline render(backend='xla') vs tiled", res,
+               SimpleNamespace(**{k: getattr(tiled, k).cpu().numpy()
+                                  for k in ("color", "depth", "full_depth")},
+                               stats=tiled.stats))
+    for k in ("color", "depth", "full_depth"):
+        if not torch.equal(getattr(res0, k), getattr(res, k)):
+            fail(f"headline scan frame {k} differs without stats")
+    same_image("headline render_image(backend='xla')", image, head_ref.color)
+    if list(res.pass_timings) != ["head"] or list(tiled.pass_timings) != ["head"]:
+        fail(f"pass_timings keys {list(res.pass_timings)}, tiled {list(tiled.pass_timings)}")
+    say(f"[20 scan] headline {WIDTH}x{HEIGHT}: render (stats and without) and render_image "
+        f"with backend='xla' == f32 oracle and the tiled frame bitwise, stats equal "
+        f"({res.stats.describe()}); launches render {nonzero(lr)}, without stats "
+        f"{nonzero(l0)}, render_image {nonzero(li)}")
+    mm_big = tscene.multimesh_scene(WIDTH, HEIGHT)
+    (m_xla, m_tiled), lm = count(lambda: (mm_big.render(DEVICE, backend="xla"),
+                                          mm_big.render(DEVICE)),
+                                 "the 3-pass scan frame", ("scan_resolve_stats",))
+    for k in ("color", "depth", "full_depth"):
+        if not torch.equal(getattr(m_xla, k), getattr(m_tiled, k)):
+            fail(f"3-pass {WIDTH}x{HEIGHT} scan frame {k} differs from the tiled frame")
+    if m_xla.stats != m_tiled.stats:
+        fail(f"3-pass scan stats {m_xla.stats} != tiled {m_tiled.stats}")
+    if not list(m_xla.pass_timings) == list(m_tiled.pass_timings) == ["head", "eyes", "room"]:
+        fail(f"3-pass pass_timings keys {list(m_xla.pass_timings)}, tiled "
+             f"{list(m_tiled.pass_timings)}")
+    m_ref, lmr = count(lambda: mm_scene.render(DEVICE, backend="xla"),
+                       "the 3-pass scan frame at the reference size", ("scan_resolve_stats",))
+    same_frame(f"3-pass {REF_W}x{REF_H} render(backend='xla')", m_ref, mm_ref)
+    say(f"[20 scan] 3-pass {WIDTH}x{HEIGHT}: render(backend='xla') == the tiled frame bitwise "
+        f"(colour, depth, full depth), stats equal, pass_timings keys "
+        f"{list(m_xla.pass_timings)} on both; {REF_W}x{REF_H} == f32 oracle, stats equal; "
+        f"launches {nonzero(lm)} (both backends), {nonzero(lmr)}")
+    sh_scene, sh_key, sh_settings, sh_ref, sh_map = shadow
+    (sres, smap), ls = count(lambda: shadows.render_with_shadows(
+        sh_scene, sh_key, sh_settings, DEVICE, frustum_cull=False, backend="xla"),
+        "the scan shadowed frame", ("scan_resolve", "scan_resolve_stats"))
+    tres, tmap = shadows.render_with_shadows(sh_scene, sh_key, sh_settings, DEVICE,
+                                             frustum_cull=False)
+    if not torch.equal(smap, tmap):
+        fail("the scan shadow map differs from the tiled one")
+    diff, err = bits_equal(smap.cpu(), torch.from_numpy(sh_map))
+    if diff:
+        fail(f"the scan shadow map: {diff} depths differ from the f32 oracle (max {err})")
+    same_frame(f"shadow_phong_{SHADOW_W} render_with_shadows(backend='xla')", sres, sh_ref)
+    for k in ("color", "depth", "full_depth"):
+        if not torch.equal(getattr(sres, k), getattr(tres, k)):
+            fail(f"scan shadowed frame {k} differs from the tiled one")
+    say(f"[20 scan] shadow_phong_{SHADOW_W}: render_with_shadows(backend='xla') -> map == the "
+        f"tiled map and the f32 oracle's, frame == the tiled frame and the f32 oracle "
+        f"bitwise, stats equal; launches {nonzero(ls)}")
+
+    # ---- timing: the kernel on the headline pass, the frames in turns ----
+    seed = torch.full((HEIGHT, WIDTH), torch.inf, device=DEVICE)
+    k_ms = event_ms(lambda: raster.depth_resolve_xla(head, HEIGHT, WIDTH))
+    ks_ms = event_ms(lambda: raster.pass_events_xla(head, seed, HEIGHT, WIDTH))
+    # the plain scan is no yardstick of speed, and has run once already above
+    p_ms = event_ms(lambda: raster.depth_resolve_xla_plain(head, HEIGHT, WIDTH), 0, 2)
+    ps_ms = event_ms(lambda: raster.pass_events_xla_plain(head, seed, HEIGHT, WIDTH), 0, 2)
+    kb = scan_bound(head, HEIGHT, WIDTH, False)
+    kbs = scan_bound(head, HEIGHT, WIDTH, True)
+    say(f"[20 timing] scan resolve on the headline pass ({WIDTH}x{HEIGHT}, "
+        f"{head['valid'].shape[0]} faces): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{kb[0]:.4f} ms ({kb[1]}); with stats kernel {ks_ms:.4f} ms, plain {ps_ms:.4f} ms, "
+        f"bound {kbs[0]:.4f} ms ({kbs[1]}) | {smi}")
+    for name, sc in (("head_phong", head_scene), ("multimesh", mm_big)):
+        xla_ms, tiled_ms = in_turns(
+            lambda: tscene.render_scene(sc, DEVICE, collect_stats=False, backend="xla").color,
+            lambda: tscene.render_scene(sc, DEVICE, collect_stats=False).color)
+        say(f"[20 timing] {name}_{WIDTH}: render_scene ms/frame in turns (xla, tiled, tiled, "
+            f"xla): xla {xla_ms:.3f}, tiled {tiled_ms:.3f} (xla/tiled {xla_ms / tiled_ms:.3f}) "
+            f"| {smi}")
+    # no Pallas kernel: the JAX scan functions (lax.scan) it stands for
+    for name, replaces, ms, plain_ms, b in (
+            ("scan_resolve", "tinyrenderder_tpu/ops/raster.py:85", k_ms, p_ms, kb),
+            ("scan_resolve_stats", "tinyrenderder_tpu/ops/raster.py:168", ks_ms, ps_ms, kbs)):
+        record[name] = {"name": name, "route": "cuda",
+                        "source": "tinyrenderder_tpu_torch/csrc/scan_resolve.cu",
+                        "replaces": replaces, "max_abs_err": max(errs.values()),
+                        "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    say(f"[20 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
+    return totals
+
 
 def main() -> int:
     import numpy as np
@@ -2454,7 +2671,7 @@ def main() -> int:
                      + split_text(pf.rows, rf.range_rows(th3), f_one, one_ms, s_ms,
                                   "coarse stats")
                      + f"); through the split walk {split_ms:.4f} ms (in turns; "
-                     f"{len(call_kernels(f_split))} launches a call)")
+                     f"{len(call_kernels(f_split) or '?')} launches a call)")
         else:   # and the coarse stats kernel on the same pass, its yardstick
             pc = rs.pre_sparse(p_attrs, p_uniforms, p_shader, w, h, th3, TILE_W)
             cargs = (pc.tri_rec, pc.sorted_tri, pc.ids, pc.start, pc.counts,
@@ -2968,12 +3185,16 @@ def main() -> int:
     # ---- 19. the orbit on every backend ----
     add_launches(animation_ranks_phase(smi))
 
+    # ---- 20. the scan backend ----
+    add_launches(scan_phase(smi, scene, head_ref, frames["multimesh"], oracles["multimesh"],
+                            (sh_scene, sh_key, sh_settings, *sh_oracle), record))
+
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
     order = ("coarse_raster", "coarse_raster_stats", "dense_raster", "fine_raster",
              "fine_raster_stats", "fine2_raster", "fine2_raster_stats", "untile_one",
              "untile_image", "untile3", "untile3_image", "strip_raster_proto", "rank_pairs",
-             "inplace_blocks")
+             "inplace_blocks", "scan_resolve", "scan_resolve_stats")
     # untile_one and untile3 are kernels: their launches include their image stores'
     stores = {"untile_one": "untile_image", "untile3": "untile3_image"}
     kernels = []

@@ -18,8 +18,9 @@
     ``render_animation`` stopped after one frame and resumed, write the
     one-process tiled orbit's files byte for byte, and only rank 0 reads
     the checkpoint or writes.
-(d) The CLI's orbit on every backend in one process, and ``"xla"``
-    refused as out of the port's scope."""
+(d) The CLI's orbit on every backend in one process, and the scan
+    backend's (``"xla"``) orbit: the tiled orbit's files, through
+    ``render_animation`` and the CLI."""
 
 import math
 import os
@@ -170,15 +171,13 @@ def test_cli_animate_on_every_backend(cli_tiled, backend, tmp_path):
     assert _files(tmp_path) == cli_tiled
 
 
-def test_xla_is_out_of_the_ports_scope(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="out of the port's scope"):
-        animation.render_animation(_scene(), animation.AnimationConfig(
-            frames=FRAMES, backend="xla", device="cpu", outdir=str(tmp_path / "orbit")))
-    assert not (tmp_path / "orbit").exists()
-    with pytest.raises(SystemExit):
-        cli.run(_cli_args(tmp_path / "cli", "xla"))
-    assert "out of the port's scope" in capsys.readouterr().err
-    assert not (tmp_path / "cli").exists()
+def test_xla_orbit_writes_the_tiled_orbits_files(tiled, cli_tiled, tmp_path):
+    """The scan backend's orbit, through ``render_animation`` (its mesh is
+    not used) and ``cli --animate --backend xla``: the tiled orbit's files
+    byte for byte."""
+    assert _orbit(tmp_path / "orbit", "xla") == tiled
+    assert cli.run(_cli_args(tmp_path / "cli", "xla")) == 0
+    assert _files(tmp_path / "cli") == cli_tiled
 
 
 def _log_writes(rank: int, log_dir: str) -> None:

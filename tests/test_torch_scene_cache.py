@@ -299,9 +299,9 @@ def test_default_device_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("name", list(FRAMES))
 def test_backends(name):
-    """"oracle" is ``oracle_render``; the sharded backends render (here a
-    world of one rank) the oracle's frame; the XLA scan path raises,
-    naming where it stands in ROADMAP.md."""
+    """"oracle" is ``oracle_render``; the tiled frame, the scan backend
+    ("xla") and the sharded backends (here a world of one rank) render the
+    oracle's frame; an unknown backend raises."""
     sc = frame_scene(name)
     want = tscene.oracle_render(sc)
     same_frame(sc.render(backend="oracle"), want, "render oracle")
@@ -312,8 +312,8 @@ def test_backends(name):
         same_frame(sc.render(CPU, backend=backend), want, f"{backend} on the CPU")
         assert_bits(sc.render_image(CPU, backend=backend).numpy(), want.color,
                     f"{backend} image on the CPU")
-    with pytest.raises(NotImplementedError, match="out of the port's scope"):
-        sc.render(CPU, backend="xla")
+    same_frame(sc.render(CPU, backend="xla"), want, "xla on the CPU")
+    assert_bits(sc.render_image(CPU, backend="xla").numpy(), want.color, "xla image on the CPU")
     with pytest.raises(ValueError, match="unknown backend"):
         sc.render_image(CPU, backend="tiles")
 
@@ -328,7 +328,7 @@ def test_oracle_dtype_matches_jax(name):
     want = frame_scene(name, "jax").render(backend="oracle", dtype=np.float64)
     assert got.depth.dtype == np.float64
     same_frame(got, want, f"{name} float64 oracle")
-    for backend in ("tiled", *tscene.SHARDED_BACKENDS):
+    for backend in ("tiled", "xla", *tscene.SHARDED_BACKENDS):
         with pytest.raises(ValueError, match="float32"):
             frame_scene(name).render(CPU, backend=backend, dtype=np.float64)
 

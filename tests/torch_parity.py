@@ -917,6 +917,98 @@ def _jax_inplace(r):
             "out": np.asarray(out)}
 
 
+#: the scan backend's chain of passes (tests/test_torch_scan.py): (mesh of
+#: ``standard_meshes``, shader kind), each pass seeded with the frame the
+#: ones before it left; "depth" is a depth-only pass
+SCAN_CHAIN = (("sphere", "gouraud"), ("head", "phong"), ("soup", "depth"), ("soup", "flat"),
+              ("cube", "textured"))
+
+
+def scan_chain(side: str, w: int, h: int) -> list:
+    """One side's OraclePasses of ``SCAN_CHAIN`` under ``default_view`` at
+    the frame's aspect."""
+    from helpers import default_view
+    view, proj = default_view(aspect=w / h)
+    meshes = standard_meshes(side)
+    return [make_pass(meshes[mesh], make_shader(kind, side), view, proj, side)
+            for mesh, kind in SCAN_CHAIN]
+
+
+def _jax_setup(r) -> dict:
+    import jax.numpy as jnp
+    return {k: jnp.asarray(r[k]) for k in ("valid", "screen", "ndc_z", "clip_w", "bbox")}
+
+
+def _jax_scan_resolve(r):
+    """``raster.depth_resolve_xla`` of a setup at (w, h) in chunks of
+    ``chunk``, seeded with ``init`` and at global pixel (x0, y0) where the
+    request has them; on a whole frame also ``raster.pass_events_xla``."""
+    import jax.numpy as jnp
+
+    from tinyrenderder_tpu.ops import raster
+    setup = _jax_setup(r)
+    h, w, chunk = int(r["h"]), int(r["w"]), int(r["chunk"])
+    init = jnp.asarray(r["init"]) if "init" in r else None
+    x0, y0 = int(r.get("x0", 0)), int(r.get("y0", 0))
+    d, wn = raster.depth_resolve_xla(setup, h, w, chunk=chunk, init_depth=init, x0=x0, y0=y0)
+    out = {"depth": np.asarray(d), "winner": np.asarray(wn)}
+    if x0 == 0 and y0 == 0:
+        init = jnp.full((h, w), jnp.inf, jnp.float32) if init is None else init
+        d, wn, frags, mn, mx = raster.pass_events_xla(setup, init, h, w, chunk=chunk)
+        out.update(ev_depth=np.asarray(d), ev_winner=np.asarray(wn),
+                   ev=np.array([float(frags), float(mn), float(mx)]))
+    return out
+
+
+def _jax_scan_chain(r):
+    """``SCAN_CHAIN`` through ``raster.render_pass_xla`` in chunks of
+    ``chunk``, winner ids offset by the faces before: the frame after each
+    pass."""
+    import jax.numpy as jnp
+
+    from tinyrenderder_tpu.ops import raster
+    w, h, chunk = int(r["w"]), int(r["h"]), int(r["chunk"])
+    fb = raster.new_framebuffers(w, h)
+    out, offset = {}, 0
+    for i, p in enumerate(scan_chain("jax", w, h)):
+        attrs = {k: jnp.asarray(v) for k, v in p.attrs.items()}
+        fb, _ = raster.render_pass_xla(fb, attrs, p.shader, p.uniforms, winner_offset=offset,
+                                       chunk=chunk)
+        offset += attrs["position"].shape[0]
+        out.update({f"color_{i}": np.asarray(fb.color), f"depth_{i}": np.asarray(fb.depth),
+                    f"winner_{i}": np.asarray(fb.winner)})
+    return out
+
+
+def _jax_scan_scene(r):
+    """``Scene.render(backend="xla")`` of a ``FRAMES`` scene with stats,
+    ``render_scene_image(backend="xla")``, and the ``pass_timings`` keys
+    of the "xla" and "tiled" frames (the tiled route off the TPU), in
+    order."""
+    from tinyrenderder_tpu import scene as scene_mod
+    name = str(r["scene"])
+    res = frame_scene(name, "jax").render(backend="xla", collect_stats=True)
+    tiled = frame_scene(name, "jax").render(backend="tiled", collect_stats=True)
+    out = {k: np.asarray(getattr(res, k)) for k in ("color", "depth", "full_depth")}
+    out.update(stats=stats_vector(res.stats), keys=np.array(list(res.pass_timings)),
+               tiled_keys=np.array(list(tiled.pass_timings)),
+               image=np.asarray(scene_mod.render_scene_image(frame_scene(name, "jax"),
+                                                             backend="xla")))
+    return out
+
+
+def _jax_real_asset(r):
+    """``scripts/gen_real_asset.py``: the 27,360-face head written to
+    ``dir``, and the JAX CLI on it with ``--backend oracle``: its four
+    files' bytes."""
+    mod = _script("gen_real_asset")
+    d, out_dir = str(r["dir"]), os.path.join(str(r["dir"]), "jax_oracle")
+    os.makedirs(out_dir)
+    mod.render_cli(mod.generate(d), out_dir, backend="oracle")
+    return {f: np.frombuffer(open(os.path.join(out_dir, f"{f}.tga"), "rb").read(), np.uint8)
+            for f in ("phong", "zbuffer", "ao", "final")}
+
+
 def _main(req_path, out_path):
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -929,7 +1021,9 @@ def _main(req_path, out_path):
            "row_costs": _jax_row_costs, "sharded_frame": _jax_sharded,
            "sharded_image": _jax_sharded, "sharded_scene": _jax_sharded_scene,
            "geometry_frame": _jax_geometry, "view_frame": _jax_view_frame,
-           "animation": _jax_animation}
+           "animation": _jax_animation, "scan_resolve": _jax_scan_resolve,
+           "scan_chain": _jax_scan_chain, "scan_scene": _jax_scan_scene,
+           "real_asset": _jax_real_asset}
     requests: dict = {}
     with np.load(req_path) as z:
         for key in z.files:

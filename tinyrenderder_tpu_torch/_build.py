@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
 SOURCES = ("raster_coarse.cu", "raster_fine.cu", "raster_fine2.cu", "untile.cu",
-           "fine_raster.cu", "rank_kernel.cu", "inplace_blocks.cu")
+           "fine_raster.cu", "rank_kernel.cu", "inplace_blocks.cu", "scan_resolve.cu")
 HEADERS = ("raster_common.cuh", "raster_strip.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -71,6 +71,10 @@ SIGNATURES = {
     # tx0, ty0, span_x, spans, n_tri, nsx, n_ranges, range, work, strips,
     # ranks, stream
     "trt_rank_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # tri_rec, rec_stride, valid, n_tri, height, width, x0, y0, init_depth
+    # (or null), init_winner (or null), depth, winner, ev_count (or null),
+    # ev_maxz (or null), stream
+    "trt_scan_resolve": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # img, ids, id_stride, add_ptr (or null), add_val, n_ids, height, width,
     # block_h, block_w, stream
     "trt_inplace_blocks": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P],

@@ -7,8 +7,9 @@ resumes at the next unwritten frame from ``<outdir>/checkpoint.json``,
 written atomically with the JAX module's keys and read by its rule.
 
 Per frame, ``Scene.render(..., collect_stats=False, backend=cfg.backend,
-mesh=cfg.mesh)`` renders on ``cfg.device``: the tiled frame, the NumPy
-oracle, or one of the sharded backends over the mesh's ranks.  When the
+mesh=cfg.mesh)`` renders on ``cfg.device``: the tiled frame, the scan
+backend's ("xla"), the NumPy oracle, or one of the sharded backends over
+the mesh's ranks.  When the
 colour is on a CUDA device it is copied into one of two pinned host
 buffers with ``non_blocking=True`` and a CUDA event is recorded; while
 the next frame renders, the previous one waits for its event, is encoded
@@ -56,7 +57,7 @@ CHECKPOINT_NAME = "checkpoint.json"
 class AnimationConfig:
     frames: int = 120
     orbit_degrees: float = 360.0
-    #: "tiled", "oracle" or one of ``scene.SHARDED_BACKENDS`` (as ``Scene.render``)
+    #: one of ``scene.BACKENDS`` (as ``Scene.render``)
     backend: str = "tiled"
     #: where the frames render: "cuda" (the kernels) or "cpu" (their plain versions)
     device: str = "cuda"

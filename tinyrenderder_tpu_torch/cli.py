@@ -1,7 +1,7 @@
 """Command-line front end of the PyTorch port (main.cpp:469-807).
 
     python -m tinyrenderder_tpu_torch.cli [model] --device cuda|cpu \\
-        [--backend tiled|oracle|sharded|sharded-2d|sharded-measured|sharded-geometry] \\
+        [--backend tiled|xla|oracle|sharded|sharded-2d|sharded-measured|sharded-geometry] \\
         [--width W] [--height H] [--outdir DIR] \\
         [--no-cull] [--no-ssao] [--image-only] [--shadows [--shadow-size S]] \\
         [--animate N] [--profile]
@@ -13,8 +13,11 @@ are missing; the head from ``model``, any of the formats
 ``models.manager.load_mesh`` reads), rendered with exact stats by
 ``Scene.render`` on ``--device``, then z-visualization, SSAO and the
 composite on the same device, and the same four TGA files and log lines.
-``--backend oracle`` renders on the serial NumPy oracle instead and runs
-the NumPy post in float64, as the JAX CLI does (slow; keep frames small).  ``--shadows`` renders
+``--backend xla`` renders through the scan backend (a per-pixel walk of
+each pass's triangles, ``ops/raster.py``) with the same pixels and
+stats.  ``--backend oracle`` renders on the serial NumPy oracle instead
+and runs the NumPy post in float64, as the JAX CLI does (slow; keep
+frames small).  ``--shadows`` renders
 the two-pass shadowed frame from the key light (``shadows.py``) in its
 place.  ``--animate N`` renders an N-frame orbit of the scene instead, on
 any backend (``animation.py``, resumable from ``<outdir>/checkpoint.json``);
@@ -30,9 +33,7 @@ alone writes the files:
     torchrun --nproc-per-node=N -m tinyrenderder_tpu_torch.cli --backend sharded
 
 Started plainly, the world is one rank.  With ``--animate`` every rank
-renders every frame of the orbit and rank 0 writes them.  ``--backend
-xla`` (the JAX package's scan path) is out of the port's scope and is
-refused.
+renders every frame of the orbit and rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -170,15 +171,15 @@ def run(argv=None) -> int:
                         help="cuda: the hand-written kernels on the GPU; "
                              "cpu: their plain PyTorch versions")
     parser.add_argument("--backend",
-                        choices=["xla", "tiled", "oracle", *tscene.SHARDED_BACKENDS],
+                        choices=tscene.BACKENDS,
                         default="tiled",
-                        help="tiled: the tiled frame on --device; oracle: the serial "
+                        help="tiled: the tiled frame on --device; xla: the scan "
+                             "backend on --device (the same frame); oracle: the serial "
                              "NumPy oracle on the host (slow; keep frames small); "
                              "sharded, sharded-2d, sharded-measured: the frame split "
                              "over the ranks (row bands, screen blocks, measured "
                              "bands), sharded-geometry: each pass's faces split over "
-                             "the ranks (under torchrun, one rank a process); xla: "
-                             "the JAX package's scan path, not in the port (refused)")
+                             "the ranks (under torchrun, one rank a process)")
     parser.add_argument("--width", type=int, default=WIDTH)
     parser.add_argument("--height", type=int, default=HEIGHT)
     parser.add_argument("--outdir", default=".")
@@ -197,10 +198,6 @@ def run(argv=None) -> int:
                         help="write a torch.profiler trace to <outdir>/trace")
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    try:
-        tscene._backend(args.backend)
-    except NotImplementedError as e:
-        parser.error(str(e))
     if args.backend != "oracle" and args.device == "cuda" and not torch.cuda.is_available():
         parser.error("--device cuda: no CUDA device is available")
     rank = _init_ranks(args)

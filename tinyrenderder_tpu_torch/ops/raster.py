@@ -1,22 +1,60 @@
-"""Frame buffers and per-pass render counters in PyTorch.
+"""Frame buffers, per-pass counters and the scan backend in PyTorch.
 
-Counterpart of the parts of ``tinyrenderder_tpu/ops/raster.py`` that the
-tiled frame uses: ``BACKGROUND``, ``FrameBuffers`` and ``pass_stats``.
-The JAX module imports jax at module level, so the port cannot reuse it.
+Counterpart of ``tinyrenderder_tpu/ops/raster.py`` (the JAX module
+imports jax at module level, so the port keeps its own copy): the frame
+in image layout (``BACKGROUND``, ``FrameBuffers``, ``new_framebuffers``),
+a pass's counters (``pass_stats``, ``PassEvents``) and the scan backend
+(``backend="xla"``), which renders a pass in two phases over the whole
+frame:
+
+  Phase A (depth resolve, ``depth_resolve_xla``; with the exact z-pass
+    events, ``pass_events_xla``): per pixel, the least affine depth of the
+    covered triangles, ties to the lowest triangle (= submission) index,
+    which is what the reference's serial strict-less z-test keeps
+    (our_gl.cpp:165).  The JAX package scans chunks of ``chunk`` triangles
+    (a first-occurrence argmin within a chunk, a strict-less merge across
+    chunks); ``depth_resolve_xla_plain`` and ``pass_events_xla_plain`` are
+    that scan, op for op.  On a CUDA tensor the resolve is one launch of
+    ``csrc/scan_resolve.cu``, a walk of the triangles in submission order
+    per pixel, which keeps the same depth, winner and events for any
+    ``chunk`` (the argument is in the kernel's source).
+
+  Phase B (``shade_winners``): per pixel, the winner's vertices gathered,
+    barycentrics at the pixel centre, perspective-correct weights, the
+    varyings interpolated and the fragment shader run once, densely, in
+    plain PyTorch on either device (the JAX package computes it outside
+    any Pallas kernel too).
+
+All discontinuous decisions go through ``ops.semantics``, so the frame is
+the float32 oracle's and the tiled backend's, bitwise.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-__all__ = ["BACKGROUND", "FrameBuffers", "pass_stats"]
+from tinyrenderder_tpu_torch import _build, shaders
+from tinyrenderder_tpu_torch.ops import semantics
+from tinyrenderder_tpu_torch.ops.raster_coarse import GEOM, build_tri_records
+from tinyrenderder_tpu_torch.ops.raster_tiled import vertex_stage
+
+__all__ = ["BACKGROUND", "FrameBuffers", "PassEvents", "new_framebuffers", "pass_stats",
+           "depth_resolve_xla", "depth_resolve_xla_plain", "pass_events_xla",
+           "pass_events_xla_plain", "shade_winners", "render_pass_xla", "LAUNCHES",
+           "STATS_LAUNCHES"]
 
 BACKGROUND = -1  # winner id for empty pixels
 
 _INT32_MAX = 2**31 - 1
 _INT32_MIN = -2**31
+
+#: user calls that launched the resolve kernel since the last reset (the CPU
+#: path does not count), without and with the z-pass events
+LAUNCHES = 0
+STATS_LAUNCHES = 0
 
 
 class FrameBuffers(NamedTuple):
@@ -26,6 +64,24 @@ class FrameBuffers(NamedTuple):
     color: torch.Tensor    # (H, W, 3) uint8
     depth: torch.Tensor    # (H, W) float32, +inf where empty
     winner: torch.Tensor   # (H, W) int32 triangle id of the depth owner
+
+
+class PassEvents(NamedTuple):
+    """One pass's exact counters, on the device (our_gl.cpp:194-200)."""
+
+    setup: dict               # the pass's triangle setup (for pass_stats)
+    fragments: torch.Tensor   # 0-d int64: z-pass events, overdraw included
+    min_z: torch.Tensor       # 0-d f32: least event z (+inf when none)
+    max_z: torch.Tensor       # 0-d f32: largest event z (-inf when none)
+
+
+def new_framebuffers(width: int, height: int, device) -> FrameBuffers:
+    """init_zbuffer semantics on ``device``: colour 0, depth +inf
+    (our_gl.cpp:72-74), winner ``BACKGROUND``."""
+    return FrameBuffers(
+        color=torch.zeros((height, width, 3), dtype=torch.uint8, device=device),
+        depth=torch.full((height, width), torch.inf, dtype=torch.float32, device=device),
+        winner=torch.full((height, width), BACKGROUND, dtype=torch.int32, device=device))
 
 
 def pass_stats(setup: dict) -> dict:
@@ -43,3 +99,270 @@ def pass_stats(setup: dict) -> dict:
          valid.sum()]).tolist()
     return dict(min_x=min_x, max_x=max_x, min_y=min_y, max_y=max_y,
                 triangles=int(valid.shape[0]), valid_triangles=n_valid)
+
+
+# ---------------------------------------------------------------------------
+# phase A, plain: the JAX package's chunked scan
+# ---------------------------------------------------------------------------
+
+def _chunk_windows(setup: dict, chunk: int, height: int, width: int, x0: int, y0: int):
+    """(first triangle, end, (row slice, column slice)) of each chunk with a
+    valid triangle whose bbox meets the buffer, in order.  The window is
+    the union of those bboxes cut to the buffer: every pixel outside it
+    fails the chunk's bbox or valid test, so the scan step leaves it as it
+    was and has no event there.  Reads the bboxes to the host once."""
+    valid = setup["valid"].cpu().numpy()
+    bbox = setup["bbox"].cpu().numpy().astype(np.int64)
+    f = valid.shape[0]
+    n = -(-f // chunk)
+    pad = n * chunk - f
+    valid = np.pad(valid, (0, pad))
+    bbox = np.pad(bbox, ((0, pad), (0, 0)))
+    big = np.int64(1) << 40
+
+    def ext(col, fill, op):
+        return op(np.where(valid, bbox[:, col], fill).reshape(n, chunk), axis=1)
+
+    lo_x = np.maximum(ext(0, big, np.min) - x0, 0)
+    hi_x = np.minimum(ext(1, -big, np.max) - x0, width - 1)
+    lo_y = np.maximum(ext(2, big, np.min) - y0, 0)
+    hi_y = np.minimum(ext(3, -big, np.max) - y0, height - 1)
+    keep = np.flatnonzero((lo_x <= hi_x) & (lo_y <= hi_y))
+    return [(int(c) * chunk, min(int(c + 1) * chunk, f),
+             (slice(int(lo_y[c]), int(hi_y[c]) + 1), slice(int(lo_x[c]), int(hi_x[c]) + 1)))
+            for c in keep]
+
+
+def _chunk_depths(setup: dict, c0: int, c1: int, win, x0: int, y0: int):
+    """The scan step's covered depths of triangles c0 .. c1 - 1 over the
+    window (K, h, w): +inf where a triangle does not cover the pixel
+    (``depth_resolve_xla``'s step up to its argmin)."""
+    dev = setup["screen"].device
+    ys, xs = win
+    xi = (x0 + torch.arange(xs.start, xs.stop, dtype=torch.int32, device=dev))[None, None, :]
+    yi = (y0 + torch.arange(ys.start, ys.stop, dtype=torch.int32, device=dev))[None, :, None]
+    px = xi.to(torch.float32) + 0.5
+    py = yi.to(torch.float32) + 0.5
+    c_screen = setup["screen"][c0:c1].to(torch.float32)
+    c_z = setup["ndc_z"][c0:c1].to(torch.float32)
+    c_bbox = setup["bbox"][c0:c1]
+
+    def tcoord(k, a):  # (K,) per-triangle scalar -> (K, 1, 1)
+        return c_screen[:, k, a][:, None, None]
+
+    b0, b1, b2, _ = semantics.barycentric(
+        tcoord(0, 0), tcoord(0, 1), tcoord(1, 0), tcoord(1, 1),
+        tcoord(2, 0), tcoord(2, 1), px, py)
+    covered = semantics.coverage_mask(b0, b1, b2)
+    z = semantics.affine_z(c_z[:, 0, None, None], c_z[:, 1, None, None],
+                           c_z[:, 2, None, None], b0, b1, b2)
+    covered &= torch.isfinite(z)
+    # only pixels inside the clamped integer bbox are visited (our_gl.cpp:147-148)
+    covered &= ((xi >= c_bbox[:, 0, None, None])
+                & (xi <= c_bbox[:, 1, None, None])
+                & (yi >= c_bbox[:, 2, None, None])
+                & (yi <= c_bbox[:, 3, None, None]))
+    covered &= setup["valid"][c0:c1, None, None]
+    return torch.where(covered, z, torch.inf)
+
+
+def _merge(zc, c0: int, depth, winner, win) -> None:
+    """The chunk's first-occurrence argmin merged into the window of the
+    running buffers, in place, on strict less-than: the first drawn wins."""
+    best = torch.argmin(zc, dim=0)                       # first min = lowest id
+    zmin = torch.gather(zc, 0, best[None])[0]
+    zbuf = depth[win]
+    better = zmin < zbuf
+    depth[win] = torch.where(better, zmin, zbuf)
+    winner[win] = torch.where(better, (best + c0).to(torch.int32), winner[win])
+
+
+def _init_buffers(height: int, width: int, device, init_depth, init_winner):
+    depth = (torch.full((height, width), torch.inf, dtype=torch.float32, device=device)
+             if init_depth is None else init_depth.to(torch.float32).clone())
+    winner = (torch.full((height, width), BACKGROUND, dtype=torch.int32, device=device)
+              if init_winner is None else init_winner.clone())
+    return depth, winner
+
+
+def depth_resolve_xla_plain(setup: dict, height: int, width: int, chunk: int = 8,
+                            init_depth=None, init_winner=None, x0: int = 0, y0: int = 0):
+    """Phase A as the JAX package's scan: chunks of ``chunk`` triangles in
+    order, each step evaluated over the window of its bboxes
+    (``_chunk_windows``).  ``setup``: ``semantics.triangle_setup_planes``
+    of (F, 3, 4) clip.  x0/y0: the global pixel of the buffer's top-left
+    corner (a row band of the frame; bboxes stay global).  Returns
+    (depth (H, W) f32, winner (H, W) int32) on setup's device."""
+    depth, winner = _init_buffers(height, width, setup["screen"].device, init_depth,
+                                  init_winner)
+    for c0, c1, win in _chunk_windows(setup, chunk, height, width, x0, y0):
+        _merge(_chunk_depths(setup, c0, c1, win, x0, y0), c0, depth, winner, win)
+    return depth, winner
+
+
+def pass_events_xla_plain(setup: dict, init_depth, height: int, width: int,
+                          chunk: int = 8, x0: int = 0, y0: int = 0):
+    """Phase A with the exact per-pass event counters, as the JAX
+    package's ``pass_events_xla`` scan: within a chunk, event k fires at a
+    pixel iff ``zc[k] < min(running depth, zc[0..k-1])`` (a ``cummin`` and
+    its exclusive shift); ``frags`` counts the events (int32; overdraw
+    included, our_gl.cpp:194-200), ``max_z`` is their largest z and
+    ``min_z`` the least depth over the pixels this pass won.  The winner
+    starts at ``BACKGROUND``.  Returns (depth, winner, frags, min_z, max_z),
+    the last three 0-d."""
+    dev = setup["screen"].device
+    depth, winner = _init_buffers(height, width, dev, init_depth, None)
+    frags = torch.zeros((), dtype=torch.int32, device=dev)
+    max_z = torch.tensor(-torch.inf, dtype=torch.float32, device=dev)
+    for c0, c1, win in _chunk_windows(setup, chunk, height, width, x0, y0):
+        zc = _chunk_depths(setup, c0, c1, win, x0, y0)
+        incl = torch.cummin(zc, dim=0).values
+        excl = torch.cat([torch.full_like(zc[:1], torch.inf), incl[:-1]])
+        thresh = torch.minimum(excl, depth[win][None])
+        events = zc < thresh
+        frags = frags + events.sum(dtype=torch.int32)
+        max_z = torch.maximum(max_z, torch.where(events, zc, -torch.inf).amax())
+        _merge(zc, c0, depth, winner, win)
+    min_z = torch.where(winner >= 0, depth, torch.inf).amin()
+    return depth, winner, frags, min_z, max_z
+
+
+# ---------------------------------------------------------------------------
+# phase A: the dispatch (CPU tensors: the plain scan; CUDA tensors: the kernel)
+# ---------------------------------------------------------------------------
+
+def _check_plane(name: str, t, dtype, shape, device) -> None:
+    if t is None:
+        return
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {dtype} {shape} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(setup: dict, height: int, width: int, init_depth, init_winner, x0: int,
+            y0: int, stats: bool):
+    """One launch of ``csrc/scan_resolve.cu`` on CUDA tensors ->
+    (depth, winner[, (event count (1,) int32, largest event z (1,) f32)])."""
+    dev = setup["screen"].device
+    if dev.type != "cuda":
+        raise ValueError(f"no scan resolve for device {dev}")
+    _check_plane("init_depth", init_depth, torch.float32, (height, width), dev)
+    _check_plane("init_winner", init_winner, torch.int32, (height, width), dev)
+    rec = build_tri_records(setup)                      # (F, 16): the geometry columns
+    valid = setup["valid"].contiguous()
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    winner = torch.empty((height, width), dtype=torch.int32, device=dev)
+    ev = ((torch.zeros(1, dtype=torch.int32, device=dev),
+           torch.full((1,), -torch.inf, dtype=torch.float32, device=dev)) if stats else None)
+    _build.call("trt_scan_resolve", dev, rec.data_ptr(), GEOM, valid.data_ptr(),
+                rec.shape[0], height, width, int(x0), int(y0),
+                None if init_depth is None else init_depth.data_ptr(),
+                None if init_winner is None else init_winner.data_ptr(),
+                depth.data_ptr(), winner.data_ptr(), ev[0].data_ptr() if ev else None,
+                ev[1].data_ptr() if ev else None)
+    return (depth, winner) + ((ev,) if stats else ())
+
+
+def depth_resolve_xla(setup: dict, height: int, width: int, chunk: int = 8,
+                      init_depth=None, init_winner=None, x0: int = 0, y0: int = 0):
+    """Phase A over the (H, W) buffer at global pixel (x0, y0) -> (depth,
+    winner).  CPU tensors take the plain scan (``depth_resolve_xla_plain``
+    in chunks of ``chunk``); CUDA tensors launch the kernel, whose result
+    is the scan's for every ``chunk``."""
+    global LAUNCHES
+    if setup["screen"].device.type == "cpu":
+        return depth_resolve_xla_plain(setup, height, width, chunk, init_depth, init_winner,
+                                       x0, y0)
+    if setup["valid"].shape[0] == 0:
+        return _init_buffers(height, width, setup["screen"].device, init_depth, init_winner)
+    out = _launch(setup, height, width, init_depth, init_winner, x0, y0, False)
+    LAUNCHES += 1
+    return out
+
+
+def pass_events_xla(setup: dict, init_depth, height: int, width: int, chunk: int = 8,
+                    x0: int = 0, y0: int = 0):
+    """Phase A with the exact event counters (``pass_events_xla_plain``'s
+    contract) -> (depth, winner, frags int32, min_z, max_z).  CPU tensors
+    take the plain scan; CUDA tensors launch the kernel with its event
+    sums (the same depth and winner as ``depth_resolve_xla``)."""
+    global STATS_LAUNCHES
+    dev = setup["screen"].device
+    if dev.type == "cpu":
+        return pass_events_xla_plain(setup, init_depth, height, width, chunk, x0, y0)
+    if setup["valid"].shape[0] == 0:
+        depth, winner = _init_buffers(height, width, dev, init_depth, None)
+        return (depth, winner, torch.zeros((), dtype=torch.int32, device=dev),
+                torch.tensor(torch.inf, device=dev), torch.tensor(-torch.inf, device=dev))
+    depth, winner, (count, max_z) = _launch(setup, height, width, init_depth, None, x0, y0,
+                                            True)
+    STATS_LAUNCHES += 1
+    min_z = torch.where(winner >= 0, depth, torch.inf).amin()
+    return depth, winner, count[0], min_z, max_z[0]
+
+
+# ---------------------------------------------------------------------------
+# phase B and the pass
+# ---------------------------------------------------------------------------
+
+def shade_winners(fb_color, winner_local, setup: dict, varyings: dict, shader,
+                  uniforms: dict, height: int, width: int, x0: int = 0, y0: int = 0):
+    """Phase B: the fragment shader once per pixel this pass won.
+    ``winner_local``: (H, W) int32, this pass's triangle index per pixel,
+    ``BACKGROUND`` where it did not win; ``varyings``: the vertex stage's
+    {name: (F, 3, C)}.  Returns the (H, W, 3) uint8 colour: the shaded
+    fragment where the pass won, ``fb_color`` elsewhere."""
+    f = setup["valid"].shape[0]
+    if f == 0:
+        return fb_color
+    dev = winner_local.device
+    mine = winner_local >= 0
+    widx = torch.clamp(winner_local, 0, f - 1).long()
+    scr = setup["screen"][widx]          # (H, W, 3, 2)
+    ws = setup["clip_w"][widx]           # (H, W, 3)
+    px = (torch.arange(width, dtype=torch.float32, device=dev) + float(x0))[None, :] + 0.5
+    py = (torch.arange(height, dtype=torch.float32, device=dev) + float(y0))[:, None] + 0.5
+    px = px.expand(height, width)
+    py = py.expand(height, width)
+    b0, b1, b2, _ = semantics.barycentric(
+        scr[..., 0, 0], scr[..., 0, 1], scr[..., 1, 0], scr[..., 1, 1],
+        scr[..., 2, 0], scr[..., 2, 1], px, py)
+    pb0, pb1, pb2 = semantics.perspective_correct_bary(
+        b0, b1, b2, ws[..., 0], ws[..., 1], ws[..., 2])
+    vary_pix = {}
+    for name, v in varyings.items():
+        vw = v[widx]                     # (H, W, 3, C)
+        vary_pix[name] = semantics.interp3(
+            vw[..., 0, :], vw[..., 1, :], vw[..., 2, :],
+            pb0[..., None], pb1[..., None], pb2[..., None])
+    out = shaders.finalize_color(shaders.fragment(shader, uniforms, vary_pix))
+    return torch.where(mine[..., None], out, fb_color)
+
+
+def render_pass_xla(fb: FrameBuffers, attrs: dict, shader, uniforms: dict,
+                    winner_offset: int = 0, chunk: int = 8, collect_stats: bool = False):
+    """Render one (mesh, shader) pass into ``fb`` through the scan backend.
+    ``attrs``: {name: (F, 3, C) f32} and ``uniforms`` as tensors on the
+    frame's device.  The pass's resolve is seeded with the frame's depth
+    and a fresh winner plane, so a triangle wins a pixel only by beating
+    the earlier passes and its own pass's competitors: the serial
+    semantics.  A depth-only pass shades nothing.  Returns (new
+    FrameBuffers, the pass's setup, ``PassEvents`` with ``collect_stats``
+    (one resolve with the event sums) or None)."""
+    height, width = fb.color.shape[:2]
+    setup, varyings = vertex_stage(attrs, uniforms, shader, width, height)
+    events = None
+    if collect_stats:
+        depth, winner_local, frags, min_z, max_z = pass_events_xla(setup, fb.depth, height,
+                                                                   width, chunk)
+        events = PassEvents(setup, frags.to(torch.int64), min_z, max_z)
+    else:
+        depth, winner_local = depth_resolve_xla(setup, height, width, chunk,
+                                                init_depth=fb.depth)
+    won = winner_local >= 0
+    winner = torch.where(won, winner_local + winner_offset, fb.winner)
+    color = (shade_winners(fb.color, winner_local, setup, varyings, shader, uniforms, height,
+                           width) if shader.writes_color else fb.color)
+    return FrameBuffers(color, depth, winner), setup, events

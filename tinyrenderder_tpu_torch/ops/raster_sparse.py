@@ -34,13 +34,14 @@ have no counterpart here: nothing can overflow.
 from __future__ import annotations
 
 import struct
+import time
 from typing import NamedTuple
 
 import torch
 
 from tinyrenderder_tpu_torch import _build, shaders
 from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2
-from tinyrenderder_tpu_torch.ops.raster import BACKGROUND, FrameBuffers
+from tinyrenderder_tpu_torch.ops.raster import BACKGROUND, FrameBuffers, PassEvents
 from tinyrenderder_tpu_torch.ops.raster_coarse import build_tri_records, coarse_raster
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, active_ids,
                                                       band_spans, build_bins, cdiv,
@@ -385,15 +386,6 @@ def post_sparse(ft: FrameTiles, ids, depth_c, winner_c, vary_c, uniforms: dict,
     ft.color.index_copy_(0, idl, torch.where(won, out, ft.color[idl]))
 
 
-class PassEvents(NamedTuple):
-    """One pass's exact counters, on the device (our_gl.cpp:194-200)."""
-
-    setup: dict               # the pass's triangle setup (for raster.pass_stats)
-    fragments: torch.Tensor   # 0-d int64: z-pass events, overdraw included
-    min_z: torch.Tensor       # 0-d f32: least event z (+inf when none)
-    max_z: torch.Tensor       # 0-d f32: largest event z (-inf when none)
-
-
 def reduce_events(ev, depth_c, winner_c):
     """Per-pass exact counters from the kernel's event planes -> 0-d
     (fragments int64, min_z f32, max_z f32).  Events at a pixel strictly
@@ -581,7 +573,8 @@ def render_frame_fused_image(passes, width: int, height: int,
 
 def render_frame_fused(passes, width: int, height: int, device,
                        tile_h: int = TILE_H, tile_w: int = TILE_W,
-                       collect_stats: bool = False, band: Band | None = None):
+                       collect_stats: bool = False, band: Band | None = None,
+                       seconds: list | None = None):
     """Render a multi-pass frame in tiled layout on ``device``.
 
     ``passes``: [(attrs, shader, uniforms, exclude_from_output_depth)]
@@ -598,7 +591,11 @@ def render_frame_fused(passes, width: int, height: int, device,
     with the band arguments, the body a rank of ``parallel/dist.py`` runs):
     binning is clipped to the band's window, tile ids are band-local and
     the rasters draw each tile at its global pixels; a pass's events are
-    the band's, its setup the whole pass's."""
+    the band's, its setup the whole pass's.
+
+    ``seconds``, if given, receives each pass's host seconds, every pass
+    in order (one with no faces too), each pass ended by a synchronize of
+    the device: the JAX package's per-pass ``pass_timings``."""
     if band is None:
         ft = new_frame_tiles(width, height, device, tile_h, tile_w)
     else:
@@ -616,27 +613,46 @@ def render_frame_fused(passes, width: int, height: int, device,
         elif in_excluded:
             ft = ft._replace(depth=snapshot)           # main.cpp:730
             in_excluded = False
+        t0 = time.perf_counter()
         f = attrs["position"].shape[0]
-        if f == 0:
-            continue
-        if attrs["position"].device != ft.depth.device:
-            raise ValueError(f"pass inputs are on {attrs['position'].device}, "
-                             f"the frame on {ft.depth.device}")
-        mode = decide_mode(attrs, uniforms, shader, width, height, tile_h, tile_w)
-        if mode == "fine2":
-            # pass-local, or seeded with the running depth for exact events
-            pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h,
-                                    ft.depth if collect_stats else None, collect_stats, band)
-            setup = pre.setup
-            raster_fine2.post_fine2(ft, pre, out, winner_offset,
-                                    (lambda v: _shade_packed(v, uniforms, shader))
-                                    if shader.writes_color else None)
-        else:
-            ids, setup, out = raster_pass(mode, attrs, uniforms, shader, width, height,
-                                          tile_h, tile_w, lambda ids: ft.depth[ids.long()],
-                                          collect_stats, band)
-            post_sparse(ft, ids, *out[:3], uniforms, shader, winner_offset)
-        if collect_stats:
-            events.append(PassEvents(setup, *reduce_events(out[3], out[0], out[1])))
+        if f:
+            _render_pass(ft, attrs, shader, uniforms, width, height, tile_h, tile_w,
+                         collect_stats, band, winner_offset, events)
+        if seconds is not None:
+            synchronize(ft.depth.device)
+            seconds.append(time.perf_counter() - t0)
         winner_offset += f
     return ft, (snapshot if in_excluded else ft.depth), events
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _render_pass(ft: FrameTiles, attrs: dict, shader, uniforms: dict, width: int,
+                 height: int, tile_h: int, tile_w: int, collect_stats: bool,
+                 band: Band | None, winner_offset: int, events: list | None) -> None:
+    """One pass with faces of ``render_frame_fused``: its raster route, the
+    merge into ``ft`` and, with ``collect_stats``, its ``PassEvents``
+    appended to ``events``."""
+    if attrs["position"].device != ft.depth.device:
+        raise ValueError(f"pass inputs are on {attrs['position'].device}, "
+                         f"the frame on {ft.depth.device}")
+    mode = decide_mode(attrs, uniforms, shader, width, height, tile_h, tile_w)
+    if mode == "fine2":
+        # pass-local, or seeded with the running depth for exact events
+        pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h,
+                                ft.depth if collect_stats else None, collect_stats, band)
+        setup = pre.setup
+        raster_fine2.post_fine2(ft, pre, out, winner_offset,
+                                (lambda v: _shade_packed(v, uniforms, shader))
+                                if shader.writes_color else None)
+    else:
+        ids, setup, out = raster_pass(mode, attrs, uniforms, shader, width, height,
+                                      tile_h, tile_w, lambda ids: ft.depth[ids.long()],
+                                      collect_stats, band)
+        post_sparse(ft, ids, *out[:3], uniforms, shader, winner_offset)
+    if collect_stats:
+        events.append(PassEvents(setup, *reduce_events(out[3], out[0], out[1])))

@@ -4,7 +4,8 @@ Counterpart of ``tinyrenderder_tpu/scene.py``: the scene description
 (``ScenePass``, ``Scene`` with its ``render`` and ``render_image``,
 ``RenderResult``), the per-model frustum cull (main.cpp:623-736) and the
 per-pass inputs (``build_uniforms`` and the face attributes, in NumPy),
-then ``render_scene`` (the tiled backend's frame loop) and
+then ``render_scene`` (the tiled backend's frame loop, and the scan
+backend's, "xla": ``ops.raster.render_pass_xla`` a pass) and
 ``render_scene_image``; ``ops.raster_sparse`` renders.  The backends
 "sharded", "sharded-2d" and "sharded-measured" split the frame, and
 "sharded-geometry" each pass's faces, over the ranks of a process group
@@ -50,9 +51,9 @@ from tinyrenderder_tpu_torch.utils.stats import RenderStats
 
 log = logging.getLogger("tinyrenderder_tpu_torch.scene")
 
-__all__ = ["ScenePass", "Scene", "RenderResult", "render_scene", "render_passes",
-           "render_scene_image", "pass_tensors", "clear_caches", "oracle_render",
-           "headline_scene",
+__all__ = ["ScenePass", "Scene", "RenderResult", "BACKENDS", "render_scene",
+           "render_passes", "render_passes_xla", "render_scene_image", "pass_tensors",
+           "clear_caches", "oracle_render", "headline_scene",
            "multimesh_scene", "stress_scene", "mixed_scene"]
 
 
@@ -114,8 +115,8 @@ class Scene:
     def render(self, device="cuda", frustum_cull: bool = True, collect_stats: bool = True,
                backend: str = "tiled", mesh=None, dtype=np.float32) -> RenderResult:
         """The frame: ``render_scene`` on ``device`` (the card unless the
-        caller asks for ``"cpu"``) with ``backend`` "tiled" or one of the
-        sharded backends (over ``mesh``, see ``render_scene``), or
+        caller asks for ``"cpu"``) with ``backend`` "tiled", "xla" or one of
+        the sharded backends (over ``mesh``, see ``render_scene``), or
         ``oracle_render`` in ``dtype`` with ``backend="oracle"`` (float64
         reproduces the reference's double math).  The device backends
         render in float32 and refuse any other ``dtype``."""
@@ -139,15 +140,15 @@ class Scene:
 SHARDED_BACKENDS = ("sharded", "sharded-2d", "sharded-measured", "sharded-geometry")
 
 
+#: every backend the port renders: the tiled frame, the scan ("xla"), the
+#: NumPy oracle and the sharded backends
+BACKENDS = ("tiled", "xla", "oracle") + SHARDED_BACKENDS
+
+
 def _backend(backend: str) -> str:
-    """``backend`` if the port renders it: "tiled", "oracle" or one of
-    ``SHARDED_BACKENDS``."""
-    if backend in ("tiled", "oracle") + SHARDED_BACKENDS:
+    """``backend`` if the port renders it (``BACKENDS``)."""
+    if backend in BACKENDS:
         return backend
-    if backend == "xla":
-        raise NotImplementedError(
-            "backend 'xla': the JAX package's scan path is out of the port's scope "
-            "(ROADMAP.md, \"Out of the port's scope\")")
     raise ValueError(f"unknown backend: {backend}")
 
 
@@ -314,15 +315,19 @@ def pass_tensors(scene: Scene, device, frustum_cull: bool = True) -> list:
 def render_scene(scene: Scene, device, frustum_cull: bool = True,
                  collect_stats: bool = True, backend: str = "tiled",
                  mesh=None) -> RenderResult:
-    """Render every pass of ``scene`` into one tiled frame on ``device``
-    (the JAX package's ``render_scene(backend="tiled")``).  ``color``
-    (H, W, 3) uint8, ``depth`` (the output depth: the snapshot when the
-    frame ends inside a run of excluded passes) and ``full_depth`` are
-    tensors on ``device``.  With ``collect_stats`` the ``RenderStats``
-    are exact (``fragments_exact``): each pass reads back its counters
-    once, and ``pass_timings["frame"]`` holds the frame's host seconds.
-    On a CUDA device every kernel of the route runs on the card; on the
-    CPU the kernels' plain versions run.
+    """Render every pass of ``scene`` on ``device``: into one tiled frame
+    (the JAX package's ``render_scene(backend="tiled")``) or, with
+    ``backend="xla"``, through the scan backend (``render_pass_xla`` a
+    pass, the JAX package's ``render_scene(backend="xla")``), with the
+    same pixels and stats.  ``color`` (H, W, 3) uint8, ``depth`` (the
+    output depth: the snapshot when the frame ends inside a run of
+    excluded passes) and ``full_depth`` are tensors on ``device``.  With
+    ``collect_stats`` the ``RenderStats`` are exact (``fragments_exact``):
+    each pass reads back its counters once, and ``pass_timings`` holds
+    each visible pass's host seconds under its name (``p.name or
+    p.mesh.name``), in pass order, each pass ended by a synchronize.  On
+    a CUDA device every kernel of the route runs on the card; on the CPU
+    the kernels' plain versions run.
 
     The sharded backends split the frame (or each pass's faces) over
     ``mesh``'s ranks (default ``dist.make_mesh(device=device)``: the ranks
@@ -335,13 +340,14 @@ def render_scene(scene: Scene, device, frustum_cull: bool = True,
     stats = RenderStats()
     visible = _cull_passes(scene, frustum_cull, stats)
     passes = [_tensors(scene, p, device) for p in visible]
-    t0 = time.perf_counter()
+    seconds = [] if collect_stats else None
     fb, depth, events = render_passes(passes, scene.width, scene.height, device,
-                                      collect_stats)
+                                      collect_stats, backend, seconds)
     timings = {}
     if collect_stats:
         _add_events(stats, events)
-        timings["frame"] = time.perf_counter() - t0
+        for p, s in zip(visible, seconds, strict=True):
+            timings[p.name or p.mesh.name] = s
     return RenderResult(color=fb.color, depth=depth, full_depth=fb.depth,
                         stats=stats, pass_timings=timings)
 
@@ -442,10 +448,7 @@ def _render_sharded(scene: Scene, device, frustum_cull: bool, collect_stats: boo
     passes = [_tensors(scene, p, mesh.device) for p in visible]
     t0 = time.perf_counter()
     if not passes:
-        fb = raster.FrameBuffers(
-            torch.zeros((h, w, 3), dtype=torch.uint8, device=mesh.device),
-            torch.full((h, w), torch.inf, dtype=torch.float32, device=mesh.device),
-            torch.full((h, w), raster.BACKGROUND, dtype=torch.int32, device=mesh.device))
+        fb = raster.new_framebuffers(w, h, mesh.device)
         depth, events = fb.depth, []
     elif backend == "sharded-geometry":
         ft, out_depth_t = dist.render_frame_geometry_tiles(mesh, passes, w, h)
@@ -517,16 +520,65 @@ def _measured_bands_cached(scene: Scene, passes, n: int) -> tuple:
 
 
 def render_passes(passes, width: int, height: int, device,
-                  collect_stats: bool = False):
+                  collect_stats: bool = False, backend: str = "tiled",
+                  seconds: list | None = None):
     """The frame of ``render_scene`` from its pass tensors
     (``pass_tensors``) -> (FrameBuffers in image layout, output depth
-    (H, W), per-pass events or None).  The frame is tiled with
+    (H, W), per-pass events or None).  "tiled": the frame is tiled with
     ``pick_tile_h`` rows; the output depth of a frame that ends inside
-    a run of excluded passes is the snapshot, untiled on its own."""
+    a run of excluded passes is the snapshot, untiled on its own.
+    "xla": the scan backend (``render_passes_xla``).  ``seconds``, if
+    given, receives each pass's host seconds (``render_frame_fused``)."""
+    if backend == "xla":
+        return render_passes_xla(passes, width, height, device, collect_stats, seconds)
+    if backend != "tiled":
+        raise ValueError(f"render_passes renders 'tiled' or 'xla', not {backend!r}")
     th = raster_sparse.pick_tile_h(width, height)
     ft, out_depth_t, events = raster_sparse.render_frame_fused(
-        passes, width, height, device, tile_h=th, collect_stats=collect_stats)
+        passes, width, height, device, tile_h=th, collect_stats=collect_stats,
+        seconds=seconds)
     return (*_buffers(ft, out_depth_t, passes, width, height, th), events)
+
+
+def render_passes_xla(passes, width: int, height: int, device,
+                      collect_stats: bool = False, seconds: list | None = None):
+    """The scan backend's frame (the JAX package's ``_render_device`` with
+    ``render_pass_xla``): each pass through ``raster.render_pass_xla`` in
+    image layout, its triangle ids offset by the faces before it, the
+    depth snapshot before the first pass of a run of excluded passes and
+    restored before the next pass that is not excluded (main.cpp:700,730).
+    A pass with no faces renders nothing.  With ``collect_stats`` each
+    pass's one resolve also sums its z-pass events (``PassEvents``).
+    Returns (FrameBuffers, output depth, events or None); ``seconds`` as in
+    ``render_passes``."""
+    fb = raster.new_framebuffers(width, height, device)
+    events = [] if collect_stats else None
+    snapshot = None
+    in_excluded = False
+    winner_offset = 0
+    for attrs, shader, uniforms, exclude in passes:
+        if exclude:
+            if not in_excluded:
+                snapshot = fb.depth                 # main.cpp:700 (never written in place)
+                in_excluded = True
+        elif in_excluded:
+            fb = fb._replace(depth=snapshot)        # main.cpp:730
+            in_excluded = False
+        t0 = time.perf_counter()
+        f = attrs["position"].shape[0]
+        if f:
+            if attrs["position"].device != fb.depth.device:
+                raise ValueError(f"pass inputs are on {attrs['position'].device}, "
+                                 f"the frame on {fb.depth.device}")
+            fb, _, ev = raster.render_pass_xla(fb, attrs, shader, uniforms, winner_offset,
+                                               collect_stats=collect_stats)
+            if collect_stats:
+                events.append(ev)
+        if seconds is not None:
+            raster_sparse.synchronize(fb.depth.device)
+            seconds.append(time.perf_counter() - t0)
+        winner_offset += f
+    return fb, (snapshot if in_excluded else fb.depth), events
 
 
 def _buffers(ft, out_depth_t, passes, width: int, height: int, tile_h: int):
@@ -547,9 +599,9 @@ def render_scene_image(scene: Scene, device, frustum_cull: bool = True,
     (``render_frame_fused_image``; on the "sharded" backend
     ``dist.render_frame_fused_image_sharded`` when the frame is
     tile-aligned); any other, a depth-only pass included, goes through
-    ``render_scene`` and returns its colour, as the JAX package routes it.
-    On a CUDA device every kernel runs on the card; on the CPU the
-    kernels' plain versions run."""
+    ``render_scene`` and returns its colour, as the JAX package routes it
+    (every frame of the "xla" backend too).  On a CUDA device every
+    kernel runs on the card; on the CPU the kernels' plain versions run."""
     backend = _backend(backend)
     visible = _cull_passes(scene, frustum_cull, RenderStats())
     single = (len(visible) == 1 and visible[0].mesh.nfaces > 0

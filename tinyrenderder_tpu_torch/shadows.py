@@ -11,7 +11,8 @@ backend without stats and a loop of two renders.  Eager PyTorch has one
 path, ``render_with_shadows``: the light pass through
 ``raster_sparse.render_frame_fused`` at S x S with 16-row tiles and no
 stats, ``untile_one`` of its depth, then the lit scene through
-``scene.render_scene``.  The map never leaves the device: it reaches the
+``scene.render_scene``; on the scan backend ("xla") and the sharded
+ones, both passes through ``scene.render_scene``.  The map never leaves the device: it reaches the
 lit passes as a uniform tensor.  ``oracle_render_with_shadows`` is the
 same two passes on the NumPy oracle, the bitwise reference.
 """
@@ -130,9 +131,10 @@ def render_depth_from_light(scene: Scene, light_cam: Camera, settings: ShadowSet
     """Pass 1: the depth of every mesh from the light, an (S, S) float32
     tensor on ``device`` (+inf where nothing is drawn).  One depth-only
     pass through ``render_frame_fused`` with 16-row tiles, no stats (the
-    map is all the pass returns), then ``untile_one`` of its depth; on a
-    sharded backend, the full depth of ``render_scene`` of the light's
-    scene over ``mesh``'s ranks."""
+    map is all the pass returns), then ``untile_one`` of its depth; on the
+    scan backend ("xla": a depth-only scan pass) or a sharded backend
+    (over ``mesh``'s ranks), the full depth of ``render_scene`` of the
+    light's scene."""
     s = settings.size
     light = depth_scene(scene, light_cam, settings)
     if backend != "tiled":
@@ -184,8 +186,9 @@ def render_with_shadows(scene: Scene, light_dir, settings: ShadowSettings | None
     """The two-pass shadowed frame on ``device`` -> (``RenderResult`` of
     ``render_scene`` on the lit scene, the (S, S) shadow map tensor).  On
     a CUDA device every kernel runs on the card; on the CPU the kernels'
-    plain versions run.  ``backend``: "tiled", or a sharded backend for
-    both passes (over ``mesh``, see ``scene.render_scene``)."""
+    plain versions run.  ``backend``: "tiled", "xla" (the scan backend) or
+    a sharded backend for both passes (over ``mesh``, see
+    ``scene.render_scene``)."""
     settings = settings or ShadowSettings()
     light_cam = light_camera_for_scene(scene, light_dir, settings)
     shadow_map = render_depth_from_light(scene, light_cam, settings, device, backend, mesh)
