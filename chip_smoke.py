@@ -153,16 +153,17 @@ Phases, one line each (any failure exits non-zero before the last line):
      sharded orbit against the tiled one and 4 emulated ranks
      ``sharded-measured`` against ``sharded``;
  20. the scan backend (``backend="xla"``, ``csrc/scan_resolve.cu``): the
-     resolve kernel, without and with its event sums, == the plain chunked
-     scan bitwise on the headline head at 512² (fresh, and seeded with the
-     3-pass scene's room) and at 2048²; ``Scene.render`` /
+     resolve kernel (super-block lists, then the walk), without and with
+     its event sums, == the chunked scan and the split plain version
+     bitwise, and its super-block lists == the plain lists, on the
+     headline pass, the 2048² room pass seeded by the head, the 246k stress
+     pass at 1280x800 and a band of the headline pass; ``Scene.render`` /
      ``render_image`` of the headline at 2048² == the f32 oracle and the
      tiled frame (stats equal), the 3-pass scene at 2048² == the tiled
      frame and at 1200x800 == the oracle, ``render_with_shadows`` of
-     ``shadow_phong_800`` == the tiled shadowed frame and the oracle; the
-     kernel's CUDA-event time on the headline pass beside its plain
-     version's and its bound, and the scan frame against the tiled frame
-     in turns.
+     ``shadow_phong_800`` == the tiled shadowed frame and the oracle; each
+     pass's kernel time (CUDA events), bound and launches a call, without
+     and with stats, and the scan frame against the tiled frame in turns.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -224,9 +225,6 @@ MESH1_ROUNDS = 5
 #: rounds of turns of [19 timing], and the oracle orbit's frame there
 ORBIT_ROUNDS = 3
 ORACLE_ORBIT = (128, 64)
-#: the side of [20 scan]'s frame where the resolve kernel is held against
-#: the plain chunked scan on fresh and seeded passes
-SCAN_CHECK = 512
 
 
 def fail(msg: str) -> None:
@@ -872,6 +870,10 @@ def untile_sass(lib: Path) -> dict:
 SPLIT_KERNELS = ("item_scan_kernel", "coarse_walk_kernel", "coarse_merge_kernel",
                  "coarse_events_kernel", "strip_walk_kernel", "strip_merge_kernel",
                  "strip_events_kernel", "proto_walk_kernel", "proto_merge_kernel")
+#: the scan resolve's kernels (csrc/scan_resolve.cu), and the names of the
+#: template flag of those that have one where it is not STATS
+SCAN_KERNELS = ("scan_cull_kernel", "scan_prefix_kernel", "scan_walk_kernel")
+FLAG_NAMES = {"scan_cull_kernel": ("count", "fill")}
 
 
 def ptxas_kernels(log: str, names) -> dict[str, str]:
@@ -883,14 +885,16 @@ def ptxas_kernels(log: str, names) -> dict[str, str]:
     out, cur = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search("(" + "|".join(names) + r")I(?:Li(\d+)E)?(?:Lb([01])E)?", ln)
+            m = re.search("(" + "|".join(names) + r")(?:I(?:Li(\d+)E)?(?:Lb([01])E)?)?", ln)
             cur = None
             if m:
-                args = [m.group(2)] + ([["plain", "stats"][int(m.group(3))]] if m.group(3) else [])
+                flags = FLAG_NAMES.get(m.group(1), ("plain", "stats"))
+                args = ([m.group(2)] if m.group(2) else []) + (
+                    [flags[int(m.group(3))]] if m.group(3) else [])
                 origin = re.search(r"(Tile|Slot)Origins", ln)
                 if origin:
                     args.append({"Tile": "tiles", "Slot": "groups"}[origin.group(1)])
-                cur = f"{m.group(1)}<{','.join(args)}>"
+                cur = m.group(1) + (f"<{','.join(args)}>" if args else "")
                 out[cur] = ""
         elif cur is not None and "spill stores" in ln:
             st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -932,7 +936,8 @@ def call_kernels(fn, calls: int = 3, tries: int = 12) -> list[str] | None:
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
-        names = [next((k for k in SPLIT_KERNELS if k in e.name), e.name.split("(")[0])
+        names = [next((k for k in SPLIT_KERNELS + SCAN_KERNELS if k in e.name),
+                      e.name.split("(")[0])
                  for e in events]
         per_call = names[:len(names) // calls]
         if per_call and per_call * calls == names:
@@ -2218,41 +2223,198 @@ def animation_ranks_phase(smi: str) -> dict:
     say(f"[19 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
     return totals
 
-def scan_bound(setup, height: int, width: int, seeded: bool) -> tuple[float, str]:
+def scan_tests(setup, height: int, y0: int = 0) -> float:
+    """Pixels of the buffer (rows y0 .. y0 + height - 1, the frame's width)
+    inside a valid triangle's bbox, summed over the triangles: the scan
+    resolve's tests that reach the arithmetic."""
+    bb = setup["bbox"][setup["valid"]].double()
+    rows = (bb[:, 3].clamp(max=y0 + height - 1) - bb[:, 2].clamp(min=y0) + 1).clamp(min=0)
+    return float(((bb[:, 1] - bb[:, 0] + 1) * rows).sum())
+
+
+def scan_bound(setup, height: int, width: int, seeded: bool, y0: int = 0) -> tuple[float, str]:
     """The scan resolve's bound: bytes = each triangle's 13 geometry floats
     it uses (screen xy, NDC z, bbox) and its valid byte read once, the
     running depth where ``seeded``, and depth and winner written once;
-    operations = OPS_TEST per pixel inside a valid triangle's bbox."""
-    import torch
-    valid = setup["valid"]
-    bb = setup["bbox"][valid].double()
-    tests = float(((bb[:, 1] - bb[:, 0] + 1) * (bb[:, 3] - bb[:, 2] + 1)).sum())
+    operations = OPS_TEST per test (``scan_tests``)."""
     px = height * width
-    return bound(valid.shape[0] * (13 * 4 + 1) + px * (8 + 4 * seeded), OPS_TEST * tests)
+    return bound(setup["valid"].shape[0] * (13 * 4 + 1) + px * (8 + 4 * seeded),
+                 OPS_TEST * scan_tests(setup, height, y0))
 
 
-def scan_phase(smi: str, head_scene, head_ref, mm_scene, mm_ref, shadow, record) -> dict:
+def timed(fn):
+    """(fn(), the CUDA-event time of that one call in ms)."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def list_text(lengths, n_tri: int, height: int, width: int, geom) -> str:
+    """The [20] clause of a pass's super-block lists: their count, entries,
+    the longest, and the entries the walk's blocks stream (each block its
+    super-block's list, 8 bytes an entry) beside what every block streaming
+    every triangle's bbox (one 32-byte sector each) would read."""
+    bw, bh, px = geom
+    nbx, nby = -(-width // bw), -(-height // bh)
+    sw, sh = px // bw, px // bh
+    nsx = -(-nbx // sw)
+    n = [int(v) for v in lengths.tolist()]
+    streamed = sum(n[by // sh * nsx + bx // sw] for by in range(nby) for bx in range(nbx))
+    return (f"{len(n)} super-blocks of {px}x{px} px, {sum(n)} entries (longest {max(n)}), "
+            f"{streamed} streamed by the {nbx * nby} blocks of {bw}x{bh} px "
+            f"({streamed * 8 / 1e6:.2f} MB; every bbox to every 32x32 block: "
+            f"{n_tri * -(-width // 32) * -(-height // 32) * 32 / 1e9:.2f} GB)")
+
+
+#: [20]'s band of the headline pass: its first row and its rows (not a
+#: multiple of the 32-row block)
+SCAN_BAND = (1000, 500)
+#: the chunked scan's chunk on the stress pass (any chunk gives one result;
+#: 64 keeps its 3,005 steps to seconds where 8 would take 18,920)
+STRESS_CHUNK = 64
+
+
+def scan_kernel_phase(smi: str, head_scene, stress_scene, record) -> None:
+    """[20 scan]'s kernel part: the resolve kernel (``csrc/scan_resolve.cu``),
+    without and with its event sums, == the chunked scan and the split
+    plain version bitwise (depth, winner; event count, max z, min z), and
+    its super-block lists == the plain lists, on the headline pass, the
+    2048² room pass seeded by the head, the 246k stress pass at 1280x800
+    and a band of the headline pass seeded by the room; then each pass's
+    kernel time (CUDA events), bound and the kernels a call launches."""
+    import torch
+
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch.ops import raster
+    from tinyrenderder_tpu_torch.ops.raster_tiled import vertex_stage
+
+    geom = raster.kernel_geometry()
+
+    def setup_of(scene, index=0):
+        attrs, shader, uniforms, _ = tscene.pass_tensors(scene, DEVICE)[index]
+        return vertex_stage(attrs, uniforms, shader, scene.width, scene.height)[0]
+
+    def check_resolve(what, setup, h, w, init, y0, chunk):
+        """The kernel == the chunked scan in chunks of ``chunk`` and the
+        split plain version, without and with the event sums; its lists ==
+        the plain lists.  -> (max abs err, events, the chunked scan's ms
+        without and with stats, the lists' clause)."""
+        got = raster.depth_resolve_xla(setup, h, w, init_depth=init, y0=y0)
+        want, p_ms = timed(lambda: raster.depth_resolve_xla_plain(setup, h, w, chunk, init,
+                                                                  y0=y0))
+        split = raster.scan_resolve_split_plain(setup, h, w, init, y0=y0, geom=geom)
+        err = same_planes(f"scan resolve vs the chunked scan, {what}", ("depth", "winner"),
+                          got, want)
+        same_planes(f"scan resolve vs the split plain version, {what}", ("depth", "winner"),
+                    got, split)
+        seed = init if init is not None else torch.full((h, w), torch.inf, device=DEVICE)
+        ev = raster.pass_events_xla(setup, seed, h, w, y0=y0)
+        ev_want, ps_ms = timed(lambda: raster.pass_events_xla_plain(setup, seed, h, w, chunk,
+                                                                    y0=y0))
+        ev_split = raster.scan_resolve_split_plain(setup, h, w, seed, y0=y0,
+                                                   collect_stats=True, geom=geom)
+        err = max(err, same_planes(f"scan resolve stats vs the chunked scan, {what}",
+                                   ("depth", "winner", "events", "min z", "max z"), ev,
+                                   ev_want))
+        same_planes(f"scan resolve stats vs the split plain version, {what}",
+                    ("depth", "winner", "events", "max z"), (*ev[:3], ev[4]), ev_split)
+        same_planes(f"scan resolve stats vs without, {what}", ("depth", "winner"), ev[:2],
+                    got)
+        if int(ev[2]) <= 0:
+            fail(f"scan resolve stats, {what}: {int(ev[2])} events")
+        lengths, lists = raster.scan_lists(setup, h, w, y0=y0)
+        p_len, p_lists = raster.scan_super_lists_plain(setup, h, w, y0=y0, geom=geom)
+        same_planes(f"super-block list lengths, {what}", ("lengths",), (lengths,), (p_len,))
+        held = (torch.arange(lists.shape[1], device=DEVICE)[None, :] < p_len[:, None].long())
+        same_planes(f"super-block lists, {what}", ("entries",), (lists[held],),
+                    (p_lists[held],))
+        return err, int(ev[2]), p_ms, ps_ms, list_text(p_len, setup["valid"].shape[0], h, w,
+                                                       geom)
+
+    head = setup_of(head_scene)
+    mm_big = tscene.multimesh_scene(WIDTH, HEIGHT)
+    room = setup_of(mm_big, 2)
+    head_depth = raster.scan_resolve_split_plain(setup_of(mm_big), HEIGHT, WIDTH, geom=geom)[0]
+    stress = setup_of(stress_scene)
+    y0, rows = SCAN_BAND
+    passes = {"headline": (head, HEIGHT, WIDTH, None, 0, 8),
+              "room after the head": (room, HEIGHT, WIDTH, head_depth, 0, 8),
+              "stress": (stress, WALL_H, WALL_W, None, 0, STRESS_CHUNK)}
+    results = {}
+    for what, (setup, h, w, init, b0, chunk) in passes.items():
+        results[what] = check_resolve(what, setup, h, w, init, b0, chunk)
+    room_depth = raster.depth_resolve_xla(room, HEIGHT, WIDTH, init_depth=head_depth)[0]
+    passes["band"] = (head, rows, WIDTH, room_depth[y0:y0 + rows].contiguous(), y0, 8)
+    results["band"] = check_resolve("band", *passes["band"])
+    say(f"[20 scan] resolve kernel == the chunked scan and the split plain version bitwise "
+        f"(depth, winner; with stats the event count and max z, and min z), its super-block "
+        f"lists == the plain lists: " + "; ".join(
+            f"{k} ({passes[k][0]['valid'].shape[0]} faces, {passes[k][2]}x{passes[k][1]} at "
+            f"y0 {passes[k][4]}, {r[1]} events, chunk {passes[k][5]}: {r[4]})"
+            for k, r in results.items()))
+
+    # ---- timing: each pass, without and with stats ----
+    # the kernels a call launches do not depend on the pass: traced on the
+    # headline only (the card's profiler drops events in runs of traces, and
+    # each retry costs seconds)
+    k_ms, launched = {}, {}
+    for what, (setup, h, w, init, b0, _) in passes.items():
+        seed = init if init is not None else torch.full((h, w), torch.inf, device=DEVICE)
+        for stats in (False, True):
+            fn = ((lambda s=setup, h=h, w=w, i=seed, b=b0: raster.pass_events_xla(
+                      s, i, h, w, y0=b)) if stats else
+                  (lambda s=setup, h=h, w=w, i=init, b=b0: raster.depth_resolve_xla(
+                      s, h, w, init_depth=i, y0=b)))
+            ms = k_ms[(what, stats)] = event_ms(fn)
+            kb = scan_bound(setup, h, w, stats or init is not None, b0)
+            if what == "headline":
+                kernels = call_kernels(fn)
+                own = [k for k in kernels or () if k in SCAN_KERNELS]
+                launched[stats] = (
+                    "the profiler recorded no consistent trace" if kernels is None else
+                    f"{len(own)} launches a call ({', '.join(own)}; {len(kernels)} kernels "
+                    f"with the wrapper's torch ops)")
+            say(f"[20 timing] scan resolve{' stats' if stats else ''}, {what}: kernel "
+                f"{ms:.4f} ms, bound {kb[0]:.4f} ms ({kb[1]}, kernel/bound "
+                f"{ms / kb[0]:.1f}; {scan_tests(setup, h, b0):.0f} bbox tests), "
+                f"{launched[stats]}{'' if what == 'headline' else ' (headline trace)'}" + (
+                    f"; the chunked scan (chunk {passes[what][5]}, one call) "
+                    f"{results[what][3 if stats else 2]:.2f} ms" if what == "headline" else "")
+                + f" | {smi}")
+    # no Pallas kernel: the JAX scan functions (lax.scan) it stands for
+    err = max(r[0] for r in results.values())
+    for name, replaces, stats in (("scan_resolve", "tinyrenderder_tpu/ops/raster.py:85", False),
+                                  ("scan_resolve_stats", "tinyrenderder_tpu/ops/raster.py:168",
+                                   True)):
+        b = scan_bound(head, HEIGHT, WIDTH, stats)
+        record[name] = {"name": name, "route": "cuda",
+                        "source": "tinyrenderder_tpu_torch/csrc/scan_resolve.cu",
+                        "replaces": replaces, "max_abs_err": err,
+                        "ms": k_ms[("headline", stats)],
+                        "plain_ms": results["headline"][3 if stats else 2],
+                        "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+
+def scan_phase(smi: str, head_scene, head_ref, mm_scene, mm_ref, stress_scene, shadow,
+               record) -> dict:
     """[20 scan]: the scan backend (``backend="xla"``: ``ops/raster.py``,
-    ``csrc/scan_resolve.cu``).  The resolve kernel, without and with its
-    event sums, against the plain chunked scan bitwise on the headline
-    head at SCAN_CHECK² (fresh, and seeded with the 3-pass scene's room at
-    that size) and at 2048²; the headline through ``Scene.render`` (with
-    and without stats) and ``render_image`` == the f32 oracle and the
-    tiled frame, stats equal; the 3-pass scene at 2048² == the tiled frame
-    (stats equal) and at 1200x800 (``mm_scene``) == the f32 oracle;
-    ``render_with_shadows`` of ``shadow_phong_800`` (``shadow``: scene,
-    key light, settings, the oracle's frame and map) == the tiled
-    shadowed frame and the oracle.  Then the kernel's CUDA-event time on
-    the headline pass beside its plain version's and its bound, and the
-    scan frame against the tiled frame, ms/frame in turns, at 2048².
-    -> main-path launches."""
-    import numpy as np
+    ``csrc/scan_resolve.cu``).  ``scan_kernel_phase``; then the headline
+    through ``Scene.render`` (with and without stats) and ``render_image``
+    == the f32 oracle and the tiled frame, stats equal; the 3-pass scene at
+    2048² == the tiled frame (stats equal) and at 1200x800 (``mm_scene``)
+    == the f32 oracle; ``render_with_shadows`` of ``shadow_phong_800``
+    (``shadow``: scene, key light, settings, the oracle's frame and map) ==
+    the tiled shadowed frame and the oracle.  Then the scan frame against
+    the tiled frame, ms/frame in turns, at 2048².  -> main-path launches."""
     import torch
 
     from tinyrenderder_tpu_torch import shadows
     from tinyrenderder_tpu_torch import scene as tscene
-    from tinyrenderder_tpu_torch.ops import raster
-    from tinyrenderder_tpu_torch.ops.raster_tiled import vertex_stage
 
     t_phase = time.perf_counter()
     totals = dict.fromkeys(launch_counts(), 0)
@@ -2265,45 +2427,7 @@ def scan_phase(smi: str, head_scene, head_ref, mm_scene, mm_ref, shadow, record)
             fail(f"a kernel of {what} never launched: {counts}")
         return result, counts
 
-    def setup_of(scene, index=0):
-        attrs, shader, uniforms, _ = tscene.pass_tensors(scene, DEVICE)[index]
-        return vertex_stage(attrs, uniforms, shader, scene.width, scene.height)[0]
-
-    def check_resolve(what, setup, h, w, init):
-        """The kernel == the plain scan, without and with the event sums;
-        -> (max abs err, events)."""
-        got = raster.depth_resolve_xla(setup, h, w, init_depth=init)
-        want = raster.depth_resolve_xla_plain(setup, h, w, init_depth=init)
-        err = same_planes(f"scan resolve vs plain, {what}", ("depth", "winner"), got, want)
-        seed = init if init is not None else torch.full((h, w), torch.inf, device=DEVICE)
-        ev = raster.pass_events_xla(setup, seed, h, w)
-        ev_want = raster.pass_events_xla_plain(setup, seed, h, w)
-        err = max(err, same_planes(f"scan resolve stats vs plain, {what}",
-                                   ("depth", "winner", "events", "min z", "max z"), ev,
-                                   ev_want))
-        same_planes(f"scan resolve stats vs without, {what}", ("depth", "winner"), ev[:2],
-                    got)
-        if int(ev[2]) <= 0:
-            fail(f"scan resolve stats, {what}: {int(ev[2])} events")
-        return err, int(ev[2])
-
-    # ---- the kernel against the plain scan ----
-    s = SCAN_CHECK
-    small = setup_of(tscene.headline_scene(s, s))
-    room = setup_of(tscene.multimesh_scene(s, s), 2)
-    room_depth, _ = raster.depth_resolve_xla(room, s, s)
-    checks = {"head fresh": (small, None), "head seeded by the room": (small, room_depth),
-              "room fresh": (room, None)}
-    errs, events = {}, {}
-    for what, (setup, init) in checks.items():
-        errs[what], events[what] = check_resolve(f"{what} {s}x{s}", setup, s, s, init)
-    head = setup_of(head_scene)
-    name = f"head {WIDTH}"
-    errs[name], events[name] = check_resolve(f"headline {WIDTH}x{HEIGHT}", head, HEIGHT,
-                                             WIDTH, None)
-    say(f"[20 scan] resolve kernel == plain chunked scan bitwise (depth, winner; with stats "
-        f"also the event count, min z, max z): " + "; ".join(
-            f"{k} ({events[k]} events)" for k in errs) + f"; faces {head['valid'].shape[0]}")
+    scan_kernel_phase(smi, head_scene, stress_scene, record)
 
     # ---- the scan frames at full width ----
     res, lr = count(lambda: head_scene.render(DEVICE, backend="xla"), "the headline scan frame",
@@ -2366,19 +2490,7 @@ def scan_phase(smi: str, head_scene, head_ref, mm_scene, mm_ref, shadow, record)
         f"tiled map and the f32 oracle's, frame == the tiled frame and the f32 oracle "
         f"bitwise, stats equal; launches {nonzero(ls)}")
 
-    # ---- timing: the kernel on the headline pass, the frames in turns ----
-    seed = torch.full((HEIGHT, WIDTH), torch.inf, device=DEVICE)
-    k_ms = event_ms(lambda: raster.depth_resolve_xla(head, HEIGHT, WIDTH))
-    ks_ms = event_ms(lambda: raster.pass_events_xla(head, seed, HEIGHT, WIDTH))
-    # the plain scan is no yardstick of speed, and has run once already above
-    p_ms = event_ms(lambda: raster.depth_resolve_xla_plain(head, HEIGHT, WIDTH), 0, 2)
-    ps_ms = event_ms(lambda: raster.pass_events_xla_plain(head, seed, HEIGHT, WIDTH), 0, 2)
-    kb = scan_bound(head, HEIGHT, WIDTH, False)
-    kbs = scan_bound(head, HEIGHT, WIDTH, True)
-    say(f"[20 timing] scan resolve on the headline pass ({WIDTH}x{HEIGHT}, "
-        f"{head['valid'].shape[0]} faces): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-        f"{kb[0]:.4f} ms ({kb[1]}); with stats kernel {ks_ms:.4f} ms, plain {ps_ms:.4f} ms, "
-        f"bound {kbs[0]:.4f} ms ({kbs[1]}) | {smi}")
+    # ---- timing: the frames in turns ----
     for name, sc in (("head_phong", head_scene), ("multimesh", mm_big)):
         xla_ms, tiled_ms = in_turns(
             lambda: tscene.render_scene(sc, DEVICE, collect_stats=False, backend="xla").color,
@@ -2386,15 +2498,6 @@ def scan_phase(smi: str, head_scene, head_ref, mm_scene, mm_ref, shadow, record)
         say(f"[20 timing] {name}_{WIDTH}: render_scene ms/frame in turns (xla, tiled, tiled, "
             f"xla): xla {xla_ms:.3f}, tiled {tiled_ms:.3f} (xla/tiled {xla_ms / tiled_ms:.3f}) "
             f"| {smi}")
-    # no Pallas kernel: the JAX scan functions (lax.scan) it stands for
-    for name, replaces, ms, plain_ms, b in (
-            ("scan_resolve", "tinyrenderder_tpu/ops/raster.py:85", k_ms, p_ms, kb),
-            ("scan_resolve_stats", "tinyrenderder_tpu/ops/raster.py:168", ks_ms, ps_ms, kbs)):
-        record[name] = {"name": name, "route": "cuda",
-                        "source": "tinyrenderder_tpu_torch/csrc/scan_resolve.cu",
-                        "replaces": replaces, "max_abs_err": max(errs.values()),
-                        "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
     say(f"[20 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
     return totals
 
@@ -2409,6 +2512,7 @@ def main() -> int:
     from tinyrenderder_tpu_torch import cli, shadows
     from tinyrenderder_tpu_torch import scene as tscene
     from tinyrenderder_tpu_torch.ops import post
+    from tinyrenderder_tpu_torch.ops import raster
     from tinyrenderder_tpu_torch.ops import raster_coarse as rc
     from tinyrenderder_tpu_torch.ops import raster_fine as rf
     from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
@@ -2450,9 +2554,10 @@ def main() -> int:
     say(f"[2 build] split walks: ranges of {range_pairs} pairs (coarse), {rf.range_rows(16)} "
         f"and {rf.range_rows(32)} slot rows (strips, 16- and 32-row tiles), {range_rows} slot "
         f"rows (grouped strips), {_build.constant('trt_proto_range_rows')} record rows "
-        f"(prototype strips, #7); " + "; ".join(
+        f"(prototype strips, #7); scan resolve walk blocks and super-blocks (px) "
+        f"{tuple(raster.kernel_geometry())}; " + "; ".join(
             f"{k} {v}" for k, v in ptxas_kernels(lib.with_suffix(".log").read_text(),
-                                                 SPLIT_KERNELS).items()))
+                                                 SPLIT_KERNELS + SCAN_KERNELS).items()))
 
     # ---- 3. kernels against their plain versions at the headline shapes ----
     scene = tscene.headline_scene(WIDTH, HEIGHT, "phong")
@@ -3187,7 +3292,8 @@ def main() -> int:
 
     # ---- 20. the scan backend ----
     add_launches(scan_phase(smi, scene, head_ref, frames["multimesh"], oracles["multimesh"],
-                            (sh_scene, sh_key, sh_settings, *sh_oracle), record))
+                            walls["stress"], (sh_scene, sh_key, sh_settings, *sh_oracle),
+                            record))
 
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")

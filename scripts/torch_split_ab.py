@@ -15,7 +15,8 @@ NAME = V;``, e.g. ``kRangePairs`` and ``kWarpCols`` of
 ``kMinBlocks`` and ``kMinBlocksStats32``, ``kTileRangeArea``,
 ``kTileMinBlocks`` and ``kTileMinBlocksStats32`` of ``raster_fine.cu``,
 ``kMergeRows`` and ``kMergeAhead`` of ``raster_common.cuh``,
-``kProtoRangeRows`` of ``fine_raster.cu``, edited in a copy of ``csrc``
+``kProtoRangeRows`` of ``fine_raster.cu``, ``kThreads``, ``kBlockW``,
+``kPixY`` and ``kSuperPx`` of ``scan_resolve.cu``, edited in a copy of ``csrc``
 under ``build/split_ab/``), checks every raster of each
 build bitwise against its plain version, and times them in turns (the
 builds in order, then in reverse; the mean of each build's two CUDA-event
@@ -26,8 +27,11 @@ the 2048² head pass after the room and on the room pass after the head
 (whose tiles all fit one range: as the route calls it), the grouped strip
 raster on the stress pass pass-local and seeded with the 1280x800 room's
 depth with stats, the dense launch on the headline pass and on the
-1024² light pass of shadow_phong_800, and the prototype strip raster (#7)
-on the headline head's 8x128 groups.  Each line also gives the
+1024² light pass of shadow_phong_800, the prototype strip raster (#7)
+on the headline head's 8x128 groups, and the scan resolve (S, the "xla"
+backend's, checked against its split plain version) on the headline
+pass, with stats, on the 2048² room pass after the head and on the
+stress pass, without and with stats.  Each line also gives the
 profiler's device time per kernel and the ratio to the strip raster on
 the headline pass.
 
@@ -179,7 +183,40 @@ def workloads(cs):
                      torch.inf)
     out["#7 headline head"] = (lambda: xfr.strip_raster(recs7, rows7, init7, ntx7, **kw7),
                                lambda: xfr.strip_raster_plain(recs7, rows7, init7, ntx7))
+
+    # S, the scan resolve, as render_pass_xla calls it (the plain side: the
+    # split plain version, which the checkout at --root may lack)
+    from tinyrenderder_tpu_torch.ops import raster
+
+    def scan(name, p, size, init=None, stats=False):
+        setup = vertex_stage(p[0], p[2], p[1], *size)[0]
+        w_, h_ = size
+        if stats:
+            seed = init if init is not None else torch.full((h_, w_), torch.inf, device=dev)
+
+            def plain():
+                d, wn, n, mz = raster.scan_resolve_split_plain(setup, h_, w_, seed,
+                                                               collect_stats=True)
+                return d, wn, n, torch.where(wn >= 0, d, torch.inf).amin(), mz
+            out[name] = (lambda: raster.pass_events_xla(setup, seed, h_, w_), plain)
+        else:
+            out[name] = (lambda: raster.depth_resolve_xla(setup, h_, w_, init_depth=init),
+                         lambda: raster.scan_resolve_split_plain(setup, h_, w_, init))
+
+    scan("scan headline", head, (w, h))
+    scan("scan headline stats", head, (w, h), stats=True)
+    head3_setup = vertex_stage(head3[0], head3[2], head3[1], w, h)[0]
+    scan("scan room after the head", room3, (w, h),
+         raster.depth_resolve_xla(head3_setup, h, w)[0])
+    scan("scan stress", (sa, ssh, su), (ww, wh))
+    scan("scan stress stats", (sa, ssh, su), (ww, wh), stats=True)
     return out
+
+
+def flat(out) -> list:
+    """A wrapper's outputs as one list of tensors (event planes nested as a
+    pair are taken apart)."""
+    return [t for o in out for t in (o if isinstance(o, (tuple, list)) else (o,))]
 
 
 def selected(cs, only: str | None):
@@ -212,10 +249,11 @@ def variants(settings: dict[str, list[int]], only: str | None = None) -> None:
     use(builds[0])
     work = selected(cs, only)
     for name, (kernel, plain) in work.items():
-        want = plain()
+        want = flat(plain())
         for n in builds:
             use(n)
-            cs.check_outputs(f"{name}, {n}", kernel(), want)
+            cs.same_planes(f"{name}, {n}", [str(i) for i in range(len(want))], flat(kernel()),
+                           want)
     print(f"[check] every raster of every build == plain bitwise ({', '.join(work)})",
           flush=True)
     ms = {(name, n): [] for name in work for n in builds}
@@ -224,7 +262,7 @@ def variants(settings: dict[str, list[int]], only: str | None = None) -> None:
             use(n)
             for name, (kernel, _) in work.items():
                 ms[(name, n)].append(cs.event_ms(kernel))
-    names = ("item_scan", "walk", "merge", "events")
+    names = ("item_scan", "walk", "merge", "events", "cull", "prefix")
     for name, (kernel, _) in work.items():
         for n in builds:
             use(n)

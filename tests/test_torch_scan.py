@@ -18,22 +18,36 @@ the oracle, by at most 1 LSB); the port's "xla" frame equals its "tiled"
 frame bitwise, stats included.  Chunk sizes 1, 8 and 5 (no divisor of
 any face count here) give one result on both sides.
 
+The kernel's decomposition, ``raster.scan_resolve_split_plain`` (the
+super-block lists, each walk block's list, the walk in list order), is
+held bitwise against the JAX package's scan on synthetic passes (a z-tie
+pile, triangles over several super-blocks, invalid and off-screen ones, a
+band at y0 != 0, a ragged frame, a seeded depth and winner, an empty
+pass) at several walk blocks and super-blocks, and a property test holds
+each block's list to the pass's triangles filtered by the block's bbox
+test, in order.
+
 Tests marked ``cuda`` hold the kernel (``csrc/scan_resolve.cu``) against
-the plain scan and skip where no GPU is present."""
+the plain scan, the split plain version and its lists, and skip where no
+GPU is present."""
 
 import logging
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from torch_parity import (SHADOW_KEY, assert_bits, assert_colour, blocker_scene,
                           frame_scene, multimesh_scene, run_jax, scan_chain, scene_pass,
                           stats_vector)
 from tinyrenderder_tpu_torch import animation, cli, convert, math3d, oracle, shadows
 from tinyrenderder_tpu_torch import scene as tscene
-from tinyrenderder_tpu_torch.ops import raster, raster_tiled
+from tinyrenderder_tpu_torch.ops import raster, raster_tiled, semantics
 from tinyrenderder_tpu_torch.utils import tga
 
 CPU = "cpu"
@@ -46,6 +60,20 @@ RESOLVE = {"head": ("head_phong", False, None, None),
            "soup_seeded": ("soup_phong_ragged", True, None, None),
            "head_band": ("head_phong", True, (24, 40), None),
            "empty_seeded": ("head_phong", True, None, 0)}
+#: split plain cases: (pass: a synthetic soup of ``_soup`` or "head", width,
+#: height, seeded with a running depth and winner, band (y0, rows) or None)
+SPLIT = {"tie_pile": ("tie_pile", 256, 256, False, None),
+         "spanning": ("spanning", 256, 256, False, None),
+         "offscreen": ("offscreen", 256, 192, False, None),
+         "band": ("spanning", 256, 256, True, (52, 150)),
+         "ragged": ("head", 200, 136, False, None),
+         "seeded": ("spanning", 256, 256, True, None),
+         "empty": ("empty", 256, 256, True, None)}
+#: (walk block width, height, super-block side) in pixels the split plain
+#: version is held at: 32x32 blocks, one, four and sixteen a super-block,
+#: and the other walk blocks the kernel can be built with
+GEOMETRIES = [raster.ScanGeometry(*g) for g in
+              ((32, 32, 32), (32, 32, 64), (32, 32, 128), (8, 32, 128), (16, 16, 64))]
 ORBIT_W, ORBIT_H, ORBIT_FRAMES = 128, 64, 3
 SHADOW_SIZE = 64
 
@@ -82,9 +110,75 @@ def _resolve_request(case: str, chunk: int) -> dict:
     return req
 
 
+def _soup(kind: str, w: int, h: int, seed: int = 3) -> dict:
+    """A synthetic pass's setup at (w, h) as numpy: clip-space triangles
+    (w = 1, so clip is NDC) made from ``seed``, set up by the port's
+    triangle setup.  "tie_pile": random triangles, then four triangles 25
+    times each and a fan of 30 at one depth (exact z ties); "spanning":
+    200 small triangles with 12 that cross the frame among them;
+    "offscreen": triangles around and past the frame's edges, with some
+    behind the eye, beyond the far plane or facing away; "empty": none."""
+    rng = np.random.default_rng(seed)
+
+    def tris(n, size, centre=1.1):
+        c = rng.uniform(-centre, centre, (n, 1, 2))
+        xy = c + rng.uniform(-size, size, (n, 3, 2))
+        cross = ((xy[:, 1, 0] - xy[:, 0, 0]) * (xy[:, 2, 1] - xy[:, 0, 1])
+                 - (xy[:, 1, 1] - xy[:, 0, 1]) * (xy[:, 2, 0] - xy[:, 0, 0]))
+        xy[cross < 0] = xy[cross < 0][:, [0, 2, 1]]          # front-facing
+        z = rng.uniform(-0.9, 0.9, (n, 3, 1))
+        return np.concatenate([xy, z, np.ones((n, 3, 1))], axis=2)
+
+    if kind == "tie_pile":
+        fan = tris(30, 0.4, 0.2)
+        fan[..., 2] = 0.25
+        clip = np.concatenate([tris(40, 0.2), np.repeat(tris(4, 0.5, 0.3), 25, axis=0), fan])
+    elif kind == "spanning":
+        clip = np.concatenate([tris(200, 0.08), tris(12, 1.6, 0.3)])
+        clip = clip[rng.permutation(len(clip))]
+    elif kind == "offscreen":
+        clip = tris(160, 0.3, 1.6)
+        clip[:10, :, 3] = -1.0                               # behind the eye
+        clip[10:20, :, 2] = 1.5                              # beyond the far plane
+        clip[20:40] = clip[20:40][:, [0, 2, 1]]              # facing away
+    else:
+        clip = np.zeros((0, 3, 4))
+    vp = torch.as_tensor(math3d.viewport(0, 0, w, h), dtype=torch.float32)
+    setup = semantics.triangle_setup_planes(torch.from_numpy(clip.astype(np.float32)), vp, w, h)
+    return {k: v.numpy() for k, v in setup.items()}
+
+
+def _split_request(case: str) -> dict:
+    """A ``SPLIT`` case as a JAX request (chunks of 8): the setup, the
+    running depth and winner where seeded (a band's rows of them)."""
+    kind, w, h, seeded, band = SPLIT[case]
+    if kind == "head":
+        p, _, _ = scene_pass("head_phong")
+        attrs, uniforms = convert.pass_to_torch(p.attrs, p.uniforms, CPU)
+        setup = {k: v.numpy() for k, v in
+                 raster_tiled.vertex_stage(attrs, uniforms, p.shader, w, h)[0].items()}
+    else:
+        setup = _soup(kind, w, h)
+    req = {"op": "scan_resolve", "h": h, "w": w, "chunk": 8, **setup}
+    if seeded:
+        rng = np.random.default_rng(11)
+        d = rng.uniform(-0.2, 1.0, (h, w)).astype(np.float32)
+        d[rng.random((h, w)) < 0.5] = np.inf
+        req["init"] = d
+        req["init_winner"] = rng.integers(-1, 300, (h, w)).astype(np.int32)
+    if band is not None:
+        y0, rows = band
+        req.update(h=rows, y0=y0)
+        for k in ("init", "init_winner"):
+            if k in req:
+                req[k] = req[k][y0:y0 + rows]
+    return req
+
+
 @pytest.fixture(scope="module")
 def jax_side(tmp_path_factory):
     req = {f"resolve_{c}_{k}": _resolve_request(c, k) for c in RESOLVE for k in CHUNKS}
+    req.update({f"split_{c}": _split_request(c) for c in SPLIT})
     req["chain"] = {"op": "scan_chain", "w": W, "h": H, "chunk": 8}
     req["scene"] = {"op": "scan_scene", "scene": "multimesh"}
     return run_jax(req, tmp_path_factory.mktemp("jax_scan"))
@@ -150,6 +244,127 @@ def test_resolve_on_a_device_without_a_kernel_raises():
         raster.depth_resolve_xla(meta, H, W)
     with pytest.raises(ValueError, match="no scan resolve"):
         raster.pass_events_xla(meta, torch.full((H, W), torch.inf, device="meta"), H, W)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's decomposition: super-block lists, block lists, the walk
+# ---------------------------------------------------------------------------
+
+def _split_inputs(req: dict):
+    """(setup, running depth or None, running winner or None) tensors."""
+    init = torch.from_numpy(req["init"]) if "init" in req else None
+    init_w = torch.from_numpy(req["init_winner"]) if "init_winner" in req else None
+    return _tensors(req), init, init_w
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=lambda g: "{}x{}in{}".format(*g))
+@pytest.mark.parametrize("case", list(SPLIT))
+def test_split_plain_matches_jax(jax_side, case, geom):
+    """``scan_resolve_split_plain`` at each walk block and super-block:
+    depth and winner bitwise the JAX package's ``depth_resolve_xla``
+    (seeded with a depth and a winner, in a band at y0); with stats the
+    event count, max z and the pass's min z bitwise its ``pass_events_xla``
+    (a band's, which the JAX function has no y0 for: the port's chunked
+    scan's)."""
+    req = _split_request(case)
+    setup, init, init_w = _split_inputs(req)
+    h, w, y0 = req["h"], req["w"], req.get("y0", 0)
+    want = jax_side[f"split_{case}"]
+    depth, winner = raster.scan_resolve_split_plain(setup, h, w, init, init_w, y0=y0,
+                                                    geom=geom)
+    assert_bits(depth.numpy(), want["depth"], f"{case} depth")
+    assert_bits(winner.numpy(), want["winner"], f"{case} winner")
+    seed = init if init is not None else torch.full((h, w), torch.inf)
+    d, wn, frags, max_z = raster.scan_resolve_split_plain(setup, h, w, seed, y0=y0,
+                                                          collect_stats=True, geom=geom)
+    assert frags.dtype == torch.int32
+    min_z = torch.where(wn >= 0, d, torch.inf).amin()
+    got = np.array([float(frags), float(min_z), float(max_z)])
+    if y0 == 0:
+        assert_bits(d.numpy(), want["ev_depth"], f"{case} events depth")
+        assert_bits(wn.numpy(), want["ev_winner"], f"{case} events winner")
+        assert_bits(got, want["ev"], f"{case} frags, min_z, max_z")
+    else:
+        ev = raster.pass_events_xla_plain(setup, seed, h, w, y0=y0)
+        for a, b, what in zip((d, wn), ev[:2], ("depth", "winner")):
+            assert_bits(a.numpy(), b.numpy(), f"{case} events {what}")
+        assert_bits(got, np.array([float(ev[2]), float(ev[3]), float(ev[4])]),
+                    f"{case} frags, min_z, max_z")
+    if case != "empty":
+        assert frags > 0
+
+
+@pytest.mark.parametrize("case", ["tie_pile", "spanning", "offscreen"])
+def test_soups_hold_what_their_cases_name(case):
+    """The synthetic passes hold what the cases are for: the tie pile's
+    copies share their depths, the spanning soup has triangles that cross
+    super-blocks of 4 blocks, the off-screen soup has invalid triangles and
+    bboxes cut at the frame's edges."""
+    _, w, h, _, _ = SPLIT[case]
+    s = _soup(case, w, h)
+    valid, bbox = s["valid"], s["bbox"]
+    assert valid.sum() > 20
+    if case == "tie_pile":
+        assert (s["ndc_z"][40:140:25] == s["ndc_z"][64:140:25]).all()
+    elif case == "spanning":
+        wide = (bbox[:, 1] // 128 > bbox[:, 0] // 128) & (bbox[:, 3] // 128 > bbox[:, 2] // 128)
+        assert (wide & valid).sum() >= 3
+    else:
+        assert (~valid).sum() >= 40
+        edge = (bbox[:, 0] == 0) | (bbox[:, 1] == w - 1) | (bbox[:, 2] == 0) | (bbox[:, 3] == h - 1)
+        assert (edge & valid).sum() >= 5
+
+
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(data=st.data())
+def test_block_lists_are_the_stream_filtered_in_order(data):
+    """Each super-block's list holds the valid triangles whose bbox meets
+    its rectangle cut to the buffer, and each walk block's list the valid
+    triangles that pass the whole-stream walk's bbox test of the block
+    (the block's rectangle cut to the buffer), both in submission order,
+    for random bboxes, buffers (a band at (x0, y0)) and geometries."""
+    f = data.draw(st.integers(0, 60), "faces")
+    h, w = data.draw(st.integers(1, 150), "height"), data.draw(st.integers(1, 150), "width")
+    x0, y0 = data.draw(st.integers(0, 20), "x0"), data.draw(st.integers(0, 40), "y0")
+    geom = raster.ScanGeometry(data.draw(st.sampled_from((8, 16, 32)), "block_w"),
+                               data.draw(st.sampled_from((8, 16, 32)), "block_h"),
+                               32 * data.draw(st.integers(1, 5), "super-block"))
+    rng = np.random.default_rng(data.draw(st.integers(0, 2**32 - 1), "seed"))
+    fw, fh = x0 + w + 30, y0 + h + 30            # the frame the bboxes are clamped to
+    lo_x, lo_y = rng.integers(0, fw, f), rng.integers(0, fh, f)
+    bbox = np.stack([lo_x, np.minimum(lo_x + rng.integers(0, 90, f), fw - 1),
+                     lo_y, np.minimum(lo_y + rng.integers(0, 90, f), fh - 1)], 1)
+    valid = rng.random(f) < 0.8
+    setup = {"valid": torch.from_numpy(valid), "bbox": torch.from_numpy(bbox.astype(np.int32))}
+    lengths, lists = raster.scan_super_lists_plain(setup, h, w, x0, y0, geom)
+    blocks = raster.scan_block_lists_plain(lengths, lists, h, w, geom)
+    bw, bh, p = geom
+    nbx, nby = -(-w // bw), -(-h // bh)
+
+    def stream(cx0, cx1, cy0, cy1):    # buffer-local columns and rows, inclusive
+        return [i for i in range(f) if valid[i] and bbox[i, 0] <= x0 + cx1
+                and bbox[i, 1] >= x0 + cx0 and bbox[i, 2] <= y0 + cy1 and bbox[i, 3] >= y0 + cy0]
+
+    for b in range(nbx * nby):
+        by, bx = divmod(b, nbx)
+        got = blocks[b][blocks[b] >= 0].tolist() if blocks.shape[1] else []
+        assert got == stream(bx * bw, min(bx * bw + bw, w) - 1, by * bh,
+                             min(by * bh + bh, h) - 1), f"block {b}"
+    nsx = -(-nbx // (p // bw))
+    for s, n in enumerate(lengths.tolist()):
+        sy, sx = divmod(s, nsx)
+        assert lists[s, :n, 0].tolist() == stream(sx * p, min(sx * p + p, w) - 1, sy * p,
+                                                  min(sy * p + p, h) - 1), f"super-block {s}"
+
+
+def test_plain_geometry_is_the_kernels():
+    """``SCAN_GEOMETRY``, the plain versions' default, is the geometry
+    ``csrc/scan_resolve.cu`` is built with (the wrapper asks the library)."""
+    src = (Path(raster.__file__).parent.parent / "csrc" / "scan_resolve.cu").read_text()
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert "kBlockH = kRowStep * kPixY" in src and "kRowStep = kThreads / kBlockW" in src
+    assert raster.SCAN_GEOMETRY == (c["kBlockW"], c["kThreads"] // c["kBlockW"] * c["kPixY"],
+                                    c["kSuperPx"])
 
 
 # ---------------------------------------------------------------------------
@@ -376,3 +591,35 @@ def test_cuda_resolve_matches_plain(cuda_device, case):
                           ("depth", "winner", "events depth", "events winner", "frags",
                            "min_z", "max_z")):
         assert_bits(g.cpu().numpy(), w.numpy(), f"{case} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPLIT))
+def test_cuda_resolve_matches_the_split_plain_version(cuda_device, case):
+    """The kernel, with and without the event sums, bitwise the split
+    plain version at the library's geometry (seeded with a depth
+    and a winner, in a band at y0), and its super-block lists the plain
+    lists up to each length."""
+    req = _split_request(case)
+    setup, init, init_w = _split_inputs(req)
+    h, w, y0 = req["h"], req["w"], req.get("y0", 0)
+    geom = raster.kernel_geometry()
+    dev = {k: v.to(cuda_device) for k, v in setup.items()}
+    on = (lambda t: None if t is None else t.to(cuda_device))  # noqa: E731
+    got = raster.depth_resolve_xla(dev, h, w, init_depth=on(init), init_winner=on(init_w),
+                                   y0=y0)
+    want = raster.scan_resolve_split_plain(setup, h, w, init, init_w, y0=y0, geom=geom)
+    seed = init if init is not None else torch.full((h, w), torch.inf)
+    ev = raster.pass_events_xla(dev, on(seed), h, w, y0=y0)
+    ev_want = raster.scan_resolve_split_plain(setup, h, w, seed, y0=y0, collect_stats=True,
+                                              geom=geom)
+    for g, wt, what in zip((*got, *ev[:3], ev[4]), (*want, *ev_want),
+                           ("depth", "winner", "events depth", "events winner", "frags",
+                            "max_z")):
+        assert_bits(g.cpu().numpy(), wt.numpy(), f"{case} {what}")
+    if setup["valid"].shape[0]:
+        lengths, lists = raster.scan_lists(dev, h, w, y0=y0)
+        p_len, p_lists = raster.scan_super_lists_plain(setup, h, w, y0=y0, geom=geom)
+        assert_bits(lengths.cpu().numpy(), p_len.numpy(), f"{case} list lengths")
+        for s_, n in enumerate(p_len.tolist()):
+            assert_bits(lists[s_, :n].cpu().numpy(), p_lists[s_, :n].numpy(), f"{case} list {s_}")

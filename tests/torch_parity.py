@@ -941,16 +941,19 @@ def _jax_setup(r) -> dict:
 
 def _jax_scan_resolve(r):
     """``raster.depth_resolve_xla`` of a setup at (w, h) in chunks of
-    ``chunk``, seeded with ``init`` and at global pixel (x0, y0) where the
-    request has them; on a whole frame also ``raster.pass_events_xla``."""
+    ``chunk``, seeded with ``init`` (and ``init_winner``) and at global
+    pixel (x0, y0) where the request has them; on a whole frame also
+    ``raster.pass_events_xla`` (seeded with ``init`` alone)."""
     import jax.numpy as jnp
 
     from tinyrenderder_tpu.ops import raster
     setup = _jax_setup(r)
     h, w, chunk = int(r["h"]), int(r["w"]), int(r["chunk"])
     init = jnp.asarray(r["init"]) if "init" in r else None
+    init_w = jnp.asarray(r["init_winner"]) if "init_winner" in r else None
     x0, y0 = int(r.get("x0", 0)), int(r.get("y0", 0))
-    d, wn = raster.depth_resolve_xla(setup, h, w, chunk=chunk, init_depth=init, x0=x0, y0=y0)
+    d, wn = raster.depth_resolve_xla(setup, h, w, chunk=chunk, init_depth=init,
+                                     init_winner=init_w, x0=x0, y0=y0)
     out = {"depth": np.asarray(d), "winner": np.asarray(wn)}
     if x0 == 0 and y0 == 0:
         init = jnp.full((h, w), jnp.inf, jnp.float32) if init is None else init

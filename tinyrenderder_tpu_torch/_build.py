@@ -73,8 +73,9 @@ SIGNATURES = {
     "trt_rank_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # tri_rec, rec_stride, valid, n_tri, height, width, x0, y0, init_depth
     # (or null), init_winner (or null), depth, winner, ev_count (or null),
-    # ev_maxz (or null), stream
-    "trt_scan_resolve": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # ev_maxz (or null), counts, lists (the super-block lists), stream
+    "trt_scan_resolve": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P],
     # img, ids, id_stride, add_ptr (or null), add_val, n_ids, height, width,
     # block_h, block_w, stream
     "trt_inplace_blocks": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P],
@@ -82,7 +83,8 @@ SIGNATURES = {
 
 #: C functions of no argument that return a kernel's compile-time constant
 CONSTANTS = ("trt_coarse_range_pairs", "trt_fine_range_area", "trt_fine2_range_rows",
-             "trt_proto_range_rows")
+             "trt_proto_range_rows", "trt_scan_block_w", "trt_scan_block_h",
+             "trt_scan_super_px")
 
 _LIB: ctypes.CDLL | None = None
 _CONSTANT_VALUES: dict[str, int] = {}

@@ -14,10 +14,13 @@ frame:
     (our_gl.cpp:165).  The JAX package scans chunks of ``chunk`` triangles
     (a first-occurrence argmin within a chunk, a strict-less merge across
     chunks); ``depth_resolve_xla_plain`` and ``pass_events_xla_plain`` are
-    that scan, op for op.  On a CUDA tensor the resolve is one launch of
-    ``csrc/scan_resolve.cu``, a walk of the triangles in submission order
-    per pixel, which keeps the same depth, winner and events for any
-    ``chunk`` (the argument is in the kernel's source).
+    that scan, op for op.  On a CUDA tensor the resolve is the four
+    launches of ``csrc/scan_resolve.cu``: the pass's triangles culled once
+    per super-block into lists in submission order, then a walk of its
+    super-block's list, in that order, per pixel of each block, which
+    keeps the same depth, winner and events for any ``chunk`` (the
+    arguments are in the kernel's source); ``scan_resolve_split_plain``
+    is that decomposition in PyTorch.
 
   Phase B (``shade_winners``): per pixel, the winner's vertices gathered,
     barycentrics at the pixel centre, perspective-correct weights, the
@@ -39,14 +42,21 @@ import torch
 from tinyrenderder_tpu_torch import _build, shaders
 from tinyrenderder_tpu_torch.ops import semantics
 from tinyrenderder_tpu_torch.ops.raster_coarse import GEOM, build_tri_records
-from tinyrenderder_tpu_torch.ops.raster_tiled import vertex_stage
+from tinyrenderder_tpu_torch.ops.raster_tiled import cdiv, vertex_stage
 
 __all__ = ["BACKGROUND", "FrameBuffers", "PassEvents", "new_framebuffers", "pass_stats",
-           "depth_resolve_xla", "depth_resolve_xla_plain", "pass_events_xla",
-           "pass_events_xla_plain", "shade_winners", "render_pass_xla", "LAUNCHES",
-           "STATS_LAUNCHES"]
+           "ScanGeometry", "SCAN_GEOMETRY", "kernel_geometry", "depth_resolve_xla",
+           "depth_resolve_xla_plain", "pass_events_xla",
+           "pass_events_xla_plain", "scan_super_lists_plain", "scan_block_lists_plain",
+           "scan_resolve_split_plain", "scan_lists", "shade_winners", "render_pass_xla",
+           "LAUNCHES", "STATS_LAUNCHES"]
 
 BACKGROUND = -1  # winner id for empty pixels
+
+#: triangles a warp of the resolve kernel's list launches takes (a unit)
+SCAN_UNIT = 32
+#: triangles of each block's list that the split plain version's steps take
+_SPLIT_STEP = 32
 
 _INT32_MAX = 2**31 - 1
 _INT32_MIN = -2**31
@@ -55,6 +65,27 @@ _INT32_MIN = -2**31
 #: path does not count), without and with the z-pass events
 LAUNCHES = 0
 STATS_LAUNCHES = 0
+
+
+class ScanGeometry(NamedTuple):
+    """The resolve kernel's walk block and super-block, in pixels
+    (``csrc/scan_resolve.cu``'s kBlockW, kBlockH and kSuperPx, a multiple
+    of both).  The wrapper asks the library for its own; the plain versions
+    take one."""
+
+    block_w: int
+    block_h: int
+    super_px: int
+
+
+#: the geometry csrc/scan_resolve.cu is built with
+SCAN_GEOMETRY = ScanGeometry(8, 32, 128)
+
+
+def kernel_geometry() -> ScanGeometry:
+    """The loaded kernel library's ``ScanGeometry``."""
+    return ScanGeometry(*(_build.constant(f"trt_scan_{k}")
+                          for k in ("block_w", "block_h", "super_px")))
 
 
 class FrameBuffers(NamedTuple):
@@ -141,28 +172,37 @@ def _chunk_depths(setup: dict, c0: int, c1: int, win, x0: int, y0: int):
     ys, xs = win
     xi = (x0 + torch.arange(xs.start, xs.stop, dtype=torch.int32, device=dev))[None, None, :]
     yi = (y0 + torch.arange(ys.start, ys.stop, dtype=torch.int32, device=dev))[None, :, None]
+    return _covered_depths(setup["screen"][c0:c1], setup["ndc_z"][c0:c1],
+                           setup["bbox"][c0:c1], setup["valid"][c0:c1], xi, yi)
+
+
+def _covered_depths(screen, ndc_z, bbox, valid, xi, yi):
+    """The covered affine depths of triangles (leading dims T: screen T +
+    (3, 2), ndc_z T + (3,), bbox T + (4,) int32, valid T) at the pixels of
+    global columns ``xi`` and rows ``yi`` (int32, broadcastable to T + (h,
+    w)): +inf where a triangle does not cover the pixel."""
     px = xi.to(torch.float32) + 0.5
     py = yi.to(torch.float32) + 0.5
-    c_screen = setup["screen"][c0:c1].to(torch.float32)
-    c_z = setup["ndc_z"][c0:c1].to(torch.float32)
-    c_bbox = setup["bbox"][c0:c1]
+    screen = screen.to(torch.float32)
+    ndc_z = ndc_z.to(torch.float32)
 
-    def tcoord(k, a):  # (K,) per-triangle scalar -> (K, 1, 1)
-        return c_screen[:, k, a][:, None, None]
+    def per_tri(t):  # T -> T + (1, 1)
+        return t[..., None, None]
 
     b0, b1, b2, _ = semantics.barycentric(
-        tcoord(0, 0), tcoord(0, 1), tcoord(1, 0), tcoord(1, 1),
-        tcoord(2, 0), tcoord(2, 1), px, py)
+        per_tri(screen[..., 0, 0]), per_tri(screen[..., 0, 1]), per_tri(screen[..., 1, 0]),
+        per_tri(screen[..., 1, 1]), per_tri(screen[..., 2, 0]), per_tri(screen[..., 2, 1]),
+        px, py)
     covered = semantics.coverage_mask(b0, b1, b2)
-    z = semantics.affine_z(c_z[:, 0, None, None], c_z[:, 1, None, None],
-                           c_z[:, 2, None, None], b0, b1, b2)
+    z = semantics.affine_z(per_tri(ndc_z[..., 0]), per_tri(ndc_z[..., 1]),
+                           per_tri(ndc_z[..., 2]), b0, b1, b2)
     covered &= torch.isfinite(z)
     # only pixels inside the clamped integer bbox are visited (our_gl.cpp:147-148)
-    covered &= ((xi >= c_bbox[:, 0, None, None])
-                & (xi <= c_bbox[:, 1, None, None])
-                & (yi >= c_bbox[:, 2, None, None])
-                & (yi <= c_bbox[:, 3, None, None]))
-    covered &= setup["valid"][c0:c1, None, None]
+    covered &= ((xi >= per_tri(bbox[..., 0]))
+                & (xi <= per_tri(bbox[..., 1]))
+                & (yi >= per_tri(bbox[..., 2]))
+                & (yi <= per_tri(bbox[..., 3])))
+    covered &= per_tri(valid)
     return torch.where(covered, z, torch.inf)
 
 
@@ -228,6 +268,138 @@ def pass_events_xla_plain(setup: dict, init_depth, height: int, width: int,
 
 
 # ---------------------------------------------------------------------------
+# phase A, plain: the resolve kernel's decomposition (super-block and block lists)
+# ---------------------------------------------------------------------------
+
+def _block_grid(height: int, width: int, geom: ScanGeometry):
+    """(blocks across, down, blocks a super-block across, down,
+    super-blocks across, down) of an (H, W) buffer."""
+    nbx, nby = cdiv(width, geom.block_w), cdiv(height, geom.block_h)
+    sw, sh = geom.super_px // geom.block_w, geom.super_px // geom.block_h
+    return nbx, nby, sw, sh, cdiv(nbx, sw), cdiv(nby, sh)
+
+
+def scan_super_lists_plain(setup: dict, height: int, width: int, x0: int = 0, y0: int = 0,
+                           geom: ScanGeometry = SCAN_GEOMETRY):
+    """The resolve kernel's super-block lists (its launches 1-3).  The (H,
+    W) buffer at global pixel (x0, y0) is cut into blocks of ``geom``'s
+    block_w x block_h pixels and those into super-blocks of super_px²
+    pixels, row-major.  A super-block's list holds, in submission order,
+    each valid triangle whose integer bbox, cut to the buffer, meets it, as
+    (triangle, range): the bbox's blocks cut to the super-block, in local
+    block indices packed x0 | x1 << 8 | y0 << 16 | y1 << 24.  Returns
+    (lengths (S,) int32, lists (S, F, 2) int32, zero past each length)."""
+    dev = setup["valid"].device
+    f = setup["valid"].shape[0]
+    _, _, sw, sh, nsx, nsy = _block_grid(height, width, geom)
+    b = setup["bbox"].to(torch.int64)
+    lx, hx = b[:, 0].clamp(min=x0), b[:, 1].clamp(max=x0 + width - 1)
+    ly, hy = b[:, 2].clamp(min=y0), b[:, 3].clamp(max=y0 + height - 1)
+    meets = setup["valid"] & (lx <= hx) & (ly <= hy)
+    rng = torch.stack([(lx - x0) // geom.block_w, (hx - x0) // geom.block_w,
+                       (ly - y0) // geom.block_h, (hy - y0) // geom.block_h], dim=1)
+    lengths = torch.zeros(nsx * nsy, dtype=torch.int32, device=dev)
+    lists = torch.zeros((nsx * nsy, f, 2), dtype=torch.int32, device=dev)
+    for s in range(nsx * nsy):
+        bx, by = s % nsx * sw, s // nsx * sh          # the super-block's first block
+        tri = torch.nonzero(meets & (rng[:, 0] < bx + sw) & (rng[:, 1] >= bx)
+                            & (rng[:, 2] < by + sh) & (rng[:, 3] >= by)).flatten()
+        r = rng[tri]
+        box = ((r[:, 0] - bx).clamp(min=0) | (r[:, 1] - bx).clamp(max=sw - 1) << 8
+               | (r[:, 2] - by).clamp(min=0) << 16 | (r[:, 3] - by).clamp(max=sh - 1) << 24)
+        n = tri.shape[0]
+        lists[s, :n, 0] = tri.to(torch.int32)
+        lists[s, :n, 1] = box.to(torch.int32)
+        lengths[s] = n
+    return lengths, lists
+
+
+def scan_block_lists_plain(lengths, lists, height: int, width: int,
+                           geom: ScanGeometry = SCAN_GEOMETRY):
+    """Each block's list (the resolve kernel's walk, launch 4): the
+    triangles of its super-block's list (``scan_super_lists_plain``) whose
+    range holds the block, in list order.  Returns (blocks, K) int64,
+    blocks row-major, -1 past each block's list."""
+    nbx, nby, sw, sh, nsx, nsy = _block_grid(height, width, geom)
+    per_block = [lists.new_empty((0,), dtype=torch.int64)] * (nbx * nby)
+    for s in range(nsx * nsy):
+        e = lists[s, :int(lengths[s])].to(torch.int64)
+        box = e[:, 1]
+        lo_x, hi_x = box & 0xFF, (box >> 8) & 0xFF
+        lo_y, hi_y = (box >> 16) & 0xFF, (box >> 24) & 0xFF
+        bx, by = s % nsx * sw, s // nsx * sh
+        for j in range(sw * sh):
+            ly, lx = divmod(j, sw)
+            if bx + lx < nbx and by + ly < nby:
+                holds = (lo_x <= lx) & (hi_x >= lx) & (lo_y <= ly) & (hi_y >= ly)
+                per_block[(by + ly) * nbx + bx + lx] = e[holds, 0]
+    return torch.nn.utils.rnn.pad_sequence(per_block, batch_first=True, padding_value=-1)
+
+
+def scan_resolve_split_plain(setup: dict, height: int, width: int, init_depth=None,
+                             init_winner=None, x0: int = 0, y0: int = 0,
+                             collect_stats: bool = False,
+                             geom: ScanGeometry = SCAN_GEOMETRY):
+    """Phase A as the resolve kernel decomposes it: the super-block lists,
+    the block lists (``scan_block_lists_plain``), then each block walks its
+    list in order, _SPLIT_STEP triangles at a time: the scan's step (a
+    first-occurrence argmin merged on strict less-than, the events by
+    ``pass_events_xla_plain``'s rule) on the block's pixels, so the result
+    is the same for any step.  Pixels outside the buffer walk
+    nothing.  Returns (depth, winner) or, with ``collect_stats``, (depth,
+    winner, event count 0-d int32, largest event z 0-d f32)."""
+    dev = setup["screen"].device
+    nbx, nby = _block_grid(height, width, geom)[:2]
+    blocks = scan_block_lists_plain(*scan_super_lists_plain(setup, height, width, x0, y0, geom),
+                                    height, width, geom)
+    depth, winner = _init_buffers(height, width, dev, init_depth, init_winner)
+    bw, bh, nb = geom.block_w, geom.block_h, nbx * nby
+
+    def to_blocks(plane, fill):   # (H, W) -> (blocks, bh, bw), padded with fill
+        padded = torch.full((nby * bh, nbx * bw), fill, dtype=plane.dtype, device=dev)
+        padded[:height, :width] = plane
+        return padded.reshape(nby, bh, nbx, bw).transpose(1, 2).reshape(nb, bh, bw)
+
+    d_blk, w_blk = to_blocks(depth, torch.inf), to_blocks(winner, BACKGROUND)
+    at = torch.arange(nb, dtype=torch.int32, device=dev)
+    cols = (at % nbx * bw)[:, None] + torch.arange(bw, dtype=torch.int32, device=dev)
+    rows = (at // nbx * bh)[:, None] + torch.arange(bh, dtype=torch.int32, device=dev)
+    inside = (cols < width)[:, None, :] & (rows < height)[:, :, None]
+    lengths = (blocks >= 0).sum(dim=1)
+    frags = torch.zeros((), dtype=torch.int32, device=dev)
+    max_z = torch.tensor(-torch.inf, dtype=torch.float32, device=dev)
+    for k0 in range(0, blocks.shape[1], _SPLIT_STEP):
+        act = torch.nonzero(lengths > k0).flatten()
+        ids = blocks[act, k0:k0 + _SPLIT_STEP]            # (a, k), -1 past a list
+        tri = ids.clamp(min=0)
+        zc = _covered_depths(setup["screen"][tri], setup["ndc_z"][tri], setup["bbox"][tri],
+                             setup["valid"][tri] & (ids >= 0),
+                             (x0 + cols[act])[:, None, None, :],
+                             (y0 + rows[act])[:, None, :, None])
+        zc = torch.where(inside[act][:, None], zc, torch.inf)     # (a, k, bh, bw)
+        d = d_blk[act]
+        if collect_stats:
+            incl = torch.cummin(zc, dim=1).values
+            excl = torch.cat([torch.full_like(zc[:, :1], torch.inf), incl[:, :-1]], dim=1)
+            events = zc < torch.minimum(excl, d[:, None])
+            frags = frags + events.sum(dtype=torch.int32)
+            max_z = torch.maximum(max_z, torch.where(events, zc, -torch.inf).amax())
+        best = torch.argmin(zc, dim=1)                    # first min = earliest in the list
+        zmin = torch.gather(zc, 1, best[:, None])[:, 0]
+        better = zmin < d
+        won = torch.gather(ids, 1, best.flatten(1)).reshape(best.shape).to(torch.int32)
+        d_blk[act] = torch.where(better, zmin, d)
+        w_blk[act] = torch.where(better, won, w_blk[act])
+
+    def to_plane(blk):
+        return blk.reshape(nby, nbx, bh, bw).transpose(1, 2).reshape(nby * bh, nbx * bw)[
+            :height, :width].contiguous()
+
+    out = (to_plane(d_blk), to_plane(w_blk))
+    return out + ((frags, max_z) if collect_stats else ())
+
+
+# ---------------------------------------------------------------------------
 # phase A: the dispatch (CPU tensors: the plain scan; CUDA tensors: the kernel)
 # ---------------------------------------------------------------------------
 
@@ -242,9 +414,12 @@ def _check_plane(name: str, t, dtype, shape, device) -> None:
 
 
 def _launch(setup: dict, height: int, width: int, init_depth, init_winner, x0: int,
-            y0: int, stats: bool):
-    """One launch of ``csrc/scan_resolve.cu`` on CUDA tensors ->
-    (depth, winner[, (event count (1,) int32, largest event z (1,) f32)])."""
+            y0: int, stats: bool, with_lists: bool = False):
+    """The four launches of ``csrc/scan_resolve.cu`` on CUDA tensors ->
+    (depth, winner[, (event count (1,) int32, largest event z (1,) f32)]
+    [, (list lengths (S,), super-block lists (S, F, 2))]).  The workspace
+    (the counts and the lists, each sized for every triangle) comes from
+    the shapes alone: nothing is read back."""
     dev = setup["screen"].device
     if dev.type != "cuda":
         raise ValueError(f"no scan resolve for device {dev}")
@@ -252,17 +427,32 @@ def _launch(setup: dict, height: int, width: int, init_depth, init_winner, x0: i
     _check_plane("init_winner", init_winner, torch.int32, (height, width), dev)
     rec = build_tri_records(setup)                      # (F, 16): the geometry columns
     valid = setup["valid"].contiguous()
+    f = rec.shape[0]
+    nsx, nsy = _block_grid(height, width, kernel_geometry())[4:]
+    counts = torch.empty((nsx * nsy, cdiv(f, SCAN_UNIT) + 1), dtype=torch.int32, device=dev)
+    lists = torch.empty((nsx * nsy, f, 2), dtype=torch.int32, device=dev)
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     winner = torch.empty((height, width), dtype=torch.int32, device=dev)
     ev = ((torch.zeros(1, dtype=torch.int32, device=dev),
            torch.full((1,), -torch.inf, dtype=torch.float32, device=dev)) if stats else None)
-    _build.call("trt_scan_resolve", dev, rec.data_ptr(), GEOM, valid.data_ptr(),
-                rec.shape[0], height, width, int(x0), int(y0),
+    _build.call("trt_scan_resolve", dev, rec.data_ptr(), GEOM, valid.data_ptr(), f, height,
+                width, int(x0), int(y0),
                 None if init_depth is None else init_depth.data_ptr(),
                 None if init_winner is None else init_winner.data_ptr(),
                 depth.data_ptr(), winner.data_ptr(), ev[0].data_ptr() if ev else None,
-                ev[1].data_ptr() if ev else None)
-    return (depth, winner) + ((ev,) if stats else ())
+                ev[1].data_ptr() if ev else None, counts.data_ptr(), lists.data_ptr())
+    return ((depth, winner) + ((ev,) if stats else ())
+            + (((counts[:, -1], lists),) if with_lists else ()))
+
+
+def scan_lists(setup: dict, height: int, width: int, x0: int = 0, y0: int = 0):
+    """The resolve's super-block lists of a non-empty pass -> (lengths (S,)
+    int32, lists (S, F, 2) int32, defined up to each length): on CUDA
+    tensors the kernel's own (one uncounted resolve), on CPU tensors
+    ``scan_super_lists_plain``'s."""
+    if setup["screen"].device.type == "cpu":
+        return scan_super_lists_plain(setup, height, width, x0, y0)
+    return _launch(setup, height, width, None, None, x0, y0, False, with_lists=True)[2]
 
 
 def depth_resolve_xla(setup: dict, height: int, width: int, chunk: int = 8,
