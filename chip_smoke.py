@@ -783,43 +783,18 @@ class fine_mode:
 
 
 def launch_counts():
-    """Every kernel's launches by entry point: ``untile_one`` and ``untile3``
-    count the plain-layout entries, ``untile_image`` and ``untile3_image``
-    the image stores of the same two kernels."""
-    from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
-    from tinyrenderder_tpu_torch.experimental import inplace_blocks as xib
-    from tinyrenderder_tpu_torch.experimental import rank_kernel as xrk
-    from tinyrenderder_tpu_torch.ops import raster
-    from tinyrenderder_tpu_torch.ops import raster_coarse as rc
-    from tinyrenderder_tpu_torch.ops import raster_fine as rf
-    from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
-    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
-    return {"coarse_raster": rc.LAUNCHES, "coarse_raster_stats": rc.STATS_LAUNCHES,
-            "dense_raster": rc.DENSE_LAUNCHES, "fine_raster": rf.LAUNCHES,
-            "fine_raster_stats": rf.STATS_LAUNCHES,
-            "fine2_raster": rf2.LAUNCHES, "fine2_raster_stats": rf2.STATS_LAUNCHES,
-            **rs.VARIANT_LAUNCHES,
-            "strip_raster_proto": xfr.LAUNCHES, "rank_pairs": xrk.LAUNCHES,
-            "inplace_blocks": xib.LAUNCHES, "scan_resolve": raster.LAUNCHES,
-            "scan_resolve_stats": raster.STATS_LAUNCHES}
+    """Every kernel's launches by entry point (the ``launch.*`` counters of
+    ``trace``, without the prefix): ``untile_one`` and ``untile3`` count the
+    plain-layout entries, ``untile_image`` and ``untile3_image`` the image
+    stores of the same two kernels."""
+    from tinyrenderder_tpu_torch import trace
+    c = trace.counts()
+    return {name[len("launch."):]: c[name] for name in trace.LAUNCH_KERNELS}
 
 
 def reset_counts():
-    from tinyrenderder_tpu_torch.experimental import fine_raster as xfr
-    from tinyrenderder_tpu_torch.experimental import inplace_blocks as xib
-    from tinyrenderder_tpu_torch.experimental import rank_kernel as xrk
-    from tinyrenderder_tpu_torch.ops import raster
-    from tinyrenderder_tpu_torch.ops import raster_coarse as rc
-    from tinyrenderder_tpu_torch.ops import raster_fine as rf
-    from tinyrenderder_tpu_torch.ops import raster_fine2 as rf2
-    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
-    raster.LAUNCHES = raster.STATS_LAUNCHES = 0
-    rc.LAUNCHES = rc.STATS_LAUNCHES = rc.DENSE_LAUNCHES = 0
-    rf.LAUNCHES = rf.STATS_LAUNCHES = 0
-    rf2.LAUNCHES = rf2.STATS_LAUNCHES = 0
-    rs.LAUNCHES = rs.UNTILE3_LAUNCHES = 0
-    rs.VARIANT_LAUNCHES.update(dict.fromkeys(rs.VARIANT_LAUNCHES, 0))
-    xfr.LAUNCHES = xrk.LAUNCHES = xib.LAUNCHES = 0
+    from tinyrenderder_tpu_torch import trace
+    trace.reset_counts()
 
 
 def counted(fn):

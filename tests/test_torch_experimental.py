@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_bits, run_jax
+from torch_parity import assert_bits, launches, reset_launches, run_jax
 from tinyrenderder_tpu_torch.experimental import fine_raster, inplace_blocks, rank_kernel
 
 SETUP_KEYS = ("valid", "screen", "ndc_z", "clip_w", "bbox")
@@ -127,9 +127,9 @@ def test_strip_records_match_script(strip_inputs, jax_out, name):
 def test_strip_rasterize_matches_script(strip_inputs, jax_out, name):
     setup, init = strip_inputs[name]
     _, w, h, _ = STRIP[name]
-    fine_raster.LAUNCHES = 0
+    reset_launches()
     depth, winner, shape = fine_raster.strip_rasterize(setup, torch.from_numpy(init), w, h)
-    assert fine_raster.LAUNCHES == 0                  # the CPU takes the plain version
+    assert launches("strip_raster_proto") == 0                  # the CPU takes the plain version
     assert shape == jax_out[name]["recs"].shape
     assert_bits(depth.numpy(), jax_out[name]["depth"], "depth")
     assert_bits(winner.numpy(), jax_out[name]["winner"], "winner")
@@ -257,9 +257,9 @@ def test_strip_split_plain_never_reads_past_rows(strip_inputs):
 @pytest.mark.parametrize("name", list(RANK))
 def test_rank_pairs_match_script(rank_inputs, jax_out, name):
     data = rank_inputs[name]
-    rank_kernel.LAUNCHES = 0
+    reset_launches()
     strips, ranks = rank_kernel.rank_pairs_kernel(*map(torch.from_numpy, data), NSX)
-    assert rank_kernel.LAUNCHES == 0
+    assert launches("rank_pairs") == 0
     assert_bits(strips.numpy(), jax_out[name]["strips"], "strips")
     assert_bits(ranks.numpy(), jax_out[name]["ranks"], "ranks")
     _assert_reference_ranks(data, strips, ranks)
@@ -321,10 +321,10 @@ def test_inplace_blocks_match_the_probe(jax_out):
     r = jax_out["inplace_repeats"]
     img0 = _probe_image()
     assert_bits(r["probe_img"], img0, "the probe's image")
-    inplace_blocks.LAUNCHES = 0
+    reset_launches()
     img = torch.from_numpy(img0.copy())
     out = inplace_blocks.run(img, torch.tensor([1, 3, 3, 6], dtype=torch.int32), 10.0, 4)
-    assert out is img and inplace_blocks.LAUNCHES == 0           # in place, plain
+    assert out is img and launches("inplace_blocks") == 0           # in place, plain
     assert_bits(out.numpy(), r["probe_out"], "the probe's own run")
     assert_bits(out.numpy(), inplace_blocks.expected_image(img0, [1, 3, 3, 6], 10.0),
                 "expected image")
@@ -367,9 +367,9 @@ def cuda_device():
 @pytest.mark.parametrize("name", list(STRIP))
 def test_cuda_strip_raster_matches_plain(strip_inputs, cuda_device, name):
     recs, rows, init_t, ntx, row_total = _strip_case(strip_inputs, name, cuda_device)
-    fine_raster.LAUNCHES = 0
+    reset_launches()
     got = fine_raster.strip_raster(recs, rows, init_t, ntx, row_total=row_total)
-    assert fine_raster.LAUNCHES == 1
+    assert launches("strip_raster_proto") == 1
     for g, p in zip(got, fine_raster.strip_raster_plain(recs, rows, init_t, ntx)):
         assert_bits(g.cpu().numpy(), p.cpu().numpy(), name)
 
@@ -393,9 +393,9 @@ def test_cuda_strip_raster_split_cases(strip_inputs, cuda_device, case):
     past rows[g] holding a live triangle: kernel == plain bitwise."""
     recs, rows, init_t, ntx, clean = (t.to(cuda_device) if torch.is_tensor(t) else t
                                       for t in _split_case(strip_inputs, case))
-    fine_raster.LAUNCHES = 0
+    reset_launches()
     got = fine_raster.strip_raster(recs, rows, init_t, ntx)     # reads rows.sum() back
-    assert fine_raster.LAUNCHES == 1
+    assert launches("strip_raster_proto") == 1
     for g, p in zip(got, fine_raster.strip_raster_plain(clean, rows, init_t, ntx)):
         assert_bits(g.cpu().numpy(), p.cpu().numpy(), case)
 
@@ -425,9 +425,9 @@ def test_cuda_strip_raster_launches(strip_inputs, cuda_device):
 def test_cuda_rank_kernel_matches_plain(cuda_device, name):
     data = {**RANK, **RANK_CUDA}[name]()
     args = [torch.from_numpy(a).to(cuda_device) for a in data]
-    rank_kernel.LAUNCHES = 0
+    reset_launches()
     got = rank_kernel.rank_pairs_kernel(*args, NSX)
-    assert rank_kernel.LAUNCHES == 1
+    assert launches("rank_pairs") == 1
     for g, p in zip(got, rank_kernel.rank_pairs_plain(*args, NSX)):
         assert_bits(g.cpu().numpy(), p.cpu().numpy(), name)
     _assert_reference_ranks(data, *(g.cpu() for g in got))
@@ -441,10 +441,10 @@ def test_cuda_rank_kernel_refuses_from_the_device(cuda_device, bad, match):
     args = _bad_rank_input(bad)
     with pytest.raises(ValueError, match=match) as on_cpu:
         rank_kernel.rank_pairs_kernel(*args, NSX)
-    rank_kernel.LAUNCHES = 0
+    reset_launches()
     with pytest.raises(ValueError, match=match) as on_card:
         rank_kernel.rank_pairs_kernel(*(a.to(cuda_device) for a in args), NSX)
-    assert rank_kernel.LAUNCHES == 1
+    assert launches("rank_pairs") == 1
     assert str(on_card.value) == str(on_cpu.value)
 
 
@@ -487,9 +487,9 @@ def test_cuda_inplace_blocks_match_plain(cuda_device, name, add_tensor):
     img = torch.from_numpy(img0).to(cuda_device)
     ids_t = torch.tensor(ids, dtype=torch.int32, device=cuda_device)
     add_arg = torch.tensor([add], device=cuda_device) if add_tensor else add
-    inplace_blocks.LAUNCHES = 0
+    reset_launches()
     got = inplace_blocks.run(img.clone(), ids_t, add_arg, a_cap)
-    assert inplace_blocks.LAUNCHES == 1
+    assert launches("inplace_blocks") == 1
     want = inplace_blocks.run_plain(img.clone(), ids_t, add_arg, a_cap)
     assert_bits(got.cpu().numpy(), want.cpu().numpy(), "image")
     assert_bits(got.cpu().numpy(), inplace_blocks.expected_image(img0, ids[:a_cap], add),
@@ -516,9 +516,9 @@ def test_cuda_inplace_blocks_headline_tiles_repeated(cuda_device, headline_tiles
     ids4 = ids.repeat(4)[perm.to(cuda_device)].contiguous()
     rng = np.random.default_rng(9)
     img = torch.from_numpy(rng.standard_normal((2048, 2048)).astype(np.float32)).to(cuda_device)
-    inplace_blocks.LAUNCHES = 0
+    reset_launches()
     got = inplace_blocks.run(img.clone(), ids4, 10.0, ids4.shape[0], (th, 128))
-    assert inplace_blocks.LAUNCHES == 1
+    assert launches("inplace_blocks") == 1
     want = inplace_blocks.run_plain(img.clone(), ids4, 10.0, ids4.shape[0], (th, 128))
     assert_bits(got.cpu().numpy(), want.cpu().numpy(), "image")
     def tiles(x):

@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (FRAMES, assert_bits, frame_scene, run_jax, scene_pass,
-                          stats_vector)
+from torch_parity import (FRAMES, assert_bits, frame_scene, launches, reset_launches,
+                          run_jax, scene_pass, stats_vector)
 from tinyrenderder_tpu_torch import convert
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.ops import raster_coarse, raster_fine, raster_fine2, raster_sparse
@@ -331,11 +331,11 @@ def test_wrapper_validates_inputs(prepared):
 
 
 def test_cpu_raster_launches_no_kernel(prepared):
-    raster_fine.LAUNCHES = raster_fine.STATS_LAUNCHES = 0
+    reset_launches()
     args = _raster_args(prepared["soup_phong_ragged_32"])
     raster_fine.fine_raster(*args)
     raster_fine.fine_raster(*args, collect_stats=True)
-    assert raster_fine.LAUNCHES == raster_fine.STATS_LAUNCHES == 0
+    assert launches("fine_raster") == launches("fine_raster_stats") == 0
 
 
 # ---------------------------------------------------------------------------
@@ -391,10 +391,10 @@ def test_cuda_fine_raster_matches_plain(split_prepared, cuda_device, case, stats
         assert int(ends.min()) < int(ends.max())
     want = raster_fine.fine_raster_plain(*args, collect_stats=stats)
     gpu = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
-    before = (raster_fine.LAUNCHES, raster_fine.STATS_LAUNCHES)
+    before = (launches("fine_raster"), launches("fine_raster_stats"))
     got = raster_fine.fine_raster(*gpu, collect_stats=stats)
     torch.cuda.synchronize()
-    assert (raster_fine.LAUNCHES - before[0], raster_fine.STATS_LAUNCHES - before[1]) == \
+    assert (launches("fine_raster") - before[0], launches("fine_raster_stats") - before[1]) == \
         ((0, 1) if stats else (1, 0))
     flat = lambda out: (*out[:3], *(out[3] if stats else ()))  # noqa: E731
     for g, w in zip(flat(got), flat(want)):
@@ -414,10 +414,10 @@ def test_cuda_fine_raster_one_launch(split_prepared, cuda_device, stats):
     args = _raster_args(c)
     want = raster_fine.fine_raster_plain(*args, collect_stats=stats)
     gpu = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
-    raster_fine.LAUNCHES = raster_fine.STATS_LAUNCHES = 0
+    reset_launches()
     got = raster_fine.fine_raster(*gpu, collect_stats=stats, max_rows=pre.max_rows)
     torch.cuda.synchronize()
-    assert raster_fine.LAUNCHES + raster_fine.STATS_LAUNCHES == 1
+    assert launches("fine_raster") + launches("fine_raster_stats") == 1
     flat = lambda out: (*out[:3], *(out[3] if stats else ()))  # noqa: E731
     for g, w in zip(flat(got), flat(want)):
         assert_bits(g.cpu().numpy(), w.numpy())
@@ -436,10 +436,10 @@ def test_cuda_fine_raster_one_launch(split_prepared, cuda_device, stats):
 @pytest.mark.parametrize("name", list(FRAMES))
 def test_cuda_fine_frame_matches_cpu_frame(port_frames, cuda_device, name):
     with _mode("fine"):
-        raster_fine.STATS_LAUNCHES = 0
+        reset_launches()
         r = tscene.render_scene(frame_scene(name), cuda_device)
         torch.cuda.synchronize()
-    assert raster_fine.STATS_LAUNCHES == 3
+    assert launches("fine_raster_stats") == 3
     planes, stats, _ = port_frames[(name, "fine")]
     for k in PLANES:
         assert_bits(getattr(r, k).cpu().numpy(), planes[k], k)

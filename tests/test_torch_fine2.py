@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (FRAMES, assert_bits, frame_scene, run_jax, scene_pass,
-                          stats_vector)
+from torch_parity import (FRAMES, assert_bits, frame_scene, launches, reset_launches,
+                          run_jax, scene_pass, stats_vector)
 from tinyrenderder_tpu_torch import convert
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2, raster_sparse
@@ -391,11 +391,11 @@ def test_wrapper_validates_inputs(prepared):
 
 
 def test_cpu_raster_launches_no_kernel(prepared):
-    raster_fine2.LAUNCHES = raster_fine2.STATS_LAUNCHES = 0
+    reset_launches()
     c = prepared["soup_phong_ragged_32"]
     raster_fine2.fine2_raster(*_raster_args(c))
     raster_fine2.fine2_raster(*_raster_args(c), _init(c), collect_stats=True)
-    assert raster_fine2.LAUNCHES == raster_fine2.STATS_LAUNCHES == 0
+    assert launches("fine2_raster") == launches("fine2_raster_stats") == 0
 
 
 # ---------------------------------------------------------------------------
@@ -428,11 +428,11 @@ def test_cuda_fine2_raster_matches_plain(split_prepared, cuda_device, case, stat
         assert int(ends.min()) < int(ends.max())
     want = raster_fine2.fine2_raster_plain(*args, init, collect_stats=stats)
     gpu = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
-    before = (raster_fine2.LAUNCHES, raster_fine2.STATS_LAUNCHES)
+    before = (launches("fine2_raster"), launches("fine2_raster_stats"))
     got = raster_fine2.fine2_raster(*gpu, None if init is None else init.to(cuda_device),
                                     collect_stats=stats)
     torch.cuda.synchronize()
-    assert (raster_fine2.LAUNCHES - before[0], raster_fine2.STATS_LAUNCHES - before[1]) == \
+    assert (launches("fine2_raster") - before[0], launches("fine2_raster_stats") - before[1]) == \
         ((0, 1) if stats else (1, 0))
     flat = lambda out: (*out[:3], *(out[3] if stats else ()))  # noqa: E731
     for g, w in zip(flat(got), flat(want)):
@@ -443,10 +443,10 @@ def test_cuda_fine2_raster_matches_plain(split_prepared, cuda_device, case, stat
 @pytest.mark.parametrize("name", list(FRAMES))
 def test_cuda_fine2_frame_matches_cpu_frame(port_frames, cuda_device, name):
     with _mode("fine2"):
-        raster_fine2.STATS_LAUNCHES = 0
+        reset_launches()
         r = tscene.render_scene(frame_scene(name), cuda_device)
         torch.cuda.synchronize()
-    assert raster_fine2.STATS_LAUNCHES == 3
+    assert launches("fine2_raster_stats") == 3
     planes, _, stats, _ = port_frames[(name, "fine2")]
     for k in PLANES:
         assert_bits(getattr(r, k).cpu().numpy(), planes[k], k)

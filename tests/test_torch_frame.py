@@ -25,11 +25,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (FRAMES, assert_bits, frame_scene, run_jax, scene_pass,
-                          stats_vector)
+from torch_parity import (FRAMES, assert_bits, frame_scene, launches, reset_launches,
+                          run_jax, scene_pass, stats_vector)
 from tinyrenderder_tpu_torch import convert, shaders
 from tinyrenderder_tpu_torch import scene as tscene
-from tinyrenderder_tpu_torch.ops import raster, raster_coarse, raster_fine, raster_sparse
+from tinyrenderder_tpu_torch.ops import raster, raster_sparse
 
 PLANES = ("color", "depth", "full_depth")
 
@@ -202,15 +202,14 @@ def test_unported_shaders_raise(monkeypatch):
 
 
 def test_cpu_frame_launches_no_kernel(monkeypatch):
-    raster_coarse.LAUNCHES = raster_coarse.STATS_LAUNCHES = 0
-    raster_fine.LAUNCHES = raster_fine.STATS_LAUNCHES = 0
-    raster_sparse.LAUNCHES = raster_sparse.UNTILE3_LAUNCHES = 0
+    reset_launches()
     tscene.render_scene(frame_scene("cli_default"), "cpu")
     monkeypatch.setattr(raster_sparse, "FINE_MODE", "fine")
     tscene.render_scene(frame_scene("cli_default"), "cpu")
-    assert (raster_coarse.LAUNCHES, raster_coarse.STATS_LAUNCHES, raster_fine.LAUNCHES,
-            raster_fine.STATS_LAUNCHES, raster_sparse.LAUNCHES,
-            raster_sparse.UNTILE3_LAUNCHES) == (0, 0, 0, 0, 0, 0)
+    assert (launches("coarse_raster"), launches("coarse_raster_stats"),
+            launches("fine_raster"), launches("fine_raster_stats"),
+            launches("untile_one", "untile_image"),
+            launches("untile3", "untile3_image")) == (0, 0, 0, 0, 0, 0)
 
 
 @pytest.fixture
@@ -223,12 +222,11 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(FRAMES))
 def test_cuda_frame_matches_cpu_frame(port_frames, cuda_device, name):
-    raster_coarse.STATS_LAUNCHES = raster_fine.STATS_LAUNCHES = 0
-    raster_sparse.UNTILE3_LAUNCHES = 0
+    reset_launches()
     r = tscene.render_scene(frame_scene(name), cuda_device)
     torch.cuda.synchronize()
-    assert raster_coarse.STATS_LAUNCHES + raster_fine.STATS_LAUNCHES == 3
-    assert raster_sparse.UNTILE3_LAUNCHES == 1
+    assert launches("coarse_raster_stats", "fine_raster_stats") == 3
+    assert launches("untile3", "untile3_image") == 1
     got, stats, _ = port_frames[name]
     for k in PLANES:
         assert_bits(_np(r)[k], got[k], k)

@@ -19,12 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import ROOT, SCENES, assert_bits, run_jax, scene_pass
+from torch_parity import ROOT, SCENES, assert_bits, launches, reset_launches, run_jax, scene_pass
 from tinyrenderder_tpu import oracle
 from tinyrenderder_tpu_torch import convert, math3d, shaders
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.models import procedural
-from tinyrenderder_tpu_torch.ops import raster_coarse, raster_fine, raster_sparse
+from tinyrenderder_tpu_torch.ops import raster_sparse
 
 
 def _port_frame(name, device="cpu", tile_h=16):
@@ -163,11 +163,12 @@ def test_frame_with_no_covered_tile_is_background():
 
 
 def test_cpu_route_launches_no_kernel(monkeypatch):
-    raster_coarse.LAUNCHES = raster_sparse.LAUNCHES = raster_fine.LAUNCHES = 0
+    reset_launches()
     _port_frame("head_textured")
     monkeypatch.setattr(raster_sparse, "FINE_MODE", "fine")
     _port_frame("head_textured")
-    assert raster_coarse.LAUNCHES == raster_sparse.LAUNCHES == raster_fine.LAUNCHES == 0
+    assert launches("coarse_raster") == launches("untile_one", "untile_image") == \
+        launches("fine_raster") == 0
 
 
 @pytest.fixture
@@ -180,8 +181,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(SCENES))
 def test_cuda_route_matches_cpu_route(port_frames, cuda_device, name):
-    raster_coarse.LAUNCHES = raster_sparse.LAUNCHES = 0
+    reset_launches()
     image, depth = _port_frame(name, device=cuda_device)
-    assert raster_coarse.LAUNCHES == 1 and raster_sparse.LAUNCHES == 2
+    assert launches("coarse_raster") == 1 and launches("untile_one", "untile_image") == 2
     assert_bits(image, port_frames[name][0], "image")
     assert_bits(depth, port_frames[name][1], "depth")

@@ -25,8 +25,8 @@ import pytest
 import torch
 
 from torch_parity import (SHADOW_KEY, assert_bits, assert_colour, blocker_scene, cli_rank,
-                          cut_passes, run_jax, sharded_scene, spawn_ranks, stats_vector,
-                          view_pass)
+                          cut_passes, launches, reset_launches, run_jax, sharded_scene,
+                          spawn_ranks, stats_vector, view_pass)
 from tinyrenderder_tpu_torch import cli, convert, math3d, oracle, shadows
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.ops import raster_coarse, raster_sparse
@@ -362,11 +362,11 @@ def test_cuda_geometry_frame_matches_fused_and_cpu():
     dev = torch.device("cuda")
     cpu_ft, cpu_od = dist.render_frame_geometry_tiles(_mesh(), _passes("uneven"), W, H)
     passes = _passes("uneven", dev)
-    raster_coarse.LAUNCHES = 0
+    reset_launches()
     ft, od = dist.render_frame_geometry_tiles(dist.emulated_mesh(RANKS, device=dev), passes,
                                               W, H)
     torch.cuda.synchronize()
-    assert raster_coarse.LAUNCHES > 0
+    assert launches("coarse_raster") > 0
     fused, fused_od, _ = raster_sparse.render_frame_fused(passes, W, H, dev)
     for plane in ("color", "depth", "winner"):
         got = getattr(ft, plane).cpu().numpy()

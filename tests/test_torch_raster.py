@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_bits, run_jax, scene_pass
+from torch_parity import assert_bits, launches, reset_launches, run_jax, scene_pass
 from tinyrenderder_tpu_torch import convert
 from tinyrenderder_tpu_torch.ops import raster_coarse, raster_sparse, raster_tiled
 
@@ -337,9 +337,9 @@ def test_split_walk_equals_the_serial_walk(split_prepared, case, range_len, stat
 
 
 def test_dense_raster_counts_no_cpu_launch(dense_inputs):
-    raster_coarse.DENSE_LAUNCHES = 0
+    reset_launches()
     _dense_port(dense_inputs["cube_97x61"])
-    assert raster_coarse.DENSE_LAUNCHES == 0
+    assert launches("dense_raster") == 0
 
 
 def test_z_ties_go_to_the_first_drawn():
@@ -420,11 +420,11 @@ def test_cuda_coarse_raster_matches_plain(split_prepared, cuda_device, case):
     args = [rec, sorted_tri, idl.int(), start[:-1][idl], counts[idl],
             torch.from_numpy(c["depth_tiles"])[idl].contiguous()]
     want = raster_coarse.coarse_raster_plain(*args, c["ntx"], c["th"], 128, c["n_vary"])
-    before = raster_coarse.LAUNCHES
+    before = launches("coarse_raster")
     got = raster_coarse.coarse_raster(*(a.to(cuda_device) for a in args), c["ntx"],
                                       c["th"], 128, c["n_vary"])
     torch.cuda.synchronize()
-    assert raster_coarse.LAUNCHES == before + 1
+    assert launches("coarse_raster") == before + 1
     for name, g, w in zip(("depth", "winner", "vary"), got, want):
         assert_bits(g.cpu().numpy(), w.numpy(), name)
 
@@ -440,11 +440,11 @@ def test_cuda_coarse_raster_event_planes_match_plain(split_prepared, cuda_device
         _long_bins(args[4])
     want = raster_coarse.coarse_raster_plain(*args, collect_stats=True)
     gpu = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a for a in args]
-    before = raster_coarse.STATS_LAUNCHES
+    before = launches("coarse_raster_stats")
     got = raster_coarse.coarse_raster(*gpu, collect_stats=True)
     without = raster_coarse.coarse_raster(*gpu)
     torch.cuda.synchronize()
-    assert raster_coarse.STATS_LAUNCHES == before + 1
+    assert launches("coarse_raster_stats") == before + 1
     names = ("depth", "winner", "vary", "event count", "event max z")
     for name, g, w in zip(names, (*got[:3], *got[3]), (*want[:3], *want[3])):
         assert_bits(g.cpu().numpy(), w.numpy(), name)
@@ -464,10 +464,10 @@ def test_cuda_dense_raster_matches_plain(dense_stack_inputs, cuda_device, case):
         _long_bins(c["bins"].counts)
         assert (c["bins"].counts == 0).any()
     want = _dense_port(c)
-    before = raster_coarse.DENSE_LAUNCHES
+    before = launches("dense_raster")
     got = _dense_port(c, cuda_device)
     torch.cuda.synchronize()
-    assert raster_coarse.DENSE_LAUNCHES == before + 2
+    assert launches("dense_raster") == before + 2
     for name, g, w in zip(("depth", "winner", "vary", "depth only", "winner only"),
                           (*got[0], *got[1]), (*want[0], *want[1])):
         assert_bits(g.cpu().numpy(), w.numpy(), name)
@@ -478,10 +478,10 @@ def test_cuda_dense_raster_matches_plain(dense_stack_inputs, cuda_device, case):
 def test_cuda_untile3_matches_plain(untile3_inputs, cuda_device, name):
     planes, ntx, nty, th = untile3_inputs[name]
     cpu = [torch.from_numpy(x) for x in planes]
-    before = raster_sparse.UNTILE3_LAUNCHES
+    before = launches("untile3", "untile3_image")
     got = raster_sparse.untile3(*(x.to(cuda_device) for x in cpu), ntx, nty, th, 128)
     torch.cuda.synchronize()
-    assert raster_sparse.UNTILE3_LAUNCHES == before + 1
+    assert launches("untile3", "untile3_image") == before + 1
     for k, g, w in zip(("color", "depth", "winner"), got,
                        raster_sparse.untile3_plain(*cpu, ntx, nty, th, 128)):
         assert_bits(g.cpu().numpy(), w.numpy(), k)
@@ -492,9 +492,9 @@ def test_cuda_untile3_matches_plain(untile3_inputs, cuda_device, name):
 def test_cuda_untile_matches_plain(untile_inputs, cuda_device, name):
     x, ntx, nty, th = untile_inputs[name]
     xt = torch.from_numpy(x)
-    before = raster_sparse.LAUNCHES
+    before = launches("untile_one", "untile_image")
     got = raster_sparse.untile_one(xt.to(cuda_device), ntx, nty, th, 128)
     torch.cuda.synchronize()
-    assert raster_sparse.LAUNCHES == before + 1
+    assert launches("untile_one", "untile_image") == before + 1
     assert_bits(got.cpu().numpy(),
                 raster_sparse.untile_one_plain(xt, ntx, nty, th, 128).numpy(), "untile")

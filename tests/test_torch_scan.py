@@ -43,8 +43,8 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from torch_parity import (SHADOW_KEY, assert_bits, assert_colour, blocker_scene,
-                          frame_scene, multimesh_scene, run_jax, scan_chain, scene_pass,
-                          stats_vector)
+                          frame_scene, launches, multimesh_scene, run_jax, scan_chain,
+                          scene_pass, stats_vector)
 from tinyrenderder_tpu_torch import animation, cli, convert, math3d, oracle, shadows
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.ops import raster, raster_tiled, semantics
@@ -577,7 +577,7 @@ def test_cuda_resolve_matches_plain(cuda_device, case):
     want = raster.depth_resolve_xla_plain(setup, req["h"], W, 8, init, y0=y0)
     dev = {k: v.to(cuda_device) for k, v in setup.items()}
     init_d = None if init is None else init.to(cuda_device)
-    before = raster.LAUNCHES, raster.STATS_LAUNCHES
+    before = launches("scan_resolve"), launches("scan_resolve_stats")
     got = raster.depth_resolve_xla(dev, req["h"], W, init_depth=init_d, y0=y0)
     init_e = init_d if init_d is not None else torch.full((req["h"], W), torch.inf,
                                                           device=cuda_device)
@@ -585,7 +585,7 @@ def test_cuda_resolve_matches_plain(cuda_device, case):
     ev_want = raster.pass_events_xla_plain(setup, init_e.cpu(), req["h"], W, y0=y0)
     torch.cuda.synchronize()
     launched = int(setup["valid"].shape[0] > 0)
-    assert (raster.LAUNCHES, raster.STATS_LAUNCHES) == (before[0] + launched,
+    assert (launches("scan_resolve"), launches("scan_resolve_stats")) == (before[0] + launched,
                                                         before[1] + launched)
     for g, w, what in zip((*got, *ev), (*want, *ev_want),
                           ("depth", "winner", "events depth", "events winner", "frags",

@@ -27,10 +27,11 @@ import torch
 
 import torch_parity as tp
 from helpers import default_view, make_pass, standard_meshes
-from torch_parity import SHADOW_KEY, assert_bits, blocker_scene, run_jax, stats_vector
+from torch_parity import (SHADOW_KEY, assert_bits, blocker_scene, launches, run_jax,
+                          stats_vector)
 from tinyrenderder_tpu import shadows as j_shadows
 from tinyrenderder_tpu_torch import convert, shaders, shadows
-from tinyrenderder_tpu_torch.ops import raster_coarse, raster_fine, raster_fine2, raster_sparse
+from tinyrenderder_tpu_torch.ops import raster_sparse
 
 W, H, S = 96, 72, 128
 MODES = ("coarse", "fine", "fine2")
@@ -342,13 +343,13 @@ def cuda_device():
 @pytest.mark.parametrize("mode", MODES)
 def test_cuda_frame_matches_oracle(port_oracle, cuda_device, mode, monkeypatch):
     monkeypatch.setattr(raster_sparse, "FINE_MODE", mode)
-    counters = {"coarse": raster_coarse, "fine": raster_fine, "fine2": raster_fine2}[mode]
-    before = counters.LAUNCHES, counters.STATS_LAUNCHES
+    entry = {"coarse": "coarse_raster", "fine": "fine_raster", "fine2": "fine2_raster"}[mode]
+    before = launches(entry), launches(f"{entry}_stats")
     result, smap = shadows.render_with_shadows(blocker_scene("port", W, H),
                                                _lights("port")[0],
                                                shadows.ShadowSettings(size=S), cuda_device)
     torch.cuda.synchronize()
-    assert counters.LAUNCHES > before[0] and counters.STATS_LAUNCHES > before[1]
+    assert launches(entry) > before[0] and launches(f"{entry}_stats") > before[1]
     ref, ref_map = port_oracle
     assert smap.device.type == "cuda"
     assert_bits(smap.cpu().numpy(), ref_map, "shadow map")

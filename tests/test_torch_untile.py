@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_bits, run_jax, scene_pass
+from torch_parity import assert_bits, launches, reset_launches, run_jax, scene_pass
 from tinyrenderder_tpu_torch import convert
 from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2, raster_sparse
 
@@ -186,13 +186,14 @@ def test_image_wrappers_validate_inputs():
 
 def test_cpu_image_stores_launch_no_kernel(frames):
     f = frames["th16_250x40"]
-    raster_sparse.LAUNCHES = raster_sparse.UNTILE3_LAUNCHES = 0
-    before = dict(raster_sparse.VARIANT_LAUNCHES)
+    reset_launches()
+    entries = ("untile_one", "untile_image", "untile3", "untile3_image")
+    before = {e: launches(e) for e in entries}
     planes = [torch.from_numpy(x) for x in f["planes"]]
     raster_sparse.untile_image(planes[0], None, *_dims(f), rgb=True)
     raster_sparse.untile3_image(*planes, *_dims(f))
-    assert raster_sparse.LAUNCHES == raster_sparse.UNTILE3_LAUNCHES == 0
-    assert raster_sparse.VARIANT_LAUNCHES == before
+    assert launches("untile_one", "untile_image") == launches("untile3", "untile3_image") == 0
+    assert {e: launches(e) for e in entries} == before
 
 
 # ---------------------------------------------------------------------------
@@ -225,12 +226,12 @@ def test_cuda_untile_image_matches_plain(cuda_device, name):
              ("every tile rgb", color, None, 0, True))
     for what, x, i, fill, rgb in cases:
         want = raster_sparse.untile_image_plain(x, i, *_dims(f), fill, rgb)
-        before = (raster_sparse.LAUNCHES, raster_sparse.VARIANT_LAUNCHES["untile_image"])
+        before = (launches("untile_one", "untile_image"), launches("untile_image"))
         got = raster_sparse.untile_image(x.to(cuda_device),
                                          None if i is None else i.to(cuda_device),
                                          *_dims(f), fill=fill, rgb=rgb)
         torch.cuda.synchronize()
-        assert (raster_sparse.LAUNCHES, raster_sparse.VARIANT_LAUNCHES["untile_image"]) == \
+        assert (launches("untile_one", "untile_image"), launches("untile_image")) == \
             (before[0] + 1, before[1] + 1)
         assert_bits(got.cpu().numpy(), want.numpy(), f"{name} {what}")
 
@@ -240,10 +241,10 @@ def test_cuda_untile_image_matches_plain(cuda_device, name):
 def test_cuda_untile3_image_matches_plain(cuda_device, name):
     f = _cuda_frame(name)
     planes = [torch.from_numpy(x) for x in f["planes"]]
-    before = (raster_sparse.UNTILE3_LAUNCHES, raster_sparse.VARIANT_LAUNCHES["untile3_image"])
+    before = (launches("untile3", "untile3_image"), launches("untile3_image"))
     got = raster_sparse.untile3_image(*(x.to(cuda_device) for x in planes), *_dims(f))
     torch.cuda.synchronize()
-    assert (raster_sparse.UNTILE3_LAUNCHES, raster_sparse.VARIANT_LAUNCHES["untile3_image"]) \
+    assert (launches("untile3", "untile3_image"), launches("untile3_image")) \
         == (before[0] + 1, before[1] + 1)
     for k, g, w in zip(("color", "depth", "winner"), got,
                        raster_sparse.untile3_image_plain(*planes, *_dims(f))):

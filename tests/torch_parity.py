@@ -269,6 +269,20 @@ def assert_colour(got, want, oracle, what=""):
     assert np.abs(got[off].astype(int) - want[off].astype(int)).max(initial=0) <= 1, what
 
 
+def launches(*entries: str) -> int:
+    """The port's launch counters of kernel entry points ``entries``
+    (``launch.<entry>`` in ``trace.counts()``), summed."""
+    from tinyrenderder_tpu_torch import trace
+    c = trace.counts()
+    return sum(c[f"launch.{e}"] for e in entries)
+
+
+def reset_launches() -> None:
+    """Set the port's counters, its launch counters among them, to 0."""
+    from tinyrenderder_tpu_torch import trace
+    trace.reset_counts()
+
+
 def spawn_ranks(fn, args: tuple, nprocs: int, timeout: float = 180.0) -> None:
     """``torch.multiprocessing.spawn(fn, args, nprocs)`` with a deadline: a
     rank that raises fails the caller, and ranks still running after

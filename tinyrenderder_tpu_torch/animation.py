@@ -39,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tinyrenderder_tpu_torch import math3d
+from tinyrenderder_tpu_torch import math3d, trace
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.ops import raster_sparse
 from tinyrenderder_tpu_torch.parallel import dist
@@ -150,35 +150,37 @@ def render_animation(scene: Scene, cfg: AnimationConfig,
     pending = None                       # (frame, host colour, event or None)
 
     def write(idx: int, color, event) -> None:
-        if event is not None:
-            event.synchronize()
-        path = os.path.join(cfg.outdir, cfg.frame_pattern % idx)
-        rgb = color.numpy() if isinstance(color, torch.Tensor) else color
-        tga.TGAImage.from_rgb(rgb).write_tga_file(path)
-        _save_checkpoint(cfg, idx + 1)
+        with trace.span("animation.write", idx):
+            if event is not None:
+                event.synchronize()
+            path = os.path.join(cfg.outdir, cfg.frame_pattern % idx)
+            rgb = color.numpy() if isinstance(color, torch.Tensor) else color
+            tga.TGAImage.from_rgb(rgb).write_tga_file(path)
+            _save_checkpoint(cfg, idx + 1)
 
     old_mode = raster_sparse.FINE_MODE
     try:
         if cfg.fine_mode is not None:
             raster_sparse.FINE_MODE = cfg.fine_mode
         for i in range(start_frame, end_frame):
-            angle = math.radians(cfg.orbit_degrees) * i / cfg.frames
-            scene.camera.set_eye(orbit_eye(base_eye, base_target, angle))
-            color = scene.render(cfg.device, cfg.frustum_cull, collect_stats=False,
-                                 backend=backend, mesh=mesh).color
-            rendered += 1
+            event = None
+            with trace.frame("animation.frame"):
+                angle = math.radians(cfg.orbit_degrees) * i / cfg.frames
+                scene.camera.set_eye(orbit_eye(base_eye, base_target, angle))
+                color = scene.render(cfg.device, cfg.frustum_cull, collect_stats=False,
+                                     backend=backend, mesh=mesh).color
+                rendered += 1
+                if writer and isinstance(color, torch.Tensor) and color.is_cuda:
+                    slot = (i - start_frame) % 2
+                    if host_bufs[slot] is None:
+                        host_bufs[slot] = torch.empty(color.shape, dtype=color.dtype,
+                                                      pin_memory=True)
+                    host_bufs[slot].copy_(color, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                    color = host_bufs[slot]
             if not writer:
                 continue
-            event = None
-            if isinstance(color, torch.Tensor) and color.is_cuda:
-                slot = (i - start_frame) % 2
-                if host_bufs[slot] is None:
-                    host_bufs[slot] = torch.empty(color.shape, dtype=color.dtype,
-                                                  pin_memory=True)
-                host_bufs[slot].copy_(color, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                color = host_bufs[slot]
             if pending is not None:
                 write(*pending)
             pending = (i, color, event)

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tinyrenderder_tpu_torch import trace
+
 
 def device_key(device) -> torch.device:
     """``device`` as a ``torch.device`` with its index: ``"cuda"`` is the
@@ -32,10 +34,16 @@ def device_key(device) -> torch.device:
 
 def to_torch(value, device):
     """One attribute or uniform: ndarray -> tensor on ``device``;
-    anything else (None, Python scalars) passes through."""
-    if isinstance(value, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(value)).to(device)
-    return value
+    anything else (None, Python scalars) passes through.  A copy onto a
+    card is counted as one ``upload`` and its ``upload_bytes``
+    (``trace``)."""
+    if not isinstance(value, np.ndarray):
+        return value
+    t = torch.from_numpy(np.ascontiguousarray(value)).to(device)
+    if t.is_cuda:
+        trace.count("upload")
+        trace.count("upload_bytes", t.nbytes)
+    return t
 
 
 def pass_to_torch(attrs: dict, uniforms: dict, device) -> tuple[dict, dict]:

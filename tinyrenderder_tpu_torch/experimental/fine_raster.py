@@ -47,14 +47,14 @@ import sys
 import numpy as np
 import torch
 
-from tinyrenderder_tpu_torch import _build, convert, math3d
+from tinyrenderder_tpu_torch import _build, convert, math3d, trace
 from tinyrenderder_tpu_torch.models import procedural
 from tinyrenderder_tpu_torch.ops import semantics
 from tinyrenderder_tpu_torch.ops.raster_coarse import split_walks, walk_items, walk_scratch
 from tinyrenderder_tpu_torch.ops.raster_tiled import (build_bins, cdiv, tile_pair_counts,
                                                       tile_spans, to_tiles, vertex_stage)
 
-__all__ = ["LAUNCHES", "STRIP_W", "STRIPS", "TILE_H", "TILE_W", "NFIELD",
+__all__ = ["STRIP_W", "STRIPS", "TILE_H", "TILE_W", "NFIELD",
            "build_strip_records", "range_rows", "strip_raster", "strip_raster_plain",
            "strip_raster_split_plain", "strip_rasterize", "tie_pile", "script_setups",
            "check_against_coarse", "main"]
@@ -65,8 +65,8 @@ TILE_H = 8
 TILE_W = STRIP_W * STRIPS       # 128
 NFIELD = 10                     # ax ay bx by cx cy z0 z1 z2 id
 
-#: kernel launches since the last reset (the CPU path does not count)
-LAUNCHES = 0
+# kernel launches are counted as launch.strip_raster_proto (``trace.count``;
+# the CPU path does not count)
 
 
 def build_strip_records(setup: dict, width: int, height: int):
@@ -128,7 +128,6 @@ def strip_raster(recs, rows, init_tiles, n_tiles_x: int, *, row_total: int | Non
     walk and the ordered merge, their grid and scratch sized from
     ``row_total``, which must be ``rows.sum()`` (as
     ``build_strip_records`` returns it; read back here when not given)."""
-    global LAUNCHES
     _check(recs, rows, init_tiles)
     if recs.device.type == "cpu":
         return strip_raster_plain(recs, rows, init_tiles, n_tiles_x)
@@ -146,11 +145,11 @@ def strip_raster(recs, rows, init_tiles, n_tiles_x: int, *, row_total: int | Non
             row_total = int(rows.sum())
         n_items = walk_items(g, row_total, r)
         scratch = walk_scratch(n_items, g, TILE_H, recs.device)
+    trace.count("launch.strip_raster_proto")
     _build.call("trt_strip_proto", recs.device,
                 recs.data_ptr(), rows.data_ptr(), g, max_rows, init_tiles.data_ptr(),
                 depth.data_ptr(), winner.data_ptr(), n_tiles_x, n_items,
                 None if scratch is None else scratch.data_ptr())
-    LAUNCHES += 1
     return depth, winner
 
 

@@ -39,17 +39,17 @@ import sys
 import numpy as np
 import torch
 
-from tinyrenderder_tpu_torch import _build
+from tinyrenderder_tpu_torch import _build, trace
 
-__all__ = ["LAUNCHES", "TH", "TW", "H", "W", "run", "launch", "run_plain", "dedup_ids",
+__all__ = ["TH", "TW", "H", "W", "run", "launch", "run_plain", "dedup_ids",
            "expected_image", "main"]
 
 #: the probe's blocks and image: 8 blocks of 16 x 128 in a 64 x 256 image
 TH, TW = 16, 128
 H, W = 4 * TH, 2 * TW
 
-#: kernel launches since the last reset (the CPU path does not count)
-LAUNCHES = 0
+# kernel launches are counted as launch.inplace_blocks (``trace.count``; the
+# CPU path does not count)
 
 
 def _grid(img, block) -> tuple[int, int, int, int]:
@@ -111,13 +111,12 @@ def run(img, ids, add, a_cap: int, block=(TH, TW)):
 def launch(img, ids, add, a_cap: int, bh: int, bw: int) -> None:
     """The kernel's launch alone on CUDA tensors ``run`` has checked: a
     Python ``add`` by value, a tensor one through its pointer."""
-    global LAUNCHES
     add_t = _add_tensor(add, img.device) if isinstance(add, torch.Tensor) else None
+    trace.count("launch.inplace_blocks")
     _build.call("trt_inplace_blocks", img.device, img.data_ptr(), ids.data_ptr(), ids.stride(0),
                 None if add_t is None else add_t.data_ptr(),
                 0.0 if add_t is not None else float(add), a_cap, img.shape[0], img.shape[1],
                 bh, bw)
-    LAUNCHES += 1
 
 
 def run_plain(img, ids, add, a_cap: int, block=(TH, TW)):

@@ -44,9 +44,9 @@ import sys
 import numpy as np
 import torch
 
-from tinyrenderder_tpu_torch import _build
+from tinyrenderder_tpu_torch import _build, trace
 
-__all__ = ["LAUNCHES", "S_CAP", "CHUNK", "ROWS_PAD", "COLS_PAD", "expand_slots",
+__all__ = ["S_CAP", "CHUNK", "ROWS_PAD", "COLS_PAD", "expand_slots",
            "check_domain", "ranges", "launch", "rank_pairs_kernel", "rank_pairs_plain",
            "reference_ranks", "synthetic_set", "pile_set", "main"]
 
@@ -62,8 +62,8 @@ COLS_PAD = 128     # counter table columns (strip-grid columns)
 MIN_RANGE, RANGE_ALIGN, RANGES_PER_SM, MAX_RANGES = 1024, 256, 3, 512
 WORK_PER_RANGE, DOMAIN_WORDS = ROWS_PAD * COLS_PAD + 8, 8
 
-#: kernel launches since the last reset (the CPU path does not count)
-LAUNCHES = 0
+# kernel launches are counted as launch.rank_pairs (``trace.count``; the CPU
+# path does not count)
 
 
 def expand_slots(tx0, ty0, span_x, spans):
@@ -139,15 +139,14 @@ def launch(tx0, ty0, span_x, spans, nsx: int):
     """The kernel's launches alone on CUDA tensors the caller has checked
     with ``_check_args`` (F > 0): -> (strips, ranks, domain), ``domain``
     the device's five-int domain word, not yet read."""
-    global LAUNCHES
     f, dev = tx0.shape[0], tx0.device
     g, r = ranges(f * S_CAP, _sm_count(dev))
     strips, ranks = torch.empty((2, f, S_CAP), dtype=torch.int32, device=dev)
     work = torch.empty(g * WORK_PER_RANGE + DOMAIN_WORDS, dtype=torch.int32, device=dev)
     args = [t.contiguous() for t in (tx0, ty0, span_x, spans)]
+    trace.count("launch.rank_pairs")
     _build.call("trt_rank_pairs", dev, *(t.data_ptr() for t in args), f, nsx, g, r,
                 work.data_ptr(), strips.data_ptr(), ranks.data_ptr())
-    LAUNCHES += 1
     return strips, ranks, work[g * WORK_PER_RANGE:g * WORK_PER_RANGE + 5]
 
 

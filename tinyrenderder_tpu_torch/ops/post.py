@@ -28,6 +28,8 @@ import math
 import numpy as np
 import torch
 
+from tinyrenderder_tpu_torch import trace
+
 __all__ = ["zbuffer_to_image", "ssao_map", "ssao_image", "composite", "postprocess",
            "oracle_post", "ssao_offsets", "AO_NUM_DIRECTIONS", "AO_STEPS_PER_DIRECTION",
            "AO_SAMPLE_RADIUS", "AO_OCCLUSION_THRESHOLD", "AO_INTENSITY"]
@@ -114,9 +116,10 @@ def composite(color, ao_u8):
 def postprocess(color_u8, depth):
     """(H, W, 3) uint8 colour and (H, W) f32 depth -> (zbuffer image,
     AO image, final composite), uint8 on the tensors' device."""
-    zimg = zbuffer_to_image(depth)
-    ao_u8 = ssao_image(ssao_map(depth))
-    return zimg, ao_u8, composite(color_u8, ao_u8)
+    with trace.span("post"):
+        zimg = zbuffer_to_image(depth)
+        ao_u8 = ssao_image(ssao_map(depth))
+        return zimg, ao_u8, composite(color_u8, ao_u8)
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tinyrenderder_tpu_torch import _build, shaders
+from tinyrenderder_tpu_torch import _build, shaders, trace
 from tinyrenderder_tpu_torch.ops import semantics
 from tinyrenderder_tpu_torch.ops.raster_coarse import GEOM, build_tri_records
 from tinyrenderder_tpu_torch.ops.raster_tiled import cdiv, vertex_stage
@@ -48,8 +48,7 @@ __all__ = ["BACKGROUND", "FrameBuffers", "PassEvents", "new_framebuffers", "pass
            "ScanGeometry", "SCAN_GEOMETRY", "kernel_geometry", "depth_resolve_xla",
            "depth_resolve_xla_plain", "pass_events_xla",
            "pass_events_xla_plain", "scan_super_lists_plain", "scan_block_lists_plain",
-           "scan_resolve_split_plain", "scan_lists", "shade_winners", "render_pass_xla",
-           "LAUNCHES", "STATS_LAUNCHES"]
+           "scan_resolve_split_plain", "scan_lists", "shade_winners", "render_pass_xla"]
 
 BACKGROUND = -1  # winner id for empty pixels
 
@@ -61,10 +60,9 @@ _SPLIT_STEP = 32
 _INT32_MAX = 2**31 - 1
 _INT32_MIN = -2**31
 
-#: user calls that launched the resolve kernel since the last reset (the CPU
-#: path does not count), without and with the z-pass events
-LAUNCHES = 0
-STATS_LAUNCHES = 0
+# user calls that launch the resolve kernel are counted (``trace.count``,
+# the CPU path does not count) as launch.scan_resolve and
+# launch.scan_resolve_stats, without and with the z-pass events
 
 
 class ScanGeometry(NamedTuple):
@@ -125,9 +123,8 @@ def pass_stats(setup: dict) -> dict:
     none = torch.tensor([[_INT32_MAX, _INT32_MIN, _INT32_MAX, _INT32_MIN]],
                         dtype=torch.int64, device=bbox.device)
     b = torch.cat([torch.where(valid[:, None], bbox, none), none])
-    min_x, max_x, min_y, max_y, n_valid = torch.stack(
-        [b[:, 0].amin(), b[:, 1].amax(), b[:, 2].amin(), b[:, 3].amax(),
-         valid.sum()]).tolist()
+    min_x, max_x, min_y, max_y, n_valid = trace.readback(torch.stack(
+        [b[:, 0].amin(), b[:, 1].amax(), b[:, 2].amin(), b[:, 3].amax(), valid.sum()]))
     return dict(min_x=min_x, max_x=max_x, min_y=min_y, max_y=max_y,
                 triangles=int(valid.shape[0]), valid_triangles=n_valid)
 
@@ -414,12 +411,13 @@ def _check_plane(name: str, t, dtype, shape, device) -> None:
 
 
 def _launch(setup: dict, height: int, width: int, init_depth, init_winner, x0: int,
-            y0: int, stats: bool, with_lists: bool = False):
+            y0: int, stats: bool, with_lists: bool = False, counter: str | None = None):
     """The four launches of ``csrc/scan_resolve.cu`` on CUDA tensors ->
     (depth, winner[, (event count (1,) int32, largest event z (1,) f32)]
     [, (list lengths (S,), super-block lists (S, F, 2))]).  The workspace
     (the counts and the lists, each sized for every triangle) comes from
-    the shapes alone: nothing is read back."""
+    the shapes alone: nothing is read back.  The call is counted as
+    ``counter`` unless it is None."""
     dev = setup["screen"].device
     if dev.type != "cuda":
         raise ValueError(f"no scan resolve for device {dev}")
@@ -435,6 +433,8 @@ def _launch(setup: dict, height: int, width: int, init_depth, init_winner, x0: i
     winner = torch.empty((height, width), dtype=torch.int32, device=dev)
     ev = ((torch.zeros(1, dtype=torch.int32, device=dev),
            torch.full((1,), -torch.inf, dtype=torch.float32, device=dev)) if stats else None)
+    if counter is not None:
+        trace.count(counter)
     _build.call("trt_scan_resolve", dev, rec.data_ptr(), GEOM, valid.data_ptr(), f, height,
                 width, int(x0), int(y0),
                 None if init_depth is None else init_depth.data_ptr(),
@@ -461,15 +461,13 @@ def depth_resolve_xla(setup: dict, height: int, width: int, chunk: int = 8,
     winner).  CPU tensors take the plain scan (``depth_resolve_xla_plain``
     in chunks of ``chunk``); CUDA tensors launch the kernel, whose result
     is the scan's for every ``chunk``."""
-    global LAUNCHES
     if setup["screen"].device.type == "cpu":
         return depth_resolve_xla_plain(setup, height, width, chunk, init_depth, init_winner,
                                        x0, y0)
     if setup["valid"].shape[0] == 0:
         return _init_buffers(height, width, setup["screen"].device, init_depth, init_winner)
-    out = _launch(setup, height, width, init_depth, init_winner, x0, y0, False)
-    LAUNCHES += 1
-    return out
+    return _launch(setup, height, width, init_depth, init_winner, x0, y0, False,
+                   counter="launch.scan_resolve")
 
 
 def pass_events_xla(setup: dict, init_depth, height: int, width: int, chunk: int = 8,
@@ -478,7 +476,6 @@ def pass_events_xla(setup: dict, init_depth, height: int, width: int, chunk: int
     contract) -> (depth, winner, frags int32, min_z, max_z).  CPU tensors
     take the plain scan; CUDA tensors launch the kernel with its event
     sums (the same depth and winner as ``depth_resolve_xla``)."""
-    global STATS_LAUNCHES
     dev = setup["screen"].device
     if dev.type == "cpu":
         return pass_events_xla_plain(setup, init_depth, height, width, chunk, x0, y0)
@@ -487,8 +484,7 @@ def pass_events_xla(setup: dict, init_depth, height: int, width: int, chunk: int
         return (depth, winner, torch.zeros((), dtype=torch.int32, device=dev),
                 torch.tensor(torch.inf, device=dev), torch.tensor(-torch.inf, device=dev))
     depth, winner, (count, max_z) = _launch(setup, height, width, init_depth, None, x0, y0,
-                                            True)
-    STATS_LAUNCHES += 1
+                                            True, counter="launch.scan_resolve_stats")
     min_z = torch.where(winner >= 0, depth, torch.inf).amin()
     return depth, winner, count[0], min_z, max_z[0]
 
@@ -542,17 +538,20 @@ def render_pass_xla(fb: FrameBuffers, attrs: dict, shader, uniforms: dict,
     FrameBuffers, the pass's setup, ``PassEvents`` with ``collect_stats``
     (one resolve with the event sums) or None)."""
     height, width = fb.color.shape[:2]
-    setup, varyings = vertex_stage(attrs, uniforms, shader, width, height)
+    with trace.span("pass.pre"):
+        setup, varyings = vertex_stage(attrs, uniforms, shader, width, height)
     events = None
-    if collect_stats:
-        depth, winner_local, frags, min_z, max_z = pass_events_xla(setup, fb.depth, height,
-                                                                   width, chunk)
-        events = PassEvents(setup, frags.to(torch.int64), min_z, max_z)
-    else:
-        depth, winner_local = depth_resolve_xla(setup, height, width, chunk,
-                                                init_depth=fb.depth)
-    won = winner_local >= 0
-    winner = torch.where(won, winner_local + winner_offset, fb.winner)
-    color = (shade_winners(fb.color, winner_local, setup, varyings, shader, uniforms, height,
-                           width) if shader.writes_color else fb.color)
+    with trace.span("pass.raster"):
+        if collect_stats:
+            depth, winner_local, frags, min_z, max_z = pass_events_xla(setup, fb.depth, height,
+                                                                       width, chunk)
+            events = PassEvents(setup, frags.to(torch.int64), min_z, max_z)
+        else:
+            depth, winner_local = depth_resolve_xla(setup, height, width, chunk,
+                                                    init_depth=fb.depth)
+    with trace.span("pass.merge_shade"):
+        won = winner_local >= 0
+        winner = torch.where(won, winner_local + winner_offset, fb.winner)
+        color = (shade_winners(fb.color, winner_local, setup, varyings, shader, uniforms,
+                               height, width) if shader.writes_color else fb.color)
     return FrameBuffers(color, depth, winner), setup, events

@@ -51,12 +51,11 @@ from __future__ import annotations
 
 import torch
 
-from tinyrenderder_tpu_torch import _build
+from tinyrenderder_tpu_torch import _build, trace
 from tinyrenderder_tpu_torch.ops import semantics
 from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_H, TILE_W, Bins, to_tiles
 
-__all__ = ["GEOM", "MAX_VARY", "SUB", "LAUNCHES", "STATS_LAUNCHES", "DENSE_LAUNCHES",
-           "build_tri_records", "check_inputs", "check_tensors", "coarse_raster",
+__all__ = ["GEOM", "MAX_VARY", "SUB", "build_tri_records", "check_inputs", "check_tensors", "coarse_raster",
            "coarse_raster_plain", "coarse_raster_split_plain", "split_walks", "walk_items",
            "walk_scratch", "dense_raster", "rasterize", "depth_resolve", "tile_pixels",
            "interpolate_winners"]
@@ -66,13 +65,11 @@ MAX_VARY = 36        # the reference's record limit, (128 - 20) // 3
 SUB = 16             # pairs per vector step of the plain version
 TILE_CHUNK = 64      # tiles per step of the plain version (bounds memory)
 
-#: user calls that launched the kernels since the last reset (the CPU path
-#: does not count), over active tiles without and with the event planes,
-#: and over every tile (``dense_raster``); a call launches three kernels,
-#: four with the event planes (``csrc/raster_coarse.cu``)
-LAUNCHES = 0
-STATS_LAUNCHES = 0
-DENSE_LAUNCHES = 0
+# user calls that launch the kernels are counted (``trace.count``, the CPU
+# path does not count) as launch.coarse_raster, launch.coarse_raster_stats
+# (active tiles, without and with the event planes) and launch.dense_raster
+# (every tile); a call launches three kernels, four with the event planes
+# (``csrc/raster_coarse.cu``)
 
 
 def build_tri_records(setup: dict, vary_corners=None) -> torch.Tensor:
@@ -132,7 +129,6 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
     Returns (depth, winner, vary), and ev as a fourth item with
     ``collect_stats``.  CPU tensors take the plain version; CUDA tensors
     launch the kernel."""
-    global LAUNCHES, STATS_LAUNCHES
     if sorted_tri.dim() != 1:
         raise ValueError("sorted_tri must be 1-D")
     check_inputs(tri_rec, sorted_tri, tile_ids, start, count, init_depth, tile_h,
@@ -141,14 +137,10 @@ def coarse_raster(tri_rec, sorted_tri, tile_ids, start, count, init_depth,
         return coarse_raster_plain(tri_rec, sorted_tri, tile_ids, start, count,
                                    init_depth, n_tiles_x, tile_h, tile_w,
                                    n_vary, origin, collect_stats, y_stride)
-    out = _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x,
-                  tile_h, tile_w, n_vary, origin, collect_stats, y_stride)
-    if count.shape[0]:
-        if collect_stats:
-            STATS_LAUNCHES += 1
-        else:
-            LAUNCHES += 1
-    return out
+    return _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x,
+                   tile_h, tile_w, n_vary, origin, collect_stats, y_stride,
+                   counter="launch.coarse_raster_stats" if collect_stats
+                   else "launch.coarse_raster")
 
 
 def walk_items(n_blocks: int, n_steps: int, range_len: int) -> int:
@@ -168,11 +160,11 @@ def walk_scratch(n_items: int, n_blocks: int, tile_h: int, device) -> torch.Tens
 
 def _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x: int,
             tile_h: int, tile_w: int, n_vary: int, origin, collect_stats: bool,
-            y_stride: int | None = None):
+            y_stride: int | None = None, *, counter: str):
     """Launch the kernels on CUDA tensors (the item scan, the split walk,
     the ordered merge and, with ``collect_stats``, the events walk): block
     a's bin is on tile ``tile_ids[a]`` or, with ``tile_ids`` None, on tile
-    a.  No entries, no launch."""
+    a.  No entries, no launch; a launch is counted as ``counter``."""
     if tri_rec.device.type != "cuda":
         raise ValueError(f"no coarse raster for device {tri_rec.device}")
     if tile_w != 128 or tile_h not in (16, 32):
@@ -190,6 +182,7 @@ def _launch(tri_rec, sorted_tri, tile_ids, start, count, init_depth, n_tiles_x: 
         return out
     n_items = walk_items(a, sorted_tri.shape[0], _build.constant("trt_coarse_range_pairs"))
     scratch = walk_scratch(n_items, a, tile_h, tri_rec.device)
+    trace.count(counter)
     _build.call("trt_coarse_raster", tri_rec.device,
                 tri_rec.data_ptr(), tri_rec.shape[1], sorted_tri.data_ptr(),
                 None if tile_ids is None else tile_ids.data_ptr(), start.data_ptr(),
@@ -209,7 +202,6 @@ def dense_raster(tri_rec, sorted_tri, start, count, init_tiles, n_tiles_x: int,
     vary) for all T tiles; an empty tile gives its init depth, winner -1
     and zero varyings.  CPU tensors take the plain version over tile ids
     0 .. T - 1; CUDA tensors launch the kernel with no tile list."""
-    global DENSE_LAUNCHES
     t = count.shape[0]
     check_tensors(tri_rec, n_vary, (
         ("sorted_tri", sorted_tri, torch.int32, (sorted_tri.shape[0],)),
@@ -220,11 +212,8 @@ def dense_raster(tri_rec, sorted_tri, start, count, init_tiles, n_tiles_x: int,
         ids = torch.arange(t, dtype=torch.int32)
         return coarse_raster_plain(tri_rec, sorted_tri, ids, start, count, init_tiles,
                                    n_tiles_x, tile_h, tile_w, n_vary, origin)
-    out = _launch(tri_rec, sorted_tri, None, start, count, init_tiles, n_tiles_x,
-                  tile_h, tile_w, n_vary, origin, False)
-    if t:
-        DENSE_LAUNCHES += 1
-    return out
+    return _launch(tri_rec, sorted_tri, None, start, count, init_tiles, n_tiles_x,
+                   tile_h, tile_w, n_vary, origin, False, counter="launch.dense_raster")
 
 
 def rasterize(setup: dict, bins: Bins, init_depth, height: int, width: int,

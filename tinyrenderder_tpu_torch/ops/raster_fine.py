@@ -46,7 +46,7 @@ from typing import NamedTuple
 
 import torch
 
-from tinyrenderder_tpu_torch import _build
+from tinyrenderder_tpu_torch import _build, trace
 from tinyrenderder_tpu_torch.ops import semantics
 from tinyrenderder_tpu_torch.ops.raster_coarse import (GEOM, build_tri_records,
                                                        check_inputs, interpolate_winners,
@@ -57,7 +57,7 @@ from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, acti
                                                       shader_varyings, tile_pair_counts,
                                                       vertex_stage)
 
-__all__ = ["STRIP_W", "STRIPS", "MAX_VARY", "LAUNCHES", "STATS_LAUNCHES", "PreFine",
+__all__ = ["STRIP_W", "STRIPS", "MAX_VARY", "PreFine",
            "pre_fine", "range_rows", "fine_raster", "fine_raster_plain",
            "fine_raster_split_plain", "strip_raster_plain", "strip_raster_split_plain"]
 
@@ -69,10 +69,9 @@ MAX_VARY = 15
 SUB_ROWS = 8                     # slot rows per step of the plain version
 TILE_CHUNK = 64                  # tiles per step of the plain version (bounds memory)
 
-#: wrapper calls that launched the kernels since the last reset (the CPU
-#: path does not count), without and with the event planes
-LAUNCHES = 0
-STATS_LAUNCHES = 0
+# wrapper calls that launch the kernels are counted (``trace.count``, the
+# CPU path does not count) as launch.fine_raster and launch.fine_raster_stats,
+# without and with the event planes
 
 
 class PreFine(NamedTuple):
@@ -107,8 +106,8 @@ def pre_fine(attrs: dict, uniforms: dict, shader, width: int, height: int,
     dev = setup["bbox"].device
     per_strip = tile_pair_counts(tx0, ty0, span_x, span_y, n_strips_x, n_tiles_y)
     rows_t = per_strip.view(n_tiles, STRIPS).amax(dim=1)
-    pairs, row_total, n_active, max_rows = torch.stack(
-        [per_strip.sum(), rows_t.sum(), (rows_t > 0).sum(), rows_t.max()]).tolist()
+    pairs, row_total, n_active, max_rows = trace.readback(torch.stack(
+        [per_strip.sum(), rows_t.sum(), (rows_t > 0).sum(), rows_t.max()]))
     sorted_tri, start, counts = build_bins(tx0, ty0, span_x, spans, pairs,
                                            n_strips_x, n_tiles_y)
     row_start_t = torch.cumsum(rows_t, 0, dtype=torch.int32) - rows_t
@@ -148,7 +147,6 @@ def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x:
     than a range, the walk alone.  ``y_stride`` (default ``tile_h``):
     global pixel rows from one tile row to the next, as in
     ``coarse_raster``."""
-    global LAUNCHES, STATS_LAUNCHES
     if tri8.dim() != 2 or tri8.shape[1] != STRIPS:
         raise ValueError(f"tri8 must be (R, {STRIPS}), got {tuple(tri8.shape)}")
     check_inputs(tri_rec, tri8, tile_ids, row_start, rows, init_depth, tile_h, tile_w,
@@ -179,6 +177,7 @@ def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x:
     else:
         n_items = walk_items(a, tri8.shape[0], r)
         scratch = walk_scratch(n_items, a, tile_h, dev)
+    trace.count("launch.fine_raster_stats" if collect_stats else "launch.fine_raster")
     _build.call("trt_fine_raster", dev,
                 tri_rec.data_ptr(), tri_rec.shape[1], tri8.data_ptr(), tile_ids.data_ptr(),
                 row_start.data_ptr(), rows.data_ptr(), a, int(origin[0]), int(origin[1]), n_tiles_x,
@@ -187,10 +186,6 @@ def fine_raster(tri_rec, tri8, tile_ids, row_start, rows, init_depth, n_tiles_x:
                 vary.data_ptr() if n_vary else None, ev[0].data_ptr() if ev else None,
                 ev[1].data_ptr() if ev else None, n_items,
                 None if scratch is None else scratch.data_ptr())
-    if collect_stats:
-        STATS_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
     return out
 
 

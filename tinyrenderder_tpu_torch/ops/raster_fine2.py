@@ -65,7 +65,7 @@ from typing import NamedTuple
 
 import torch
 
-from tinyrenderder_tpu_torch import _build
+from tinyrenderder_tpu_torch import _build, trace
 from tinyrenderder_tpu_torch.ops.raster_coarse import (build_tri_records, check_tensors,
                                                        walk_items, walk_scratch)
 from tinyrenderder_tpu_torch.ops.raster_fine import (STRIP_W, STRIPS, strip_raster_plain,
@@ -75,15 +75,14 @@ from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, acti
                                                       shader_varyings, tile_pair_counts,
                                                       tile_spans, vertex_stage)
 
-__all__ = ["LAUNCHES", "STATS_LAUNCHES", "PreFine2", "pre_fine2", "probe_rows",
+__all__ = ["PreFine2", "pre_fine2", "probe_rows",
            "fine2_raster", "fine2_raster_plain", "fine2_raster_split_plain", "init_strips",
            "post_fine2", "post_fine2_image"]
 
-#: user calls that launched the kernels since the last reset (the CPU path
-#: does not count), without and with the event planes; a call launches
-#: three kernels, four with the event planes (``csrc/raster_fine2.cu``)
-LAUNCHES = 0
-STATS_LAUNCHES = 0
+# user calls that launch the kernels are counted (``trace.count``, the CPU
+# path does not count) as launch.fine2_raster and launch.fine2_raster_stats,
+# without and with the event planes; a call launches three kernels, four
+# with the event planes (``csrc/raster_fine2.cu``)
 
 
 class PreFine2(NamedTuple):
@@ -136,8 +135,8 @@ def pre_fine2(attrs: dict, uniforms: dict, shader, width: int, height: int,
     group_rows = counts[order][0::STRIPS]                                 # descending
     counts8 = counts.view(n_tiles, STRIPS)
     active = counts8.amax(dim=1) > 0
-    pairs, row_total, n_groups, n_active = torch.stack(
-        [counts.sum(), group_rows.sum(), (group_rows > 0).sum(), active.sum()]).tolist()
+    pairs, row_total, n_groups, n_active = trace.readback(torch.stack(
+        [counts.sum(), group_rows.sum(), (group_rows > 0).sum(), active.sum()]))
     sorted_tri, start, _ = build_bins(*spans, pairs, n_tiles_x * STRIPS, n_tiles_y)
     group_start = torch.cumsum(group_rows, 0, dtype=torch.int32) - group_rows
     rank_of = torch.empty_like(order)
@@ -186,8 +185,9 @@ def probe_rows(attrs: dict, uniforms: dict, shader, width: int, height: int,
     rows_t = counts.view(-1, STRIPS).amax(dim=1)
     group_rows = torch.sort(counts, descending=True).values[0::STRIPS]
     pairs = tile_spans(setup, tile_w, tile_h)[4].sum()
-    return ProbeRows(*torch.stack([rows_t.sum(), group_rows.sum(), (group_rows > 0).sum(),
-                                   (rows_t > 0).sum(), pairs.to(torch.int64)]).tolist())
+    return ProbeRows(*trace.readback(torch.stack([rows_t.sum(), group_rows.sum(),
+                                                  (group_rows > 0).sum(), (rows_t > 0).sum(),
+                                                  pairs.to(torch.int64)])))
 
 
 def _check(tri_rec, tri8, group_start, group_rows, x0y0, init_depth, tile_h: int,
@@ -208,7 +208,6 @@ def fine2_raster(tri_rec, tri8, group_start, group_rows, x0y0, tile_h: int, n_va
     docstring).  Returns (depth, winner, vary), and ev as a fourth item
     with ``collect_stats``.  CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
-    global LAUNCHES, STATS_LAUNCHES
     _check(tri_rec, tri8, group_start, group_rows, x0y0, init_depth, tile_h, n_vary)
     if tri_rec.device.type == "cpu":
         return fine2_raster_plain(tri_rec, tri8, group_start, group_rows, x0y0, tile_h,
@@ -228,6 +227,7 @@ def fine2_raster(tri_rec, tri8, group_start, group_rows, x0y0, tile_h: int, n_va
         return out
     n_items = walk_items(g, tri8.shape[0], _build.constant("trt_fine2_range_rows"))
     scratch = walk_scratch(n_items, g, tile_h, dev)
+    trace.count("launch.fine2_raster_stats" if collect_stats else "launch.fine2_raster")
     _build.call("trt_fine2_raster", dev,
                 tri_rec.data_ptr(), tri_rec.shape[1], tri8.data_ptr(), group_start.data_ptr(),
                 group_rows.data_ptr(), x0y0.data_ptr(), g, int(origin[0]), int(origin[1]), tile_h,
@@ -235,10 +235,6 @@ def fine2_raster(tri_rec, tri8, group_start, group_rows, x0y0, tile_h: int, n_va
                 depth.data_ptr(), winner.data_ptr(), vary.data_ptr() if n_vary else None,
                 ev[0].data_ptr() if ev else None, ev[1].data_ptr() if ev else None, n_items,
                 scratch.data_ptr())
-    if collect_stats:
-        STATS_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
     return out
 
 

@@ -39,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from tinyrenderder_tpu_torch import _build, shaders
+from tinyrenderder_tpu_torch import _build, shaders, trace
 from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2
 from tinyrenderder_tpu_torch.ops.raster import BACKGROUND, FrameBuffers, PassEvents
 from tinyrenderder_tpu_torch.ops.raster_coarse import build_tri_records, coarse_raster
@@ -54,16 +54,12 @@ __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
            "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
            "shade_compact_fresh", "compact_to_image", "post_sparse",
            "PassEvents", "reduce_events", "FINE_MODE", "DEPTH_ONLY_MODE", "decide_mode",
-           "raster_pass", "grouped_pass", "render_frame_fused", "render_frame_fused_image",
-           "LAUNCHES", "UNTILE3_LAUNCHES", "VARIANT_LAUNCHES"]
+           "raster_pass", "grouped_pass", "render_frame_fused", "render_frame_fused_image"]
 
-#: untile launches since the last reset (the CPU path does not count):
-#: every launch of the single-plane kernel (``untile_one``, ``untile_image``)
-#: and of the three-plane kernel (``untile3``, ``untile3_image``)
-LAUNCHES = 0
-UNTILE3_LAUNCHES = 0
-#: the same launches by entry point, so that a run shows which store ran
-VARIANT_LAUNCHES = dict.fromkeys(("untile_one", "untile_image", "untile3", "untile3_image"), 0)
+# untile launches are counted by entry point (``trace.count``, the CPU path
+# does not count): launch.untile_one and launch.untile_image launch the
+# single-plane kernel, launch.untile3 and launch.untile3_image the
+# three-plane kernel
 
 #: frames at or above this pixel count use 32-row tiles (the reference's
 #: TPU-tuned threshold; the frame does not depend on the tiling)
@@ -124,15 +120,6 @@ def _on_cuda(device, tile_w: int, *xs) -> bool:
     return True
 
 
-def _counted(variant: str) -> None:
-    global LAUNCHES, UNTILE3_LAUNCHES
-    if variant.startswith("untile3"):
-        UNTILE3_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    VARIANT_LAUNCHES[variant] += 1
-
-
 def untile_one(x, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int):
     """One 32-bit tile plane -> image layout.  CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
@@ -143,9 +130,9 @@ def untile_one(x, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: int):
         return untile_one_plain(x, n_tiles_x, n_tiles_y, tile_h, tile_w)
     out = torch.empty((n_tiles_y * tile_h, n_tiles_x * tile_w), dtype=x.dtype,
                       device=x.device)
+    trace.count("launch.untile_one")
     _build.call("trt_untile32", x.device,
                 x.data_ptr(), out.data_ptr(), n_tiles_x, n_tiles_y, tile_h, tile_w)
-    _counted("untile_one")
     return out
 
 
@@ -194,11 +181,11 @@ def untile_image(x, ids, n_tiles_x: int, n_tiles_y: int, tile_h: int, tile_w: in
                                   width, fill, rgb)
     out = torch.empty((height, width, 3) if rgb else (height, width),
                       dtype=torch.uint8 if rgb else x.dtype, device=x.device)
+    trace.count("launch.untile_image")
     _build.call("trt_untile_image", x.device,
                 x.data_ptr(), None if ids is None else ids.data_ptr(), n, out.data_ptr(),
                 n_tiles_x, n_tiles_y, tile_h, tile_w, height, width,
                 _fill_bits(fill, x.dtype), int(rgb))
-    _counted("untile_image")
     return out
 
 
@@ -230,10 +217,10 @@ def untile3(color, depth, winner, n_tiles_x: int, n_tiles_y: int, tile_h: int,
     c, d, w = torch.empty((3, n_tiles_y * tile_h, n_tiles_x * tile_w), dtype=torch.int32,
                           device=color.device).unbind(0)
     outs = (c, d.view(torch.float32), w)
+    trace.count("launch.untile3")
     _build.call("trt_untile3", color.device,
                 color.data_ptr(), depth.data_ptr(), winner.data_ptr(),
                 *(o.data_ptr() for o in outs), n_tiles_x, n_tiles_y, tile_h, tile_w)
-    _counted("untile3")
     return outs
 
 
@@ -261,11 +248,11 @@ def untile3_image(color, depth, winner, n_tiles_x: int, n_tiles_y: int, tile_h: 
     d, w = torch.empty((2, height, width), dtype=torch.int32, device=dev).unbind(0)
     outs = (torch.empty((height, width, 3), dtype=torch.uint8, device=dev),
             d.view(torch.float32), w)
+    trace.count("launch.untile3_image")
     _build.call("trt_untile3_image", dev,
                 color.data_ptr(), depth.data_ptr(), winner.data_ptr(),
                 *(o.data_ptr() for o in outs), n_tiles_x, n_tiles_y, tile_h, tile_w,
                 height, width)
-    _counted("untile3_image")
     return outs
 
 
@@ -332,7 +319,7 @@ def pre_sparse(attrs: dict, uniforms: dict, shader, width: int, height: int,
     (tx0, ty0, span_x, span_y, spans), (n_tiles_x, n_tiles_y) = band_spans(
         setup, tile_w, tile_h, width, height, band)
     per_tile = tile_pair_counts(tx0, ty0, span_x, span_y, n_tiles_x, n_tiles_y)
-    total, n_active = torch.stack([per_tile.sum(), (per_tile > 0).sum()]).tolist()
+    total, n_active = trace.readback(torch.stack([per_tile.sum(), (per_tile > 0).sum()]))
     sorted_tri, start, counts = build_bins(tx0, ty0, span_x, spans, total,
                                            n_tiles_x, n_tiles_y)
     tri_rec = build_tri_records(setup, shader_varyings(varyings, shader))
@@ -457,13 +444,15 @@ def decide_mode(attrs: dict, uniforms: dict, shader, width: int, height: int,
     key = (f, n_tiles_x, n_tiles_y, tile_h, tile_w, shader.writes_color, n_vary,
            DEPTH_ONLY_MODE if depth_only else "")
     mode = _FINE_DECISION.get(key)
+    trace.count("cache.mode.miss" if mode is None else "cache.mode.hit")
     if mode is None:
         mode = "coarse"
         if ((FINE_RATIO is not None or FINE2_RATIO is not None) and f >= FINE_MIN_FACES
                 and n_vary <= raster_fine.MAX_VARY and tile_w == TILE_W
                 and not (depth_only and DEPTH_ONLY_MODE == "coarse")):
-            p = raster_fine2.probe_rows(attrs, uniforms, shader, width, height, tile_h,
-                                        tile_w)
+            with trace.span("pass.pre"):
+                p = raster_fine2.probe_rows(attrs, uniforms, shader, width, height, tile_h,
+                                            tile_w)
             if FINE2_RATIO is not None and p.grouped_rows <= FINE2_RATIO * p.rows:
                 if p.grouped_rows <= 0.45 * p.pairs:
                     mode = "fine2"
@@ -486,17 +475,21 @@ def raster_pass(mode: str, attrs: dict, uniforms: dict, shader, width: int, heig
     place = ({"origin": band.origin(tile_h, tile_w), "y_stride": band.y_stride(tile_h)}
              if band else {})
     if mode == "fine":
-        pre = raster_fine.pre_fine(attrs, uniforms, shader, width, height, tile_h, tile_w,
-                                   band)
-        out = raster_fine.fine_raster(pre.tri_rec, pre.tri8, pre.ids, pre.row_start,
-                                      pre.rows, init_depth(pre.ids), n_tiles_x, tile_h,
-                                      tile_w, n_vary, collect_stats=collect_stats,
-                                      max_rows=pre.max_rows, **place)
+        with trace.span("pass.pre"):
+            pre = raster_fine.pre_fine(attrs, uniforms, shader, width, height, tile_h, tile_w,
+                                       band)
+        with trace.span("pass.raster"):
+            out = raster_fine.fine_raster(pre.tri_rec, pre.tri8, pre.ids, pre.row_start,
+                                          pre.rows, init_depth(pre.ids), n_tiles_x, tile_h,
+                                          tile_w, n_vary, collect_stats=collect_stats,
+                                          max_rows=pre.max_rows, **place)
     else:
-        pre = pre_sparse(attrs, uniforms, shader, width, height, tile_h, tile_w, band)
-        out = coarse_raster(pre.tri_rec, pre.sorted_tri, pre.ids, pre.start, pre.counts,
-                            init_depth(pre.ids), n_tiles_x, tile_h, tile_w, n_vary,
-                            collect_stats=collect_stats, **place)
+        with trace.span("pass.pre"):
+            pre = pre_sparse(attrs, uniforms, shader, width, height, tile_h, tile_w, band)
+        with trace.span("pass.raster"):
+            out = coarse_raster(pre.tri_rec, pre.sorted_tri, pre.ids, pre.start, pre.counts,
+                                init_depth(pre.ids), n_tiles_x, tile_h, tile_w, n_vary,
+                                collect_stats=collect_stats, **place)
     return pre.ids, pre.setup, out
 
 
@@ -507,12 +500,14 @@ def grouped_pass(attrs: dict, uniforms: dict, shader, width: int, height: int,
     every tile or over ``band``'s window: -> (the ``raster_fine2.PreFine2``,
     its group-space outputs).  Pass-local, or seeded with the frame's
     ``depth_tiles`` (T, th, 128) when given."""
-    pre = raster_fine2.pre_fine2(attrs, uniforms, shader, width, height, tile_h, band=band)
-    init = None if depth_tiles is None else raster_fine2.init_strips(depth_tiles, pre)
-    out = raster_fine2.fine2_raster(pre.tri_rec, pre.tri8, pre.group_start, pre.group_rows,
-                                    pre.x0y0, tile_h, n_vary_of(shader), init,
-                                    origin=band.origin(tile_h, TILE_W) if band else (0, 0),
-                                    collect_stats=collect_stats)
+    with trace.span("pass.pre"):
+        pre = raster_fine2.pre_fine2(attrs, uniforms, shader, width, height, tile_h, band=band)
+    with trace.span("pass.raster"):
+        init = None if depth_tiles is None else raster_fine2.init_strips(depth_tiles, pre)
+        out = raster_fine2.fine2_raster(pre.tri_rec, pre.tri8, pre.group_start,
+                                        pre.group_rows, pre.x0y0, tile_h, n_vary_of(shader),
+                                        init, origin=band.origin(tile_h, TILE_W) if band
+                                        else (0, 0), collect_stats=collect_stats)
     return pre, out
 
 
@@ -556,25 +551,29 @@ def render_frame_fused_image(passes, width: int, height: int,
     if mode == "fine2":
         pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h, band=band)
         ids = pre.ids
-        c_img, depth_c = raster_fine2.post_fine2_image(
-            pre, out, lambda v: _shade_packed(v, uniforms, shader))
+        with trace.span("pass.merge_shade"):
+            c_img, depth_c = raster_fine2.post_fine2_image(
+                pre, out, lambda v: _shade_packed(v, uniforms, shader))
     else:
         ids, _, (depth_c, winner_c, vary_c) = raster_pass(
             mode, attrs, uniforms, shader, width, height, tile_h, tile_w,
             lambda ids: torch.full((ids.shape[0], tile_h, tile_w), torch.inf,
                                    dtype=torch.float32, device=ids.device), band=band)
-        c_img = shade_compact_fresh(winner_c, vary_c, uniforms, shader)
-    image = untile_image(c_img, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, *crop, rgb=True)
-    if not return_depth:
-        return image
-    return image, untile_image(depth_c, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, *crop,
-                               fill=torch.inf)
+        with trace.span("pass.merge_shade"):
+            c_img = shade_compact_fresh(winner_c, vary_c, uniforms, shader)
+    with trace.span("frame.untile"):
+        image = untile_image(c_img, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, *crop,
+                             rgb=True)
+        if not return_depth:
+            return image
+        return image, untile_image(depth_c, ids, n_tiles_x, n_tiles_y, tile_h, tile_w, *crop,
+                                   fill=torch.inf)
 
 
 def render_frame_fused(passes, width: int, height: int, device,
                        tile_h: int = TILE_H, tile_w: int = TILE_W,
                        collect_stats: bool = False, band: Band | None = None,
-                       seconds: list | None = None):
+                       seconds: list | None = None, names: list | None = None):
     """Render a multi-pass frame in tiled layout on ``device``.
 
     ``passes``: [(attrs, shader, uniforms, exclude_from_output_depth)]
@@ -594,8 +593,11 @@ def render_frame_fused(passes, width: int, height: int, device,
     the band's, its setup the whole pass's.
 
     ``seconds``, if given, receives each pass's host seconds, every pass
-    in order (one with no faces too), each pass ended by a synchronize of
-    the device: the JAX package's per-pass ``pass_timings``."""
+    in order (one with no faces too): the JAX package's per-pass
+    ``pass_timings``, the host time of the pass's ``pass`` span (its
+    launches issued, not their device work: nothing synchronizes).
+    ``names`` (one a pass) are the ``pass`` spans' arguments; the pass's
+    index without them."""
     if band is None:
         ft = new_frame_tiles(width, height, device, tile_h, tile_w)
     else:
@@ -605,7 +607,7 @@ def render_frame_fused(passes, width: int, height: int, device,
     snapshot = None
     in_excluded = False
     winner_offset = 0
-    for attrs, shader, uniforms, exclude in passes:
+    for i, (attrs, shader, uniforms, exclude) in enumerate(passes):
         if exclude:
             if not in_excluded:
                 snapshot = ft.depth.clone()            # main.cpp:700
@@ -615,20 +617,14 @@ def render_frame_fused(passes, width: int, height: int, device,
             in_excluded = False
         t0 = time.perf_counter()
         f = attrs["position"].shape[0]
-        if f:
-            _render_pass(ft, attrs, shader, uniforms, width, height, tile_h, tile_w,
-                         collect_stats, band, winner_offset, events)
+        with trace.span("pass", names[i] if names else i):
+            if f:
+                _render_pass(ft, attrs, shader, uniforms, width, height, tile_h, tile_w,
+                             collect_stats, band, winner_offset, events)
         if seconds is not None:
-            synchronize(ft.depth.device)
             seconds.append(time.perf_counter() - t0)
         winner_offset += f
     return ft, (snapshot if in_excluded else ft.depth), events
-
-
-def synchronize(device) -> None:
-    """Wait for the work queued on ``device`` (nothing to wait for on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _render_pass(ft: FrameTiles, attrs: dict, shader, uniforms: dict, width: int,
@@ -646,13 +642,16 @@ def _render_pass(ft: FrameTiles, attrs: dict, shader, uniforms: dict, width: int
         pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h,
                                 ft.depth if collect_stats else None, collect_stats, band)
         setup = pre.setup
-        raster_fine2.post_fine2(ft, pre, out, winner_offset,
-                                (lambda v: _shade_packed(v, uniforms, shader))
-                                if shader.writes_color else None)
+        with trace.span("pass.merge_shade"):
+            raster_fine2.post_fine2(ft, pre, out, winner_offset,
+                                    (lambda v: _shade_packed(v, uniforms, shader))
+                                    if shader.writes_color else None)
     else:
         ids, setup, out = raster_pass(mode, attrs, uniforms, shader, width, height,
                                       tile_h, tile_w, lambda ids: ft.depth[ids.long()],
                                       collect_stats, band)
-        post_sparse(ft, ids, *out[:3], uniforms, shader, winner_offset)
+        with trace.span("pass.merge_shade"):
+            post_sparse(ft, ids, *out[:3], uniforms, shader, winner_offset)
     if collect_stats:
-        events.append(PassEvents(setup, *reduce_events(out[3], out[0], out[1])))
+        with trace.span("pass.stats"):
+            events.append(PassEvents(setup, *reduce_events(out[3], out[0], out[1])))

@@ -38,7 +38,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from tinyrenderder_tpu_torch import convert, math3d, oracle, shaders
+from tinyrenderder_tpu_torch import convert, math3d, oracle, shaders, trace
 from tinyrenderder_tpu_torch.camera import Camera
 from tinyrenderder_tpu_torch.math3d import Frustum
 from tinyrenderder_tpu_torch.models import procedural
@@ -174,31 +174,35 @@ def _cull_passes(scene: Scene, frustum_cull: bool, stats: RenderStats) -> list:
     is cached on the scene (one entry, as the JAX package keeps it),
     keyed on the view-projection matrix and each pass's identity, mesh,
     face count, local AABB and model matrix."""
-    vp = scene.camera.projection_matrix @ scene.camera.view_matrix
-    ckey = (vp.tobytes(), frustum_cull,
-            tuple((id(p), id(p.mesh), p.mesh.nfaces, id(p.mesh.get_local_aabb()),
-                   p.model_matrix.tobytes()) for p in scene.passes))
-    hit = scene.__dict__.get("_cull_cache")
-    if hit is not None and hit[0] == ckey:
-        visible, culled = hit[1], hit[2]
-    else:
-        frustum = _frustum_cached(vp)
-        visible, culled = [], []
-        for p in scene.passes:
-            if frustum_cull and not frustum.intersects(p.mesh.get_world_aabb(p.model_matrix)):
-                culled.append(p)
-                log.info("%s CULLED by frustum", p.name or p.mesh.name)
-                continue
-            visible.append(p)
-        # visible + culled keep every pass of the key alive: no id recycles
-        scene.__dict__["_cull_cache"] = (ckey, visible, culled)
-    for p in culled:
-        stats.models_culled += 1
-        stats.culled_triangles += p.mesh.nfaces
-    for p in visible:
-        stats.models_rendered += 1
-        stats.total_triangles += p.mesh.nfaces
-    return list(visible)
+    with trace.span("frame.cull"):
+        vp = scene.camera.projection_matrix @ scene.camera.view_matrix
+        ckey = (vp.tobytes(), frustum_cull,
+                tuple((id(p), id(p.mesh), p.mesh.nfaces, id(p.mesh.get_local_aabb()),
+                       p.model_matrix.tobytes()) for p in scene.passes))
+        hit = scene.__dict__.get("_cull_cache")
+        if hit is not None and hit[0] == ckey:
+            trace.count("cache.cull.hit")
+            visible, culled = hit[1], hit[2]
+        else:
+            trace.count("cache.cull.miss")
+            frustum = _frustum_cached(vp)
+            visible, culled = [], []
+            for p in scene.passes:
+                if frustum_cull and not frustum.intersects(
+                        p.mesh.get_world_aabb(p.model_matrix)):
+                    culled.append(p)
+                    log.info("%s CULLED by frustum", p.name or p.mesh.name)
+                    continue
+                visible.append(p)
+            # visible + culled keep every pass of the key alive: no id recycles
+            scene.__dict__["_cull_cache"] = (ckey, visible, culled)
+        for p in culled:
+            stats.models_culled += 1
+            stats.culled_triangles += p.mesh.nfaces
+        for p in visible:
+            stats.models_rendered += 1
+            stats.total_triangles += p.mesh.nfaces
+        return list(visible)
 
 
 def _pass_inputs(scene: Scene, p: ScenePass, dtype) -> tuple[dict, dict]:
@@ -229,26 +233,29 @@ def _device_pass_inputs(scene: Scene, p: ScenePass, device):
     through ``_to_device_cached`` and uploads the small ones.  The
     returned dicts are shared across frames: callers never write into
     them."""
-    dtype = np.float32
-    dev = convert.device_key(device)
-    modelview = scene.camera.view_matrix @ p.model_matrix
-    persp = scene.camera.projection_matrix
-    material = p.mesh.materials[p.material_index] if p.mesh.materials else None
-    token = p.shader.uniforms_token()
-    mtok = (None if material is None else
-            (material, material.diffuse, material.normal, material.specular,
-             material.emission))
-    key = (modelview.tobytes(), persp.tobytes(), dev)
-    hit = p.__dict__.get("_device_inputs_cache")
-    if not (hit is not None and hit[0] == key and _ref_tuples_match(hit[1], mtok)
-            and hit[2] is p.shader and shaders.tokens_match(hit[3], token)):
-        uniforms = p.shader.build_uniforms(modelview, persp, material, dtype)
-        uniforms = {k: (_to_device_cached(v, dev) if isinstance(v, np.ndarray)
-                        and v.size >= shaders.TOKEN_VALUE_ELEMENTS
-                        else convert.to_torch(v, dev)) for k, v in uniforms.items()}
-        hit = (key, mtok, p.shader, token, uniforms)
-        p.__dict__["_device_inputs_cache"] = hit
-    return p.mesh.device_face_attributes(dtype, dev), hit[4]
+    with trace.span("frame.inputs"):
+        dtype = np.float32
+        dev = convert.device_key(device)
+        modelview = scene.camera.view_matrix @ p.model_matrix
+        persp = scene.camera.projection_matrix
+        material = p.mesh.materials[p.material_index] if p.mesh.materials else None
+        token = p.shader.uniforms_token()
+        mtok = (None if material is None else
+                (material, material.diffuse, material.normal, material.specular,
+                 material.emission))
+        key = (modelview.tobytes(), persp.tobytes(), dev)
+        hit = p.__dict__.get("_device_inputs_cache")
+        fresh = (hit is not None and hit[0] == key and _ref_tuples_match(hit[1], mtok)
+                 and hit[2] is p.shader and shaders.tokens_match(hit[3], token))
+        trace.count("cache.pass_inputs.hit" if fresh else "cache.pass_inputs.miss")
+        if not fresh:
+            uniforms = p.shader.build_uniforms(modelview, persp, material, dtype)
+            uniforms = {k: (_to_device_cached(v, dev) if isinstance(v, np.ndarray)
+                            and v.size >= shaders.TOKEN_VALUE_ELEMENTS
+                            else convert.to_torch(v, dev)) for k, v in uniforms.items()}
+            hit = (key, mtok, p.shader, token, uniforms)
+            p.__dict__["_device_inputs_cache"] = hit
+        return p.mesh.device_face_attributes(dtype, dev), hit[4]
 
 
 #: large uniforms (textures, a host shadow map) on a device, keyed on the
@@ -270,8 +277,10 @@ def _to_device_cached(v, device):
     key = (id(v), convert.device_key(device))
     hit = _DEVICE_UNIFORM_CACHE.get(key)
     if hit is not None and hit[0] is v:
+        trace.count("cache.uniforms.hit")
         _DEVICE_UNIFORM_CACHE.move_to_end(key)
         return hit[1]
+    trace.count("cache.uniforms.miss")
     hit = (v, convert.to_torch(v, key[1]))     # v kept alive: its id stays valid
     _DEVICE_UNIFORM_CACHE[key] = hit
     total = sum(e[0].nbytes for e in _DEVICE_UNIFORM_CACHE.values())
@@ -325,48 +334,51 @@ def render_scene(scene: Scene, device, frustum_cull: bool = True,
     ``collect_stats`` the ``RenderStats`` are exact (``fragments_exact``):
     each pass reads back its counters once, and ``pass_timings`` holds
     each visible pass's host seconds under its name (``p.name or
-    p.mesh.name``), in pass order, each pass ended by a synchronize.  On
-    a CUDA device every kernel of the route runs on the card; on the CPU
-    the kernels' plain versions run.
+    p.mesh.name``), in pass order: the host time of its ``pass`` span
+    (``trace``), its launches issued and not waited for, since nothing
+    synchronizes.  On a CUDA device every kernel of the route runs on the
+    card; on the CPU the kernels' plain versions run.
 
     The sharded backends split the frame (or each pass's faces) over
     ``mesh``'s ranks (default ``dist.make_mesh(device=device)``: the ranks
     of the initialised process group, each on its own card, or one rank)
     and render on the mesh's device, with the same pixels and stats
     (``_render_sharded``)."""
-    if _backend(backend) in SHARDED_BACKENDS:
-        return _render_sharded(scene, device, frustum_cull, collect_stats, backend, mesh)
-    device = convert.device_key(device)
-    stats = RenderStats()
-    visible = _cull_passes(scene, frustum_cull, stats)
-    passes = [_tensors(scene, p, device) for p in visible]
-    seconds = [] if collect_stats else None
-    fb, depth, events = render_passes(passes, scene.width, scene.height, device,
-                                      collect_stats, backend, seconds)
-    timings = {}
-    if collect_stats:
-        _add_events(stats, events)
-        for p, s in zip(visible, seconds, strict=True):
-            timings[p.name or p.mesh.name] = s
-    return RenderResult(color=fb.color, depth=depth, full_depth=fb.depth,
-                        stats=stats, pass_timings=timings)
+    with trace.frame():
+        if _backend(backend) in SHARDED_BACKENDS:
+            return _render_sharded(scene, device, frustum_cull, collect_stats, backend, mesh)
+        device = convert.device_key(device)
+        stats = RenderStats()
+        visible = _cull_passes(scene, frustum_cull, stats)
+        passes = [_tensors(scene, p, device) for p in visible]
+        names = [p.name or p.mesh.name for p in visible]
+        seconds = [] if collect_stats else None
+        fb, depth, events = render_passes(passes, scene.width, scene.height, device,
+                                          collect_stats, backend, seconds, names)
+        timings = {}
+        if collect_stats:
+            _add_events(stats, events)
+            timings = dict(zip(names, seconds, strict=True))
+        return RenderResult(color=fb.color, depth=depth, full_depth=fb.depth,
+                            stats=stats, pass_timings=timings)
 
 
 def _add_events(stats: RenderStats, events) -> None:
     """Each pass's counters into ``stats``: the triangle count and bbox of
     its setup, its exact fragment count and z range (one readback a
     pass)."""
-    for ev in events:
-        agg = raster.pass_stats(ev.setup)
-        stats.triangles_rasterized += agg["triangles"]
-        if agg["valid_triangles"]:
-            stats.merge_bbox(agg["min_x"], agg["min_y"], agg["max_x"], agg["max_y"])
-        frags, min_z, max_z = torch.stack(
-            [ev.fragments.double(), ev.min_z.double(), ev.max_z.double()]).tolist()
-        stats.fragments_drawn += int(frags)
-        if np.isfinite(min_z):
-            stats.merge_z(min_z, max_z)
-    stats.fragments_exact = True
+    with trace.span("frame.stats"):
+        for ev in events:
+            agg = raster.pass_stats(ev.setup)
+            stats.triangles_rasterized += agg["triangles"]
+            if agg["valid_triangles"]:
+                stats.merge_bbox(agg["min_x"], agg["min_y"], agg["max_x"], agg["max_y"])
+            frags, min_z, max_z = trace.readback(torch.stack(
+                [ev.fragments.double(), ev.min_z.double(), ev.max_z.double()]))
+            stats.fragments_drawn += int(frags)
+            if np.isfinite(min_z):
+                stats.merge_z(min_z, max_z)
+        stats.fragments_exact = True
 
 
 #: the sharded backends interleave the row bands (rank b owns tile rows b,
@@ -521,27 +533,31 @@ def _measured_bands_cached(scene: Scene, passes, n: int) -> tuple:
 
 def render_passes(passes, width: int, height: int, device,
                   collect_stats: bool = False, backend: str = "tiled",
-                  seconds: list | None = None):
+                  seconds: list | None = None, names: list | None = None):
     """The frame of ``render_scene`` from its pass tensors
     (``pass_tensors``) -> (FrameBuffers in image layout, output depth
     (H, W), per-pass events or None).  "tiled": the frame is tiled with
     ``pick_tile_h`` rows; the output depth of a frame that ends inside
     a run of excluded passes is the snapshot, untiled on its own.
     "xla": the scan backend (``render_passes_xla``).  ``seconds``, if
-    given, receives each pass's host seconds (``render_frame_fused``)."""
+    given, receives each pass's host seconds and ``names`` name the
+    passes' spans (``render_frame_fused``)."""
     if backend == "xla":
-        return render_passes_xla(passes, width, height, device, collect_stats, seconds)
+        return render_passes_xla(passes, width, height, device, collect_stats, seconds,
+                                 names)
     if backend != "tiled":
         raise ValueError(f"render_passes renders 'tiled' or 'xla', not {backend!r}")
-    th = raster_sparse.pick_tile_h(width, height)
-    ft, out_depth_t, events = raster_sparse.render_frame_fused(
-        passes, width, height, device, tile_h=th, collect_stats=collect_stats,
-        seconds=seconds)
-    return (*_buffers(ft, out_depth_t, passes, width, height, th), events)
+    with trace.frame():
+        th = raster_sparse.pick_tile_h(width, height)
+        ft, out_depth_t, events = raster_sparse.render_frame_fused(
+            passes, width, height, device, tile_h=th, collect_stats=collect_stats,
+            seconds=seconds, names=names)
+        return (*_buffers(ft, out_depth_t, passes, width, height, th), events)
 
 
 def render_passes_xla(passes, width: int, height: int, device,
-                      collect_stats: bool = False, seconds: list | None = None):
+                      collect_stats: bool = False, seconds: list | None = None,
+                      names: list | None = None):
     """The scan backend's frame (the JAX package's ``_render_device`` with
     ``render_pass_xla``): each pass through ``raster.render_pass_xla`` in
     image layout, its triangle ids offset by the faces before it, the
@@ -549,47 +565,51 @@ def render_passes_xla(passes, width: int, height: int, device,
     restored before the next pass that is not excluded (main.cpp:700,730).
     A pass with no faces renders nothing.  With ``collect_stats`` each
     pass's one resolve also sums its z-pass events (``PassEvents``).
-    Returns (FrameBuffers, output depth, events or None); ``seconds`` as in
-    ``render_passes``."""
-    fb = raster.new_framebuffers(width, height, device)
-    events = [] if collect_stats else None
-    snapshot = None
-    in_excluded = False
-    winner_offset = 0
-    for attrs, shader, uniforms, exclude in passes:
-        if exclude:
-            if not in_excluded:
-                snapshot = fb.depth                 # main.cpp:700 (never written in place)
-                in_excluded = True
-        elif in_excluded:
-            fb = fb._replace(depth=snapshot)        # main.cpp:730
-            in_excluded = False
-        t0 = time.perf_counter()
-        f = attrs["position"].shape[0]
-        if f:
-            if attrs["position"].device != fb.depth.device:
-                raise ValueError(f"pass inputs are on {attrs['position'].device}, "
-                                 f"the frame on {fb.depth.device}")
-            fb, _, ev = raster.render_pass_xla(fb, attrs, shader, uniforms, winner_offset,
-                                               collect_stats=collect_stats)
-            if collect_stats:
-                events.append(ev)
-        if seconds is not None:
-            raster_sparse.synchronize(fb.depth.device)
-            seconds.append(time.perf_counter() - t0)
-        winner_offset += f
-    return fb, (snapshot if in_excluded else fb.depth), events
+    Returns (FrameBuffers, output depth, events or None); ``seconds`` and
+    ``names`` as in ``render_passes``."""
+    with trace.frame():
+        fb = raster.new_framebuffers(width, height, device)
+        events = [] if collect_stats else None
+        snapshot = None
+        in_excluded = False
+        winner_offset = 0
+        for i, (attrs, shader, uniforms, exclude) in enumerate(passes):
+            if exclude:
+                if not in_excluded:
+                    snapshot = fb.depth             # main.cpp:700 (never written in place)
+                    in_excluded = True
+            elif in_excluded:
+                fb = fb._replace(depth=snapshot)    # main.cpp:730
+                in_excluded = False
+            t0 = time.perf_counter()
+            f = attrs["position"].shape[0]
+            with trace.span("pass", names[i] if names else i):
+                if f:
+                    if attrs["position"].device != fb.depth.device:
+                        raise ValueError(f"pass inputs are on {attrs['position'].device}, "
+                                         f"the frame on {fb.depth.device}")
+                    fb, _, ev = raster.render_pass_xla(fb, attrs, shader, uniforms,
+                                                       winner_offset,
+                                                       collect_stats=collect_stats)
+                    if collect_stats:
+                        events.append(ev)
+            if seconds is not None:
+                seconds.append(time.perf_counter() - t0)
+            winner_offset += f
+        return fb, (snapshot if in_excluded else fb.depth), events
 
 
 def _buffers(ft, out_depth_t, passes, width: int, height: int, tile_h: int):
     """A tiled frame -> (FrameBuffers, output depth (H, W)): the output
     depth of a frame that ends inside a run of excluded passes is the
     snapshot, untiled on its own."""
-    fb = raster_sparse.tiles_to_buffers(ft, width, height, tile_h=tile_h)
-    if not (passes and passes[-1][3]):
-        return fb, fb.depth
-    return fb, raster_sparse.untile_image(out_depth_t, None, cdiv(width, TILE_W),
-                                          cdiv(height, tile_h), tile_h, TILE_W, height, width)
+    with trace.span("frame.untile"):
+        fb = raster_sparse.tiles_to_buffers(ft, width, height, tile_h=tile_h)
+        if not (passes and passes[-1][3]):
+            return fb, fb.depth
+        return fb, raster_sparse.untile_image(out_depth_t, None, cdiv(width, TILE_W),
+                                              cdiv(height, tile_h), tile_h, TILE_W, height,
+                                              width)
 
 
 def render_scene_image(scene: Scene, device, frustum_cull: bool = True,
@@ -602,25 +622,26 @@ def render_scene_image(scene: Scene, device, frustum_cull: bool = True,
     ``render_scene`` and returns its colour, as the JAX package routes it
     (every frame of the "xla" backend too).  On a CUDA device every
     kernel runs on the card; on the CPU the kernels' plain versions run."""
-    backend = _backend(backend)
-    visible = _cull_passes(scene, frustum_cull, RenderStats())
-    single = (len(visible) == 1 and visible[0].mesh.nfaces > 0
-              and visible[0].shader.writes_color
-              and not visible[0].exclude_from_output_depth)
-    w, h = scene.width, scene.height
-    if single and backend == "tiled":
-        device = convert.device_key(device)
-        return raster_sparse.render_frame_fused_image(
-            [_tensors(scene, visible[0], device)], w, h,
-            tile_h=raster_sparse.pick_tile_h(w, h))
-    if single and backend == "sharded" and h % TILE_H == 0 and w % TILE_W == 0:
-        from tinyrenderder_tpu_torch.parallel import dist
-        mesh = _sharded_mesh(device, mesh, backend, w, h)
-        passes = [_tensors(scene, visible[0], mesh.device)]
-        inter, bands = _sharded_layout(scene, passes, mesh, backend)
-        return dist.render_frame_fused_image_sharded(mesh, passes, w, h, interleave=inter,
-                                                     bands=bands)
-    return render_scene(scene, device, frustum_cull, False, backend, mesh).color
+    with trace.frame():
+        backend = _backend(backend)
+        visible = _cull_passes(scene, frustum_cull, RenderStats())
+        single = (len(visible) == 1 and visible[0].mesh.nfaces > 0
+                  and visible[0].shader.writes_color
+                  and not visible[0].exclude_from_output_depth)
+        w, h = scene.width, scene.height
+        if single and backend == "tiled":
+            device = convert.device_key(device)
+            return raster_sparse.render_frame_fused_image(
+                [_tensors(scene, visible[0], device)], w, h,
+                tile_h=raster_sparse.pick_tile_h(w, h))
+        if single and backend == "sharded" and h % TILE_H == 0 and w % TILE_W == 0:
+            from tinyrenderder_tpu_torch.parallel import dist
+            mesh = _sharded_mesh(device, mesh, backend, w, h)
+            passes = [_tensors(scene, visible[0], mesh.device)]
+            inter, bands = _sharded_layout(scene, passes, mesh, backend)
+            return dist.render_frame_fused_image_sharded(mesh, passes, w, h,
+                                                         interleave=inter, bands=bands)
+        return render_scene(scene, device, frustum_cull, False, backend, mesh).color
 
 
 def oracle_render(scene: Scene, frustum_cull: bool = True,
