@@ -164,6 +164,12 @@ Phases, one line each (any failure exits non-zero before the last line):
      ``shadow_phong_800`` == the tiled shadowed frame and the oracle; each
      pass's kernel time (CUDA events), bound and launches a call, without
      and with stats, and the scan frame against the tiled frame in turns.
+ 21. the post (``csrc/post.cu``, ``post.postprocess`` on CUDA tensors) ==
+     ``post.postprocess_plain`` bitwise at 1200x800 on the CLI's frame and
+     on edge planes, == the NumPy ``oracle_post`` on the CLI's frame; the
+     kernel and the plain composition timed in turns (CUDA events, median
+     of 20), the kernel with a cold L2, their profiler device times and the
+     bound.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -586,7 +592,7 @@ def staged_multipass(passes, width, height, mode, plain, with_post, marks=None,
     mark("untile")
     if not with_post:
         return image, depth
-    final = post.postprocess(image, depth)[2]
+    final = post.postprocess(image, depth.contiguous())[2]
     mark("post")
     return image, depth, final
 
@@ -922,6 +928,46 @@ def call_kernels(fn, calls: int = 3, tries: int = 12) -> list[str] | None:
             continue
         print(f"chip_smoke.py: profiler trace {attempt + 1} of {tries} is inconsistent "
               f"({len(names)} kernels over {calls} calls): taken again", file=sys.stderr,
+              flush=True)
+        time.sleep(0.2)
+    return None
+
+
+def consistent_device_ms(fn, names=(), calls: int = 3,
+                         tries: int = 12) -> tuple[dict[str, float], int] | None:
+    """({name: device ms of one call of ``fn``}, device events a call) from
+    a ``torch.profiler`` trace of ``calls`` calls after a warm-up call in
+    which one call's sequence of kernels, copies and fills repeats exactly
+    ``calls`` times and which an earlier such trace showed too (the card's
+    profiler drops events in runs of traces, as ``call_kernels`` finds);
+    an event is keyed by the first of ``names`` its name holds, else
+    "other".  None if ``tries`` traces show no such sequence."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen: list[list[str]] = []
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        seq = [e.name for e in events]
+        per_call = seq[:len(seq) // calls]
+        if per_call and per_call * calls == seq:
+            if per_call in seen:
+                ms: dict[str, float] = {}
+                for e in events:
+                    key = next((n for n in names if n in e.name), "other")
+                    ms[key] = ms.get(key, 0.0) + e.time_range.elapsed_us() / calls / 1e3
+                return ms, len(per_call)
+            seen.append(per_call)
+            continue
+        print(f"chip_smoke.py: profiler trace {attempt + 1} of {tries} is inconsistent "
+              f"({len(seq)} device events over {calls} calls): taken again", file=sys.stderr,
               flush=True)
         time.sleep(0.2)
     return None
@@ -2477,6 +2523,94 @@ def scan_phase(smi: str, head_scene, head_ref, mm_scene, mm_ref, stress_scene, s
     return totals
 
 
+def post_phase(smi: str, record: dict) -> dict:
+    """[21 post]: ``csrc/post.cu`` (``post.postprocess`` on CUDA tensors)
+    against ``post.postprocess_plain`` on the card, bitwise on all three
+    outputs, on the CLI's frame at REF_W x REF_H (and against the NumPy
+    ``oracle_post`` there) and on edge planes at the same size (every depth
+    infinite, one finite pixel, a degenerate range, finite pixels on the
+    borders only, noise with infinite holes); then on the CLI's frame
+    CUDA-event medians of FRAMES calls of the kernel and the plain
+    composition in turns, the kernel with a cold L2, each one's
+    ``torch.profiler`` device time from a trace that holds every event of
+    its calls (``consistent_device_ms``; "not measured" if none does) and
+    the bound.  -> main-path launches."""
+    import numpy as np
+    import torch
+
+    from tinyrenderder_tpu_torch import cli
+    from tinyrenderder_tpu_torch.ops import post
+
+    t_phase = time.perf_counter()
+    sc = cli.build_default_scene(width=REF_W, height=REF_H)
+    res = sc.render(DEVICE)
+    color, depth = res.color, res.depth
+    rng = np.random.default_rng(21)
+    shape = (REF_H, REF_W)
+    inf = np.full(shape, np.inf, np.float32)
+    one = inf.copy()
+    one[REF_H // 3, REF_W // 5] = 0.25
+    near = np.where(rng.random(shape) < 0.5, np.float32(0.5),
+                    np.nextafter(np.float32(0.5), np.float32(1))).astype(np.float32)
+    border = inf.copy()
+    border[[0, -1], :] = rng.uniform(0.2, 0.9, size=(2, REF_W))
+    border[:, [0, -1]] = rng.uniform(0.2, 0.9, size=(REF_H, 2))
+    noisy = rng.uniform(0.9, 1.0, size=shape).astype(np.float32)
+    noisy[rng.random(shape) < 0.3] = np.inf
+    planes = {"cli frame": depth, "all infinite": inf, "one finite pixel": one,
+              "degenerate range": near, "finite borders": border, "noisy": noisy}
+    totals = dict.fromkeys(launch_counts(), 0)
+    err = 0.0
+    for what, d in planes.items():
+        d = torch.as_tensor(d, device=DEVICE)
+        want = post.postprocess_plain(color, d)
+        got, counts = counted(partial(post.postprocess, color, d))
+        for k, v in counts.items():
+            totals[k] += v
+        if counts["post"] != 1:
+            fail(f"post {what}: the kernel entry counted {counts['post']} launches, not 1")
+        err = max(err, same_planes(f"post kernel vs plain, {what}", ("zimg", "ao", "final"),
+                                   got, want))
+    host = (color.cpu().numpy(), depth.cpu().numpy())
+    got = post.postprocess(color, depth)
+    err = max(err, same_planes("post kernel vs NumPy oracle_post", ("zimg", "ao", "final"),
+                               [g.cpu() for g in got],
+                               [torch.from_numpy(w) for w in post.oracle_post(*host)]))
+    say(f"[21 post] {REF_W}x{REF_H}: kernel == postprocess_plain bitwise on the z-image, AO "
+        f"and composite of {', '.join(planes)}; == oracle_post on the CLI frame "
+        f"({int(torch.isfinite(depth).sum())} finite depths)")
+
+    def kernel():
+        return post.postprocess(color, depth)
+
+    def plain():
+        return post.postprocess_plain(color, depth)
+
+    k_ms, p_ms = in_turns(kernel, plain)
+    cold = event_ms(kernel, before=cold_l2())
+    k_dev = consistent_device_ms(kernel, ("post_range_kernel", "post_ssao_kernel", "Memset"))
+    p_dev = consistent_device_ms(plain)
+    dev_text = lambda d: (  # noqa: E731
+        "not measured: the profiler recorded no consistent trace" if d is None else
+        f"{device_text(d[0])}, {d[1]} device events a call")
+    n = REF_W * REF_H
+    moved = n * (4 + 3) + n * (1 + 1 + 3)      # depth, colour read; z-image, AO, final
+    taps = n * 64 * 4                          # 64 taps of ~4 float compares and sums
+    b = bound(moved, taps)
+    say(f"[21 post] {REF_W}x{REF_H} CLI frame, in turns: kernel {k_ms:.4f} ms (cold L2 "
+        f"{cold:.4f}, device {dev_text(k_dev)}), plain composition {p_ms:.4f} ms (device "
+        f"{dev_text(p_dev)}); kernel/plain {k_ms / p_ms:.4f}; "
+        f"bound {b[0]:.4f} ms ({b[1]}; bytes {moved / PEAK_BYTES * 1e3:.4f} ms for "
+        f"{moved / 1e6:.2f} MB, operations {taps / PEAK_FLOPS * 1e3:.4f} ms) | {smi}")
+    record["post"] = {"name": "post", "route": "cuda",
+                      "source": "tinyrenderder_tpu_torch/csrc/post.cu",
+                      "replaces": "none: tinyrenderder_tpu/ops/post.py::postprocess_device "
+                                  "is XLA", "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    say(f"[21 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
+    return totals
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3270,12 +3404,15 @@ def main() -> int:
                             walls["stress"], (sh_scene, sh_key, sh_settings, *sh_oracle),
                             record))
 
+    # ---- 21. the post kernel ----
+    add_launches(post_phase(smi, record))
+
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
     order = ("coarse_raster", "coarse_raster_stats", "dense_raster", "fine_raster",
              "fine_raster_stats", "fine2_raster", "fine2_raster_stats", "untile_one",
              "untile_image", "untile3", "untile3_image", "strip_raster_proto", "rank_pairs",
-             "inplace_blocks", "scan_resolve", "scan_resolve_stats")
+             "inplace_blocks", "scan_resolve", "scan_resolve_stats", "post")
     # untile_one and untile3 are kernels: their launches include their image stores'
     stores = {"untile_one": "untile_image", "untile3": "untile3_image"}
     kernels = []

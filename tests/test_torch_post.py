@@ -9,9 +9,16 @@
     package's NumPy post and TGA writer, as the JAX CLI writes them,
     with and without ``--shadows`` (the shadowed oracle frame);
     ``--animate`` writes the oracle's orbit frames and ``--profile`` a
-    trace.  The scenes are the port's own."""
+    trace.  The scenes are the port's own.
+(d) ``csrc/post.cu``, the CUDA post: its tap table and launch anchor
+    against the source text here; under the ``cuda`` marker (skipped
+    without a card) the kernel against ``postprocess_plain`` on the card,
+    bitwise, on every case of (a) and a 1200x800 walk frame, its launch
+    count, and the inputs it refuses."""
 
 import math
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,16 +29,24 @@ from tinyrenderder_tpu.ops import post as ref
 from tinyrenderder_tpu.utils import tga
 from tinyrenderder_tpu_torch import animation, cli
 from tinyrenderder_tpu_torch import scene as tscene
-from tinyrenderder_tpu_torch import shadows
+from tinyrenderder_tpu_torch import shadows, trace
 from tinyrenderder_tpu_torch.ops import post
 
 
-CASES = ("cli_default", "noisy", "all_inf", "constant_far", "edge_pixels")
+CASES = ("cli_default", "noisy", "all_inf", "constant_far", "edge_pixels", "all_inf_37x53",
+         "single_finite", "degenerate_range", "tiny_1x1", "noisy_7x40", "noisy_37x53",
+         "finite_borders", "finite_above_1e9", "finite_below_minus_1e9")
 
 
 @pytest.fixture(scope="module")
 def cases():
-    """name -> ((H, W, 3) uint8 colour, (H, W) f32 depth)."""
+    """name -> ((H, W, 3) uint8 colour, (H, W) f32 depth).  Beyond the
+    frame and the 40x72 planes: planes narrower than the CUDA kernel's
+    16-px halo and not a multiple of its 32x16 tile, one finite pixel, a
+    range under 1e-7 where zmin + 1e-7 does not round to zmin, finite
+    depths on the four borders only, and every depth finite beyond the
+    range's sentinels (above 1e9, below -1e9), where none of them may
+    enter the range."""
     r = tscene.oracle_render(frame_scene("cli_default"))
     rng = np.random.default_rng(3)
     h, w = 40, 72
@@ -40,11 +55,41 @@ def cases():
     noisy[rng.random((h, w)) < 0.3] = np.inf
     far = np.full((h, w), 37.5, np.float32)   # |z| > 16: zmin + 1e-7 rounds to zmin
     far[:, :9] = np.inf
+
+    def colour(hh, ww):
+        return rng.integers(0, 256, size=(hh, ww, 3), dtype=np.int64).astype(np.uint8)
+
+    def noise(hh, ww):
+        d = rng.uniform(0.2, 1.0, size=(hh, ww)).astype(np.float32)
+        d[rng.random((hh, ww)) < 0.25] = np.inf
+        return d
+
+    inf = np.full((37, 53), np.inf, np.float32)
+    single = inf.copy()
+    single[20, 31] = 0.625
+    half = np.float32(0.5)
+    near = np.where(rng.random((7, 40)) < 0.5, half,
+                    np.nextafter(half, np.float32(1))).astype(np.float32)
+    near[3, 5:9] = np.inf
+    border = inf.copy()
+    border[[0, -1], :] = rng.uniform(0.3, 0.9, size=(2, 53))
+    border[:, [0, -1]] = rng.uniform(0.3, 0.9, size=(37, 2))
     out = {"cli_default": (r.color, r.depth),
            "noisy": (color, noisy),
            "all_inf": (color, np.full((h, w), np.inf, np.float32)),
            "constant_far": (color, far),
-           "edge_pixels": (color[:3, :5], noisy[:3, :5])}
+           "edge_pixels": (color[:3, :5], noisy[:3, :5]),
+           "all_inf_37x53": (colour(37, 53), inf),
+           "single_finite": (colour(37, 53), single),
+           "degenerate_range": (colour(7, 40), near),
+           "tiny_1x1": (colour(1, 1), np.full((1, 1), 0.75, np.float32)),
+           "noisy_7x40": (colour(7, 40), noise(7, 40)),
+           "noisy_37x53": (colour(37, 53), noise(37, 53)),
+           "finite_borders": (colour(37, 53), border),
+           "finite_above_1e9": (colour(37, 53), rng.uniform(2e9, 3e9, size=(37, 53))
+                                .astype(np.float32)),
+           "finite_below_minus_1e9": (colour(37, 53), rng.uniform(-3e9, -2e9, size=(37, 53))
+                                      .astype(np.float32))}
     assert tuple(out) == CASES
     return out
 
@@ -88,6 +133,16 @@ def test_postprocess_matches_jax_postprocess_device(cases, jax_post, name):
         assert_bits(g.numpy(), jax_post[name][k], k)
     for k, g, w in zip(("zimg", "ao", "final"), got, post.oracle_post(color, depth)):
         assert_bits(g.numpy(), w, k)
+
+
+def test_postprocess_on_the_cpu_is_the_plain_composition(cases):
+    """CPU tensors take ``postprocess_plain``, which composes the four
+    stage functions; a tensor on another device type is refused."""
+    color, depth = (_t(a) for a in cases["noisy"])
+    for got, want in zip(post.postprocess(color, depth), post.postprocess_plain(color, depth)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        post.postprocess(color.to("meta"), depth.to("meta"))
 
 
 def test_composite_is_integer_floor():
@@ -216,3 +271,116 @@ def test_cli_profile_writes_a_trace(oracle_files, tmp_path):
             (want / f"{name}.tga").read_bytes(), name
     trace = tmp_path / "trace" / "trace.json"
     assert trace.stat().st_size > 0 and '"traceEvents"' in trace.read_text()
+
+
+# ---------------------------------------------------------------------------
+# csrc/post.cu
+# ---------------------------------------------------------------------------
+
+POST_CU = Path(post.__file__).resolve().parent.parent / "csrc" / "post.cu"
+
+
+def _constexpr(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_kernel_tap_table_is_ssao_offsets():
+    """The kernel's ``__constant__`` taps are ``ssao_offsets()``, in order,
+    and every tap lies inside the halo it loads around a tile."""
+    src = POST_CU.read_text()
+    body = re.search(r"__constant__ const int2 kTapOffsets\[kTaps\] = \{(.*?)\};", src,
+                     re.S).group(1)
+    taps = [(int(dx), int(dy)) for dx, dy in re.findall(r"\{(-?\d+), (-?\d+)\}", body)]
+    assert taps == post.ssao_offsets()
+    assert _constexpr(src, "kTaps") == len(taps) == 64
+    halo = _constexpr(src, "kHalo")
+    assert max(max(abs(dx), abs(dy)) for dx, dy in taps) <= halo == 16
+
+
+@pytest.mark.parametrize("counter", sorted(trace.LAUNCH_KERNELS))
+def test_launch_anchor_is_a_kernel(counter):
+    """Each launch counter's anchor (``trace.LAUNCH_KERNELS``) is the name
+    of a ``__global__`` function of ``csrc/``; the post's is
+    ``post_ssao_kernel``, launched once by ``trt_post``."""
+    csrc = POST_CU.parent
+    names = {m for f in sorted(csrc.glob("*.cu*")) for m in re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(",
+        f.read_text())}
+    assert trace.LAUNCH_KERNELS[counter] in names
+    if counter == "launch.post":
+        src = POST_CU.read_text()
+        assert trace.LAUNCH_KERNELS[counter] == "post_ssao_kernel"
+        assert set(re.findall(r"(\w+)<<<", src)) == {"post_range_kernel", "post_ssao_kernel"}
+        assert src.count("post_ssao_kernel<<<") == 1
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _walk_frame(device):
+    """Colour and depth of the first view of the benchmark's walk cell
+    (``rasterbench/configs/reference_main_1200x800.json``, traffic
+    ``walk``) at 1200x800, rendered as the cell renders it."""
+    import json
+
+    from rasterbench import scenes
+    root = Path(__file__).resolve().parent.parent / "rasterbench"
+    config = json.loads((root / "configs" / "reference_main_1200x800.json").read_text())
+    traffic = json.loads((root / "traffic" / "walk.json").read_text())
+    plan = scenes.make_plan(config, traffic, 2**31 + 21)
+    sc = scenes.port_scene(plan)
+    sc.camera.set_eye(plan.orbit.eye_at(0))
+    res = sc.render(device, frustum_cull=plan.frustum_cull, backend=traffic["backend"])
+    return res.color, res.depth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CASES + ("walk_1200x800",))
+def test_cuda_post_matches_plain(cases, cuda_device, name):
+    """The kernel's three outputs equal ``postprocess_plain`` on the card
+    (and the NumPy ``oracle_post``) bitwise; each call counts one launch."""
+    if name == "walk_1200x800":
+        color, depth = _walk_frame(cuda_device)
+    else:
+        color, depth = (_t(a).to(cuda_device) for a in cases[name])
+    want = post.postprocess_plain(color, depth)
+    before = trace.counts()["launch.post"]
+    got = post.postprocess(color, depth)
+    torch.cuda.synchronize()
+    assert trace.counts()["launch.post"] == before + 1
+    host = post.oracle_post(color.cpu().numpy(), depth.cpu().numpy())
+    for k, g, w, o in zip(("zimg", "ao", "final"), got, want, host):
+        assert g.device == depth.device and g.is_contiguous()
+        assert_bits(g.cpu().numpy(), w.cpu().numpy(), f"{name} {k}")
+        assert_bits(g.cpu().numpy(), o, f"{name} {k} vs oracle_post")
+    post.postprocess(color, depth)
+    post.postprocess(color, depth)
+    assert trace.counts()["launch.post"] == before + 3
+
+
+@pytest.mark.cuda
+def test_cuda_post_refuses_other_inputs(cuda_device):
+    """Depth other than float32, colour other than uint8, a strided plane,
+    mismatched shapes or devices, an empty plane: ValueError, no launch."""
+    color = torch.zeros((8, 12, 3), dtype=torch.uint8, device=cuda_device)
+    depth = torch.ones((8, 12), device=cuda_device)
+    bad = {"float64 depth": (color, depth.double()),
+           "int32 colour": (color.int(), depth),
+           "strided depth": (color, torch.ones((8, 24), device=cuda_device)[:, ::2]),
+           "strided colour": (torch.zeros((8, 24, 3), dtype=torch.uint8,
+                                          device=cuda_device)[:, ::2], depth),
+           "transposed depth": (color, torch.ones((12, 8), device=cuda_device).t()),
+           "shapes": (color[:, :6].contiguous(), depth),
+           "colour on the CPU": (color.cpu(), depth),
+           "depth on the CPU": (color, depth.cpu()),
+           "empty": (color[:0], depth[:0])}
+    before = trace.counts()["launch.post"]
+    for what, (c, d) in bad.items():
+        with pytest.raises(ValueError):
+            post.postprocess(c, d)
+            pytest.fail(what)
+    assert trace.counts()["launch.post"] == before

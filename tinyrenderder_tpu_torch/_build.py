@@ -26,7 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
 SOURCES = ("raster_coarse.cu", "raster_fine.cu", "raster_fine2.cu", "untile.cu",
-           "fine_raster.cu", "rank_kernel.cu", "inplace_blocks.cu", "scan_resolve.cu")
+           "fine_raster.cu", "rank_kernel.cu", "inplace_blocks.cu", "scan_resolve.cu",
+           "post.cu")
 HEADERS = ("raster_common.cuh", "raster_strip.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -79,6 +80,9 @@ SIGNATURES = {
     # img, ids, id_stride, add_ptr (or null), add_val, n_ids, height, width,
     # block_h, block_w, stream
     "trt_inplace_blocks": [_P, _P, _I, _P, _F, _I, _I, _I, _I, _I, _P],
+    # depth, color, zimg, ao, final_rgb, ws (8 words of scratch), height,
+    # width, stream
+    "trt_post": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 #: C functions of no argument that return a kernel's compile-time constant

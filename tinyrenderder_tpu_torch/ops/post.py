@@ -11,14 +11,17 @@ Counterpart of ``tinyrenderder_tpu/ops/post.py``:
     get 1.0;
   * composite (main.cpp:768-786): (colour * AO byte) // 255 per channel.
 
-The PyTorch functions (``zbuffer_to_image`` ... ``postprocess``) run on
+The PyTorch functions (``zbuffer_to_image`` ... ``composite``) run on
 the frame's device in the JAX package's op order.  Every tensor stays on
 its device: the depth range is kept as 0-d device tensors, so the
 normalization divides tensor by tensor (PyTorch's CUDA division by a
 host scalar multiplies by the reciprocal, which rounds differently).
-The SSAO is plain PyTorch, as it is XLA and not Pallas in the JAX
-package.  ``oracle_post`` is the same post in NumPy: the reference for
-the oracle's frames.
+``postprocess_plain`` composes them: the post of CPU tensors and the
+plain version of ``csrc/post.cu``, which ``postprocess`` launches for
+CUDA tensors (two kernels: the depth range, then the SSAO stencil, the
+AO byte, the z-image and the composite; the JAX package's post is XLA,
+not Pallas, so the kernel replaces no TPU kernel).  ``oracle_post`` is
+the same post in NumPy: the reference for the oracle's frames.
 """
 
 from __future__ import annotations
@@ -28,11 +31,11 @@ import math
 import numpy as np
 import torch
 
-from tinyrenderder_tpu_torch import trace
+from tinyrenderder_tpu_torch import _build, trace
 
 __all__ = ["zbuffer_to_image", "ssao_map", "ssao_image", "composite", "postprocess",
-           "oracle_post", "ssao_offsets", "AO_NUM_DIRECTIONS", "AO_STEPS_PER_DIRECTION",
-           "AO_SAMPLE_RADIUS", "AO_OCCLUSION_THRESHOLD", "AO_INTENSITY"]
+           "postprocess_plain", "oracle_post", "ssao_offsets", "AO_NUM_DIRECTIONS",
+           "AO_STEPS_PER_DIRECTION", "AO_SAMPLE_RADIUS", "AO_OCCLUSION_THRESHOLD", "AO_INTENSITY"]
 
 # SSAO parameters (main.cpp:317-321)
 AO_NUM_DIRECTIONS = 8
@@ -113,13 +116,50 @@ def composite(color, ao_u8):
     return torch.div(prod, 255, rounding_mode="floor").to(torch.uint8)
 
 
+def postprocess_plain(color_u8, depth):
+    """The post as the composition of the four functions above: the path
+    of CPU tensors and the plain version of ``csrc/post.cu``."""
+    zimg = zbuffer_to_image(depth)
+    ao_u8 = ssao_image(ssao_map(depth))
+    return zimg, ao_u8, composite(color_u8, ao_u8)
+
+
 def postprocess(color_u8, depth):
     """(H, W, 3) uint8 colour and (H, W) f32 depth -> (zbuffer image,
-    AO image, final composite), uint8 on the tensors' device."""
+    AO image, final composite), uint8 on the tensors' device.  CPU tensors
+    take ``postprocess_plain``; CUDA tensors launch ``csrc/post.cu``,
+    which takes contiguous float32 depth and uint8 colour on one device
+    and raises on anything else."""
     with trace.span("post"):
-        zimg = zbuffer_to_image(depth)
-        ao_u8 = ssao_image(ssao_map(depth))
-        return zimg, ao_u8, composite(color_u8, ao_u8)
+        if depth.device.type == "cpu" and color_u8.device.type == "cpu":
+            return postprocess_plain(color_u8, depth)
+        return _postprocess_cuda(color_u8, depth)
+
+
+def _postprocess_cuda(color_u8, depth):
+    """``postprocess`` on a CUDA device: one memset and two kernels on the
+    current stream, no synchronize."""
+    dev = depth.device
+    if dev.type != "cuda" or color_u8.device != dev:
+        raise ValueError(f"the post runs on CPU tensors or on one CUDA device; got depth on "
+                         f"{dev}, colour on {color_u8.device}")
+    if depth.dtype != torch.float32 or color_u8.dtype != torch.uint8:
+        raise ValueError(f"the CUDA post takes float32 depth and uint8 colour; got "
+                         f"{depth.dtype} and {color_u8.dtype}")
+    if depth.dim() != 2 or tuple(color_u8.shape) != (*depth.shape, 3) or depth.numel() == 0:
+        raise ValueError(f"the CUDA post takes (H, W) depth and (H, W, 3) colour, H, W > 0; "
+                         f"got {tuple(depth.shape)} and {tuple(color_u8.shape)}")
+    if not (depth.is_contiguous() and color_u8.is_contiguous()):
+        raise ValueError("the CUDA post takes contiguous depth and colour")
+    h, w = depth.shape
+    zimg = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    ao_u8 = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    final = torch.empty((h, w, 3), dtype=torch.uint8, device=dev)
+    ws = torch.empty(8, dtype=torch.int32, device=dev)     # trt_post's scratch words
+    trace.count("launch.post")
+    _build.call("trt_post", dev, depth.data_ptr(), color_u8.data_ptr(), zimg.data_ptr(),
+                ao_u8.data_ptr(), final.data_ptr(), ws.data_ptr(), h, w)
+    return zimg, ao_u8, final
 
 
 # ---------------------------------------------------------------------------

@@ -91,6 +91,7 @@ LAUNCH_KERNELS = {
     "launch.inplace_blocks": "inplace_blocks_kernel",
     "launch.scan_resolve": "scan_prefix_kernel",
     "launch.scan_resolve_stats": "scan_prefix_kernel",
+    "launch.post": "post_ssao_kernel",
 }
 
 #: device intervals that are copies or fills, not kernels
