@@ -1,15 +1,35 @@
 """Find the benchmark's parts by the names ``BENCHMARK.json`` gives.
 
 ``BENCHMARK.json`` at the root of the checkout lists the cells, the
-configurations (each with its ``file``) and the metrics.  A traffic mix
-``<name>`` is ``rasterbench/traffic/<name>.json``, whose ``route`` names
-its frame loop and delivery point ``rasterbench/routes/<route>.py`` (a
-module with ``outputs(plan)`` and ``frame(loop, spans)``, see
-``loop``); a metric ``<name>`` is ``rasterbench/metrics/<name>.py``, a
-module with ``UNIT``, ``LAYER`` (``None`` for an end-to-end metric),
-``MOVES`` and ``read(data)``.  So a cell, a configuration, a traffic
-mix, a route or a metric is added by adding files and entries, with no
-edit to the harness.
+configurations (each with its ``file``) and the metrics.  Each part is a
+file of its own, found by its name:
+
+  * a configuration is its ``file`` (``configs/<name>.json``).  The keys
+    that ``scenes.make_plan`` reads (size, camera, lights, cull, post,
+    passes) build the plan; every other key reaches routes and
+    reference modules unchanged as ``plan.options``.  ``"reference":
+    "<name>"`` names the configuration's reference module; without it
+    the reference is the stock ``reference.py``;
+  * a reference ``<name>`` is ``rasterbench/references/<name>.py``, a
+    module with ``Reference(plan, device, dtype=torch.float32)``, whose
+    ``.render(eye, stats=False)`` returns a ``reference.Frame`` (colour,
+    output depth, stats, counted work), and ``post(color, depth)`` ->
+    ``{zimg, ao, final}``, as ``reference.py`` has them.  It may import
+    ``reference.py``'s frozen formulas, and nothing of the program and
+    no JAX.  ``check``, ``control`` and ``run`` take the reference
+    only through ``Benchmark.reference``;
+  * a traffic mix ``<name>`` is ``rasterbench/traffic/<name>.json``,
+    whose ``route`` names its frame loop and delivery point
+    ``rasterbench/routes/<route>.py`` (a module with ``outputs(plan)``
+    and ``frame(loop, spans)``, see ``loop``);
+  * a metric ``<name>`` is ``rasterbench/metrics/<name>.py``, a module
+    with ``UNIT``, ``LAYER`` (``None`` for an end-to-end metric),
+    ``MOVES`` and ``read(data)``.
+
+So a cell, a configuration with its reference, a traffic mix, a route
+or a metric is added by adding files and entries, with no edit to the
+harness.  The CPU tests cut a configuration to a tiny size by its own
+``"tiny"`` block (``tests/tiny_checkout.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +75,14 @@ class Benchmark:
     def route(self, name: str):
         """The module of route ``name``."""
         return self._module("routes", name)
+
+    def reference(self, name: str | None):
+        """The reference module ``name``, a configuration's
+        ``"reference"``; ``None`` is the stock ``reference``."""
+        if name is None:
+            from rasterbench import reference
+            return reference
+        return self._module("references", name)
 
     def _module(self, kind: str, name: str):
         path = self.root / PACKAGE / kind / f"{name}.py"

@@ -1,7 +1,9 @@
 """The comparison that decides ``correct``.
 
 Each frame sampled from the window (``loop.Sample``) is rendered again
-by the plain reference at the same eye, and each output the traffic
+by the configuration's plain reference (a module that
+``catalog.Benchmark.reference`` finds: ``reference.py`` or one of
+``references/``) at the same eye, and each output the traffic
 mix's ``checks`` names is compared with what the program delivered:
 
   * ``<image>_px_off``: pixels of ``color``, ``zimg``, ``ao`` or
@@ -20,8 +22,6 @@ from __future__ import annotations
 
 import torch
 
-from rasterbench import reference
-
 STATS_FIELDS = ("triangles_rasterized", "fragments_drawn", "min_x", "min_y", "max_x",
                 "max_y", "min_z", "max_z", "models_rendered", "models_culled",
                 "total_triangles", "culled_triangles")
@@ -31,10 +31,10 @@ def _stat(stats, name):
     return stats[name] if isinstance(stats, dict) else getattr(stats, name)
 
 
-def numbers(images: dict, depth, stats, ref: reference.Frame, ref_images: dict,
-            checks: dict) -> dict:
+def numbers(images: dict, depth, stats, ref, ref_images: dict, checks: dict) -> dict:
     """The compared numbers of one frame: ``images`` (host or device
-    uint8), ``depth`` and ``stats`` from the side under test."""
+    uint8), ``depth`` and ``stats`` from the side under test against the
+    reference's ``Frame`` ``ref``."""
     out = {}
     for name in checks:
         if name == "depth_px_off":
@@ -54,8 +54,9 @@ def numbers(images: dict, depth, stats, ref: reference.Frame, ref_images: dict,
 POST_IMAGES = ("zimg", "ao", "final")
 
 
-def reference_images(plan, frame: reference.Frame, checks: dict) -> dict:
-    """The reference's images that ``checks`` compare."""
+def reference_images(reference, frame, checks: dict) -> dict:
+    """The images of ``reference`` (the module) that ``checks`` compare,
+    from its ``Frame`` ``frame``."""
     images = {"color": frame.color}
     if any(f"{n}_px_off" in checks for n in POST_IMAGES):
         images.update(reference.post(frame.color, frame.depth))
@@ -68,9 +69,10 @@ def program_frames(samples: list):
     return lambda i, eye: (samples[i].images, samples[i].depth, samples[i].stats)
 
 
-def compare(plan, checks: dict, eyes: list, under_test, device) -> tuple[dict, int, list]:
-    """Each of ``eyes`` rendered by the reference against the side under
-    test, ``under_test(i, eye) -> (images, depth, stats)`` of the i-th
+def compare(reference, plan, checks: dict, eyes: list, under_test,
+            device) -> tuple[dict, int, list]:
+    """Each of ``eyes`` rendered by ``reference`` (the module) against the
+    side under test, ``under_test(i, eye) -> (images, depth, stats)`` of the i-th
     -> ({number: largest value over the frames}, frames failed, per frame
     the reference's counted work of each visible pass)."""
     ref = reference.Reference(plan, device)
@@ -79,8 +81,8 @@ def compare(plan, checks: dict, eyes: list, under_test, device) -> tuple[dict, i
     for i, eye in enumerate(eyes):
         frame = ref.render(eye, stats="stats_off" in checks)
         images, depth, stats = under_test(i, eye)
-        got = numbers(images, depth, stats, frame, reference_images(plan, frame, checks),
-                      checks)
+        got = numbers(images, depth, stats, frame,
+                      reference_images(reference, frame, checks), checks)
         failed += any(got[n] > checks[n] for n in checks)
         worst = {n: max(worst[n], got[n]) for n in checks}
         work.append(frame.work)

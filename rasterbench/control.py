@@ -12,6 +12,8 @@ the frames sampled from it:
     precision below the configuration's float32), against the float32
     reference.
 
+The reference is the configuration's (``catalog.Benchmark.reference``).
+
 One JSON line a seed on standard output.  The benchmark's own runs do
 not run this.
 """
@@ -27,15 +29,15 @@ import time
 import torch
 
 
-def bfloat16_frames(plan, checks: dict, device):
-    """The side under test for ``check.compare`` when the reference in
-    bfloat16 stands in the program's place."""
-    from rasterbench import check, reference
+def bfloat16_frames(reference, plan, checks: dict, device):
+    """The side under test for ``check.compare`` when ``reference`` (the
+    module) in bfloat16 stands in the program's place."""
+    from rasterbench import check
     low = reference.Reference(plan, device, dtype=torch.bfloat16)
 
     def frames(i, eye):
         got = low.render(eye, stats="stats_off" in checks)
-        return check.reference_images(plan, got, checks), got.depth, got.stats
+        return check.reference_images(reference, got, checks), got.depth, got.stats
     return frames
 
 
@@ -45,15 +47,16 @@ def readings(root, workload: str, seed: int, seconds: float, device) -> dict:
     cell = bench.cell(workload)
     config, traffic = bench.config(cell["config"]), bench.traffic(cell["traffic"])
     checks = traffic["checks"]
+    reference = bench.reference(config.get("reference"))
     plan = scenes.make_plan(config, traffic, seed)
     win = loop.run(plan, traffic, bench.route(traffic["route"]), seconds, False, device,
                    time.perf_counter())
     gc.collect()
     eyes = [s.eye for s in win.samples]
-    program, failed, _ = check.compare(plan, checks, eyes, check.program_frames(win.samples),
-                                       device)
-    control, _, _ = check.compare(plan, checks, eyes, bfloat16_frames(plan, checks, device),
-                                  device)
+    program, failed, _ = check.compare(reference, plan, checks, eyes,
+                                       check.program_frames(win.samples), device)
+    control, _, _ = check.compare(reference, plan, checks, eyes,
+                                  bfloat16_frames(reference, plan, checks, device), device)
     return {"workload": workload, "seed": seed, "frames": win.frames,
             "sampled": [s.frame for s in win.samples], "program": program,
             "program_failed": failed, "control": control}

@@ -5,9 +5,9 @@
 from the root of a checkout.  It builds the cell's scene from the seed
 (``scenes``), hands it to the program, renders the cell's traffic for
 ``--seconds`` (``loop``), compares frames sampled from the window with
-the plain reference (``check``) and prints one JSON line: with
-``--trace 0`` the cell's end-to-end metrics, with ``--trace 1`` its
-per-layer ones and the device's busy and traced seconds.  Each metric is
+the configuration's plain reference (``check``) and prints one JSON
+line: with ``--trace 0`` the cell's end-to-end metrics, with ``--trace
+1`` its per-layer ones and the device's busy and traced seconds.  Each metric is
 read by its own module under ``metrics/``.  It exits non-zero, with no
 result line, when the cell's CUDA devices are missing, and when a
 module of JAX or of the JAX package is loaded once the window has
@@ -86,12 +86,13 @@ def execute(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     """One run of ``workload`` on ``device``; prints the result line and
     returns the exit code."""
     import torch
-    from rasterbench import catalog, check, loop, reference, scenes
+    from rasterbench import catalog, check, loop, scenes
 
     torch.set_num_threads(1)
     bench = catalog.Benchmark(root)
     cell = bench.cell(workload)
     config, traffic = bench.config(cell["config"]), bench.traffic(cell["traffic"])
+    reference = bench.reference(config.get("reference"))
     plan = scenes.make_plan(config, traffic, seed)
     print(f"rasterbench: {workload} seed {seed}, {plan.faces} faces", file=sys.stderr,
           flush=True)
@@ -109,7 +110,8 @@ def execute(root: Path, workload: str, seed: int, seconds: float, trace: bool,
         data.work = [ref.render(plan.orbit.eye_at(win.trace.first + j)).work
                      for j in range(win.trace.frames)]
         del ref
-    worst, failed, work = check.compare(plan, traffic["checks"], [s.eye for s in win.samples],
+    worst, failed, work = check.compare(reference, plan, traffic["checks"],
+                                        [s.eye for s in win.samples],
                                         check.program_frames(win.samples), device)
     limits = traffic["checks"]
     correct = bool(win.samples) and failed == 0

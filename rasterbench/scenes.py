@@ -5,13 +5,17 @@ from the run's seed the bump fields, the texture noise and the orbit's
 first view; the meshes and textures come from the frozen generators of
 ``procedural``.  ``port_scene`` hands the same arrays to the program as
 ``Mesh`` objects (the program derives normals, tangents, packed
-materials and uniforms from them itself); ``reference.Reference`` takes
-the plan as it is.  ``Orbit`` gives the eye of every frame, from an
-integer view index, so both sides see the same float64 eye.
+materials and uniforms from them itself); the configuration's
+reference module (``catalog.Benchmark.reference``) takes the plan as it
+is.  The configuration's keys that ``make_plan`` does not read reach
+both sides as ``Plan.options``.  ``Orbit`` gives the eye of every
+frame, from an integer view index, so both sides see the same float64
+eye.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass, field
 
@@ -28,6 +32,8 @@ GENERATORS = {
 }
 #: the generators whose keyword ``seed`` takes the run's bump seed
 SEEDED = ("bumpy_head", "head_wall", "mixed_interior")
+#: the configuration keys ``make_plan`` reads; the others are ``Plan.options``
+READ = ("width", "height", "camera", "lights", "frustum_cull", "post", "passes")
 
 
 @dataclass
@@ -66,6 +72,9 @@ class Plan:
     passes: list[PassPlan] = field(default_factory=list)
     orbit: Orbit | None = None
     sample_seed: int = 0
+    #: a deep copy of the configuration's keys outside ``READ``, such as
+    #: ``"reference"`` or a block a route or reference module reads
+    options: dict = field(default_factory=dict)
 
     @property
     def faces(self) -> int:
@@ -101,7 +110,8 @@ def make_plan(config: dict, traffic: dict, seed: int) -> Plan:
               for k, v in config["lights"].items()}
     plan = Plan(width=int(config["width"]), height=int(config["height"]),
                 camera=dict(cam), lights=lights, frustum_cull=bool(config["frustum_cull"]),
-                post=bool(config["post"]), sample_seed=sample_seed)
+                post=bool(config["post"]), sample_seed=sample_seed,
+                options=copy.deepcopy({k: v for k, v in config.items() if k not in READ}))
     for spec in config["passes"]:
         model = spec.get("model", {})
         plan.passes.append(PassPlan(

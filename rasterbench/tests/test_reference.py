@@ -16,9 +16,12 @@ CELLS = [w["name"] for w in BENCH.spec["workloads"]]
 
 
 def _plan(cell, seed):
+    """-> (the cell's tiny plan, its traffic, its configuration's reference module)."""
     w = BENCH.cell(cell)
     traffic = BENCH.traffic(w["traffic"])
-    return scenes.make_plan(tiny_config(BENCH.config(w["config"])), traffic, seed), traffic
+    config = tiny_config(BENCH.config(w["config"]))
+    return (scenes.make_plan(config, traffic, seed), traffic,
+            BENCH.reference(config.get("reference")))
 
 
 def _program_frame(fl, eye):
@@ -29,30 +32,30 @@ def _program_frame(fl, eye):
 @pytest.mark.parametrize("seed", [3, 2**31 + 7])
 @pytest.mark.parametrize("cell", CELLS)
 def test_reference_equals_the_program(cell, seed):
-    plan, traffic = _plan(cell, seed)
+    plan, traffic, refs = _plan(cell, seed)
     fl = loop.FrameLoop(plan, traffic, BENCH.route(traffic["route"]), "cpu")
-    ref = reference.Reference(plan)
+    ref = refs.Reference(plan)
     checks = traffic["checks"]
     for frame in range(0, plan.orbit.views, plan.orbit.views // 7):
         eye = plan.orbit.eye_at(frame)
         images, depth, stats = _program_frame(fl, eye)
         want = ref.render(eye, stats="stats_off" in checks)
         got = check.numbers(images, depth, stats, want,
-                            check.reference_images(plan, want, checks), checks)
+                            check.reference_images(refs, want, checks), checks)
         assert got == {n: 0 for n in traffic["checks"]}, (frame, got)
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_perturbed_output_fails(cell):
-    plan, traffic = _plan(cell, 5)
-    ref = reference.Reference(plan)
+    plan, traffic, refs = _plan(cell, 5)
+    ref = refs.Reference(plan)
     eye = plan.orbit.eye_at(11)
     want = ref.render(eye, stats=True)
     checks = traffic["checks"]
-    images = {k: v.clone() for k, v in check.reference_images(plan, want, checks).items()}
+    images = {k: v.clone() for k, v in check.reference_images(refs, want, checks).items()}
     images["color"][3, 5, 0] ^= 1
     got = check.numbers(images, want.depth, want.stats, want,
-                        check.reference_images(plan, want, checks), checks)
+                        check.reference_images(refs, want, checks), checks)
     assert got["color_px_off"] == 1
     assert sum(got.values()) == 1
 
@@ -62,11 +65,11 @@ def test_control_in_bfloat16_fails_every_limit_it_should(cell):
     """The control at a size a test run holds: it fails the colour and,
     in the walk, the depth and the counters; the float32 reference
     against itself reads 0."""
-    plan, traffic = _plan(cell, 9)
+    plan, traffic, refs = _plan(cell, 9)
     eyes = [plan.orbit.eye_at(f) for f in (0, 40, 90)]
     limits = traffic["checks"]
-    low, failed, _ = check.compare(plan, limits, eyes,
-                                   control.bfloat16_frames(plan, limits, "cpu"), "cpu")
+    low, failed, _ = check.compare(refs, plan, limits, eyes,
+                                   control.bfloat16_frames(refs, plan, limits, "cpu"), "cpu")
     assert failed > 0
     assert low["color_px_off"] > limits["color_px_off"]
     for name in ("depth_px_off", "stats_off"):

@@ -14,7 +14,11 @@ REPO = Path(__file__).resolve().parents[2]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
-#: (config, pass index) -> mesh keys and material size of the tiny size
+#: config -> its tiny size: the frame's (width, height) and, by pass
+#: index, the mesh keys and material size.  A configuration not named
+#: here brings the same in a ``"tiny"`` block of its own file (pass
+#: indices as strings), which ``scenes.make_plan`` leaves to
+#: ``Plan.options``.
 TINY = {
     "reference_main_1200x800": {"size": (96, 64), "passes": {
         0: ({"grid": 2, "n_lat": 10, "n_lon": 14}, 16), 1: ({"n_lat": 12, "n_lon": 16}, 32)}},
@@ -58,29 +62,39 @@ def benchmark():
 
 
 def tiny_config(config: dict) -> dict:
-    cut = TINY[config["name"]]
-    config["width"], config["height"] = cut["size"]
-    for i, (mesh, size) in cut["passes"].items():
-        config["passes"][i]["mesh"].update(mesh)
-        config["passes"][i]["material"]["size"] = size
+    """``config`` cut to its tiny size: ``TINY``'s entry, else the
+    configuration's own ``"tiny"`` block."""
+    tiny = TINY.get(config["name"], config.get("tiny"))
+    if tiny is None:
+        raise ValueError(f"configuration {config['name']!r} has no \"tiny\" block and no "
+                         "TINY entry: add a \"tiny\" block (size, and per pass index its "
+                         "mesh keys and material size) to its file")
+    config["width"], config["height"] = tiny["size"]
+    for i, (mesh, size) in tiny["passes"].items():
+        config["passes"][int(i)]["mesh"].update(mesh)
+        config["passes"][int(i)]["material"]["size"] = size
     return config
 
 
-@pytest.fixture
-def tiny_root(tmp_path):
-    """A copy of BENCHMARK.json (with the ``LATER`` cell) and
-    rasterbench/'s data, route and metric files, each configuration cut
-    by ``TINY`` and each traffic mix's warm-up and profiled frames cut to
-    a few."""
-    root = tmp_path / "checkout"
-    shutil.copytree(REPO / "rasterbench", root / "rasterbench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    spec = full_spec(json.loads((REPO / "BENCHMARK.json").read_text()))
-    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+def cut(root: Path) -> None:
+    """Cut, in place, each configuration file under ``root`` to its tiny
+    size and each traffic mix's warm-up and profiled frames to a few."""
     for path in (root / "rasterbench" / "configs").glob("*.json"):
         path.write_text(json.dumps(tiny_config(json.loads(path.read_text()))))
     for path in (root / "rasterbench" / "traffic").glob("*.json"):
         t = json.loads(path.read_text())
         t["warmup_frames"], t["trace_frames"] = 2, 3
         path.write_text(json.dumps(t))
+
+
+@pytest.fixture
+def tiny_root(tmp_path):
+    """A copy of BENCHMARK.json (with the ``LATER`` cell) and
+    rasterbench/'s data, route, reference and metric files, ``cut``."""
+    root = tmp_path / "checkout"
+    shutil.copytree(REPO / "rasterbench", root / "rasterbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    spec = full_spec(json.loads((REPO / "BENCHMARK.json").read_text()))
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    cut(root)
     return root
