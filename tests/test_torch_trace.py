@@ -461,7 +461,8 @@ def test_reader_entry_in_the_benchmark(name):
     reader = _reader(name)
     assert (reader.UNIT, reader.LAYER, reader.MOVES) == (entry["unit"], entry["layer"],
                                                          entry["moves"])
-    assert entry["workloads"] == ["reference_main_1200x800.walk"]
+    assert entry["workloads"] == ["reference_main_1200x800.walk",
+                                  "reference_main_shadows_1200x800.sun_walk"]
 
 
 def test_readers_on_a_profiled_cpu_frame(scene3):

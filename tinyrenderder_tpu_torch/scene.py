@@ -113,17 +113,35 @@ class Scene:
         return "\n".join(lines)
 
     def render(self, device="cuda", frustum_cull: bool = True, collect_stats: bool = True,
-               backend: str = "tiled", mesh=None, dtype=np.float32) -> RenderResult:
+               backend: str = "tiled", mesh=None, dtype=np.float32,
+               shadows=None) -> RenderResult:
         """The frame: ``render_scene`` on ``device`` (the card unless the
         caller asks for ``"cpu"``) with ``backend`` "tiled", "xla" or one of
         the sharded backends (over ``mesh``, see ``render_scene``), or
         ``oracle_render`` in ``dtype`` with ``backend="oracle"`` (float64
         reproduces the reference's double math).  The device backends
-        render in float32 and refuse any other ``dtype``."""
-        if _backend(backend) == "oracle":
-            return oracle_render(self, frustum_cull, dtype)
-        if np.dtype(dtype) != np.float32:
+        render in float32 and refuse any other ``dtype``.
+
+        ``shadows``, a pair ``(light_dir, settings)`` (the world direction
+        the shadow-casting light comes from, and a
+        ``shadows.ShadowSettings`` or None for its defaults), renders the
+        two-pass shadow-mapped frame instead: ``shadows.render_with_shadows``
+        on the device backends, ``shadows.oracle_render_with_shadows`` on
+        the oracle; the lit pass's result is returned."""
+        oracle = _backend(backend) == "oracle"
+        if not oracle and np.dtype(dtype) != np.float32:
             raise ValueError(f"backend {backend!r} renders in float32, not {np.dtype(dtype)}")
+        if shadows is not None:
+            from tinyrenderder_tpu_torch import shadows as shadow_mapping
+            light_dir, settings = shadows
+            if oracle:
+                return shadow_mapping.oracle_render_with_shadows(
+                    self, light_dir, settings, frustum_cull, dtype)[0]
+            return shadow_mapping.render_with_shadows(self, light_dir, settings, device,
+                                                      frustum_cull, collect_stats, backend,
+                                                      mesh)[0]
+        if oracle:
+            return oracle_render(self, frustum_cull, dtype)
         return render_scene(self, device, frustum_cull, collect_stats, backend, mesh)
 
     def render_image(self, device="cuda", frustum_cull: bool = True,

@@ -15,6 +15,17 @@ stats, ``untile_one`` of its depth, then the lit scene through
 ones, both passes through ``scene.render_scene``.  The map never leaves the device: it reaches the
 lit passes as a uniform tensor.  ``oracle_render_with_shadows`` is the
 same two passes on the NumPy oracle, the bitwise reference.
+``Scene.render(shadows=(light_dir, settings))`` returns the lit result of
+either.
+
+Traced (``trace``), a shadowed frame is one frame record: ``frame``
+around both passes, ``shadow.light`` around the light camera, the depth
+scene, the light pass and its untile (the light pass's ``frame.cull``,
+``frame.inputs``, ``pass`` and ``readback`` spans lie under it), and
+``shadow.lit`` around ``shadowed_scene``; the lit pass's spans lie under
+``frame``.  Each of the four caches counts ``cache.shadow_cam``,
+``cache.shadow_merged``, ``cache.shadow_depth`` and
+``cache.shadow_lit`` ``.hit`` / ``.miss``.
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from tinyrenderder_tpu_torch import math3d
+from tinyrenderder_tpu_torch import math3d, trace
 from tinyrenderder_tpu_torch.camera import Camera
 from tinyrenderder_tpu_torch.models.mesh import Mesh
 from tinyrenderder_tpu_torch.ops import raster_sparse
@@ -56,7 +67,9 @@ def light_camera_for_scene(scene: Scene, light_dir,
             settings.size, settings.fov_margin, settings.distance_factor)
     cached = scene.__dict__.get("_shadow_light_cam")
     if cached is not None and cached[0] == ckey:
+        trace.count("cache.shadow_cam.hit")
         return cached[1]
+    trace.count("cache.shadow_cam.miss")
     boxes = scene.world_aabbs()
     lo = np.min([b.min for b in boxes], axis=0)
     hi = np.max([b.max for b in boxes], axis=0)
@@ -96,7 +109,9 @@ def _merged_world_mesh(scene: Scene) -> Mesh:
     key = tuple((id(p.mesh), p.model_matrix.tobytes()) for p in scene.passes)
     cached = scene.__dict__.get("_shadow_merged")
     if cached is not None and cached[0] == key:
+        trace.count("cache.shadow_merged.hit")
         return cached[1]
+    trace.count("cache.shadow_merged.miss")
     pos, fac = [], []
     offset = 0
     for p in scene.passes:
@@ -119,7 +134,9 @@ def depth_scene(scene: Scene, light_cam: Camera, settings: ShadowSettings) -> Sc
     ckey = (id(merged), id(light_cam), settings.size)
     cached = scene.__dict__.get("_shadow_depth_scene")
     if cached is not None and cached[0] == ckey:
+        trace.count("cache.shadow_depth.hit")
         return cached[1]
+    trace.count("cache.shadow_depth.miss")
     light = Scene(camera=light_cam, width=settings.size, height=settings.size)
     light.add(merged, np.eye(4), DepthShader(), name="lightdepth")
     scene.__dict__["_shadow_depth_scene"] = (ckey, light)
@@ -140,10 +157,21 @@ def render_depth_from_light(scene: Scene, light_cam: Camera, settings: ShadowSet
     if backend != "tiled":
         return render_scene(light, device, False, False, backend, mesh).full_depth
     passes = pass_tensors(light, device, frustum_cull=False)
-    ft, _, _ = raster_sparse.render_frame_fused(passes, s, s, device, tile_h=TILE_H)
+    ft, _, _ = raster_sparse.render_frame_fused(passes, s, s, device, tile_h=TILE_H,
+                                                names=[p.name for p in light.passes])
     depth = raster_sparse.untile_one(ft.depth, cdiv(s, TILE_W), cdiv(s, TILE_H), TILE_H,
                                      TILE_W)
     return depth[:s, :s].contiguous()
+
+
+def _phong_lights(shader) -> tuple | None:
+    """The state a Phong pass's ``ShadowMappedShader`` copies: its three
+    world lights (by value) and its normal-map strength."""
+    if not isinstance(shader, PhongShader) or isinstance(shader, ShadowMappedShader):
+        return None
+    return tuple(np.asarray(v, np.float64).tobytes() for v in
+                 (shader.key_light_world, shader.fill_light_world,
+                  shader.rim_light_world)) + (shader.normal_map_strength,)
 
 
 def shadowed_scene(scene: Scene, light_dir, shadow_map, light_cam: Camera,
@@ -152,19 +180,23 @@ def shadowed_scene(scene: Scene, light_dir, shadow_map, light_cam: Camera,
     ``ShadowMappedShader`` carrying its model-space -> light-screen
     matrix and ``shadow_map`` (a tensor, or a NumPy array for the
     oracle).  Cached on the source scene: a later call with the same
-    passes, light and camera only swaps the map on the cached shaders."""
+    passes, Phong lights, light and camera only swaps the map on the
+    cached shaders (the Phong lights are keyed by value: the swapped
+    shaders keep the lights bound when they were made)."""
     vp_l = math3d.viewport(0, 0, settings.size, settings.size)
     light_vp = vp_l @ light_cam.projection_matrix @ light_cam.view_matrix
-    ckey = (tuple((id(p.mesh), p.model_matrix.tobytes(), id(p.shader))
-                  for p in scene.passes),
+    ckey = (tuple((id(p.mesh), p.model_matrix.tobytes(), id(p.shader),
+                   _phong_lights(p.shader)) for p in scene.passes),
             light_vp.tobytes(), id(scene.camera), scene.width, scene.height)
     cached = scene.__dict__.get("_shadow_lit_scene")
     if cached is not None and cached[0] == ckey:
+        trace.count("cache.shadow_lit.hit")
         lit = cached[1]
         for p in lit.passes:
             if isinstance(p.shader, ShadowMappedShader):
                 p.shader.shadow_map = shadow_map
         return lit
+    trace.count("cache.shadow_lit.miss")
 
     out = Scene(camera=scene.camera, width=scene.width, height=scene.height)
     for p in scene.passes:
@@ -190,11 +222,15 @@ def render_with_shadows(scene: Scene, light_dir, settings: ShadowSettings | None
     a sharded backend for both passes (over ``mesh``, see
     ``scene.render_scene``)."""
     settings = settings or ShadowSettings()
-    light_cam = light_camera_for_scene(scene, light_dir, settings)
-    shadow_map = render_depth_from_light(scene, light_cam, settings, device, backend, mesh)
-    lit = shadowed_scene(scene, light_dir, shadow_map, light_cam, settings)
-    return (render_scene(lit, device, frustum_cull, collect_stats, backend, mesh),
-            shadow_map)
+    with trace.frame():
+        with trace.span("shadow.light"):
+            light_cam = light_camera_for_scene(scene, light_dir, settings)
+            shadow_map = render_depth_from_light(scene, light_cam, settings, device, backend,
+                                                 mesh)
+        with trace.span("shadow.lit"):
+            lit = shadowed_scene(scene, light_dir, shadow_map, light_cam, settings)
+        return (render_scene(lit, device, frustum_cull, collect_stats, backend, mesh),
+                shadow_map)
 
 
 def oracle_render_with_shadows(scene: Scene, light_dir,

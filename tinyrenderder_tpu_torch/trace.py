@@ -7,7 +7,11 @@ layer of a frame, at the boundary where the layer's work happens:
   span                where                                                parent
   ==================  ===================================================  ===============
   ``frame``           ``scene.render_scene``, ``render_scene_image``,      none
-                      ``render_passes``, ``render_passes_xla``
+                      ``render_passes``, ``render_passes_xla``,
+                      ``shadows.render_with_shadows`` (both passes)
+  ``shadow.light``    ``shadows.render_with_shadows``: the light camera,   ``frame``
+                      the depth scene, the light pass, its untile
+  ``shadow.lit``      ``shadows.render_with_shadows``: ``shadowed_scene``  ``frame``
   ``frame.cull``      ``scene._cull_passes``                               ``frame``
   ``frame.inputs``    ``scene._device_pass_inputs``                        ``frame``
   ``pass``            each pass of ``raster_sparse.render_frame_fused``    ``frame``
@@ -27,6 +31,9 @@ layer of a frame, at the boundary where the layer's work happens:
 
 On the image route (one pass straight to an image) ``pass.pre``,
 ``pass.raster`` and ``pass.merge_shade`` lie directly under ``frame``.
+In a shadowed frame the light pass's ``frame.cull``, ``frame.inputs``,
+``pass`` and ``readback`` spans lie under ``shadow.light``, the lit
+pass's under ``frame``.
 
 A span records its name, argument, start and end on
 ``time.perf_counter_ns()``, its parent (the span open around it) and a
@@ -51,7 +58,8 @@ the package renders from one thread.
 one integer add each: ``launch.<entry point>`` (``LAUNCH_KERNELS``),
 ``readback``, ``upload`` and ``upload_bytes`` (``convert.to_torch`` onto
 a card) and ``cache.<name>.hit`` / ``.miss`` (``cull``, ``pass_inputs``,
-``uniforms``, ``mode``).  While tracing is on, a count is also added to
+``uniforms``, ``mode``; ``shadows.py``'s ``shadow_cam``, ``shadow_merged``,
+``shadow_depth``, ``shadow_lit``).  While tracing is on, a count is also added to
 its frame's record, and a launch stamps its host time and the span it
 was made in: ``attribute`` uses the stamps to put the spans on a device
 trace's clock.
