@@ -439,6 +439,36 @@ def test_port_loads_neither_jax_nor_the_jax_package():
     assert proc.stdout.startswith("ok")
 
 
+#: traces of four marked calls of a call of kernels a, b, c ("m" the marker)
+#: -> (events read, whether the whole trace was read), or None
+TRACE_CASES = {
+    "whole": ("mabc" * 4, (9, True)),
+    "markers_dropped": ("abc" * 4, (9, True)),
+    "first_kernel_dropped": ("mbc" + "mabc" * 3, (9, False)),
+    "inconsistent": ("mb" + "ma" + "mabc" * 2, None),
+    "empty": ("", None),
+}
+
+
+@pytest.mark.parametrize("case", list(TRACE_CASES))
+def test_chip_smoke_reads_a_trace_whole_first(case):
+    """``chip_smoke.per_call`` reads a trace by the whole-trace check where
+    it holds and by the marker split only where it does not."""
+    import types
+
+    import chip_smoke
+    names, want = TRACE_CASES[case]
+    events = [types.SimpleNamespace(name=chip_smoke.MARK_KERNEL if c == "m" else f"k_{c}")
+              for c in names]
+    got = chip_smoke.per_call(events, 3)
+    if want is None:
+        assert got is None
+        return
+    read, whole = got
+    assert (len(read), whole) == want
+    assert [e.name for e in read] == ["k_a", "k_b", "k_c"] * 3
+
+
 def _imports(path: str) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(open(path).read(), path)):

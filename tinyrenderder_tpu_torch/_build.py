@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
 SOURCES = ("raster_coarse.cu", "raster_fine.cu", "raster_fine2.cu", "untile.cu",
            "fine_raster.cu", "rank_kernel.cu", "inplace_blocks.cu", "scan_resolve.cu",
-           "post.cu")
+           "post.cu", "pre.cu")
 HEADERS = ("raster_common.cuh", "raster_strip.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -83,12 +83,22 @@ SIGNATURES = {
     # depth, color, zimg, ao, final_rgb, ws (8 words of scratch), height,
     # width, stream
     "trt_post": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # kind, n_tri, position, its 3 strides, normal (or null), its 3
+    # strides, uv (or null), its 3 strides, modelview, perspective, the
+    # viewport's rows 0 and 1 (8 floats), width, height, tile_w, tile_h,
+    # tri_rec, rec_stride, valid, screen, ndc_z, clip_w, bbox, span, hist,
+    # tile_total, tile_start, ids, cstart, ccount, word, stream
+    "trt_pre_front": [_I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P,
+                      _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _P, _I,
+                      _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # span, n_tri, hist, tile_start, n_tiles, n_tiles_x, sorted_tri, stream
+    "trt_pre_place": [_P, _I, _P, _P, _I, _I, _P, _P],
 }
 
 #: C functions of no argument that return a kernel's compile-time constant
 CONSTANTS = ("trt_coarse_range_pairs", "trt_fine_range_area", "trt_fine2_range_rows",
              "trt_proto_range_rows", "trt_scan_block_w", "trt_scan_block_h",
-             "trt_scan_super_px")
+             "trt_scan_super_px", "trt_pre_range")
 
 _LIB: ctypes.CDLL | None = None
 _CONSTANT_VALUES: dict[str, int] = {}

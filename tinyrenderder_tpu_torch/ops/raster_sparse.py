@@ -33,16 +33,19 @@ have no counterpart here: nothing can overflow.
 
 from __future__ import annotations
 
+import functools
 import struct
 import time
+import types
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from tinyrenderder_tpu_torch import _build, shaders, trace
+from tinyrenderder_tpu_torch import _build, math3d, shaders, trace
 from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2
 from tinyrenderder_tpu_torch.ops.raster import BACKGROUND, FrameBuffers, PassEvents
-from tinyrenderder_tpu_torch.ops.raster_coarse import build_tri_records, coarse_raster
+from tinyrenderder_tpu_torch.ops.raster_coarse import GEOM, build_tri_records, coarse_raster
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, active_ids,
                                                       band_spans, build_bins, cdiv,
                                                       n_vary_of, shader_varyings,
@@ -52,6 +55,7 @@ __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
            "untile_one_plain", "untile3", "untile3_plain", "untile_image",
            "untile_image_plain", "untile3_image", "untile3_image_plain", "FrameTiles",
            "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
+           "pre_sparse_plain", "pre_sparse_kernel", "pre_kind", "viewport_scalars",
            "shade_compact_fresh", "compact_to_image", "post_sparse",
            "PassEvents", "reduce_events", "FINE_MODE", "DEPTH_ONLY_MODE", "decide_mode",
            "raster_pass", "grouped_pass", "render_frame_fused", "render_frame_fused_image"]
@@ -313,7 +317,26 @@ def pre_sparse(attrs: dict, uniforms: dict, shader, width: int, height: int,
                tile_h: int = TILE_H, tile_w: int = TILE_W, band: Band | None = None) -> PreSparse:
     """Vertex stage, binning, per-triangle records and active-tile
     compaction (``_pre_sparse_jit``), over every tile or over ``band``'s
-    window (band-local tile ids).  Holds the pass's one host readback."""
+    window (band-local tile ids).  Holds the pass's one host readback.
+
+    A pass the hand-written pre-stage takes (``pre_kind``) runs it
+    (``csrc/pre.cu``: three launches and the readback of one word);
+    every other pass runs ``pre_sparse_plain``.  Both give the same
+    outputs bitwise.  Each pass is counted as ``pre.kernel`` or
+    ``pre.plain``."""
+    kind = pre_kind(attrs, uniforms, shader, band)
+    if kind is None:
+        trace.count("pre.plain")
+        return pre_sparse_plain(attrs, uniforms, shader, width, height, tile_h, tile_w, band)
+    trace.count("pre.kernel")
+    return pre_sparse_kernel(attrs, uniforms, kind, width, height, tile_h, tile_w)
+
+
+def pre_sparse_plain(attrs: dict, uniforms: dict, shader, width: int, height: int,
+                     tile_h: int = TILE_H, tile_w: int = TILE_W,
+                     band: Band | None = None) -> PreSparse:
+    """``pre_sparse`` as eager PyTorch ops, on any device, for every
+    shader and band."""
     setup, varyings = vertex_stage(attrs, uniforms, shader, width, height,
                                    band.geom if band else None)
     (tx0, ty0, span_x, span_y, spans), (n_tiles_x, n_tiles_y) = band_spans(
@@ -326,6 +349,139 @@ def pre_sparse(attrs: dict, uniforms: dict, shader, width: int, height: int,
     ids = active_ids(counts > 0, n_active)
     idl = ids.long()
     return PreSparse(tri_rec, sorted_tri, ids, start[idl], counts[idl],
+                     total, n_active, setup)
+
+
+#: shader class -> the hand-written pre-stage's vertex stage (``csrc/pre.cu``'s
+#: Kind): 0 ``_base_vertex``, 1 the same with ``position_model``, 2 clip
+#: alone (records without varyings), 3 clip and the varying ``ndc_z``
+_PRE_KINDS = {shaders.PhongShader: 0, shaders.EyeShader: 0, shaders.ShadowMappedShader: 1,
+              shaders.DepthShader: 2, shaders.GrayDepthShader: 3}
+#: each kind's varyings in record order (None: a depth-only pass's records)
+_PRE_SPECS = {0: (("uv", 2), ("position_eye", 3), ("normal_eye", 3)),
+              1: (("uv", 2), ("position_eye", 3), ("normal_eye", 3), ("position_model", 3)),
+              2: None,
+              3: (("ndc_z", 1),)}
+#: the device type the hand-written pre-stage runs on
+_PRE_DEVICE = "cuda"
+
+
+def pre_kind(attrs: dict, uniforms: dict, shader, band: Band | None = None) -> int | None:
+    """The vertex stage the hand-written pre-stage computes for this pass
+    (``_PRE_KINDS``), or None where the pass takes ``pre_sparse_plain``:
+    its corners are not on the card, its shader is of another class, it
+    has a band, or a corner it reads or its modelview or perspective is
+    not a float32 tensor.  A pass the kernel takes must be readable by it:
+    a shader whose varyings are not its class's, a corner that is not (F,
+    3, C), or a matrix that is not (4, 4) on the corners' device raises
+    ValueError."""
+    kind = _PRE_KINDS.get(type(shader))
+    pos = attrs["position"]
+    if kind is None or band is not None or pos.device.type != _PRE_DEVICE:
+        return None
+    corners = {"position": 3} | ({"normal": 3, "uv": 2} if kind <= 1 else {})
+    mats = {k: uniforms[k] for k in ("modelview", "perspective")}
+    if any(attrs[k].dtype != torch.float32 for k in corners) or any(
+            getattr(m, "dtype", None) != torch.float32 for m in mats.values()):
+        return None
+    spec = tuple(shader.varying_spec.items()) if shader.writes_color else None
+    if spec != _PRE_SPECS[kind]:
+        raise ValueError(f"pre_sparse: {type(shader).__name__}'s varyings {spec} are not "
+                         f"its class's {_PRE_SPECS[kind]}")
+    f = pos.shape[0]
+    for k, c in corners.items():
+        t = attrs[k]
+        if t.device != pos.device or tuple(t.shape) != (f, 3, c):
+            raise ValueError(f"pre_sparse: {k} is {tuple(t.shape)} on {t.device}, not "
+                             f"{(f, 3, c)} on {pos.device}")
+    for k, m in mats.items():
+        if m.device != pos.device or tuple(m.shape) != (4, 4):
+            raise ValueError(f"pre_sparse: {k} is {tuple(m.shape)} on {m.device}, not (4, 4) "
+                             f"on {pos.device}")
+    return kind
+
+
+@functools.lru_cache(maxsize=64)
+def viewport_scalars(width: int, height: int) -> tuple[float, ...]:
+    """Rows 0 and 1 of ``math3d.viewport(0, 0, width, height)`` rounded to
+    float32 as ``torch.as_tensor`` rounds them: the hand-written
+    pre-stage's viewport, passed as scalars (no upload a pass)."""
+    vp = np.asarray(math3d.viewport(0, 0, width, height), dtype=np.float32)
+    return tuple(float(v) for v in vp[:2].reshape(-1))
+
+
+#: the regions of ``pre_sparse_kernel``'s workspace, in the order of
+#: ``trt_pre_front``'s arguments, each on a 16-byte boundary
+_PRE_REGIONS = ("rec", "valid", "screen", "ndc_z", "clip_w", "bbox", "span", "hist",
+                "tile_total", "tile_start", "ids", "cstart", "ccount", "word")
+
+
+@functools.lru_cache(maxsize=256)
+def _pre_layout(f: int, stride: int, n_ranges: int, n_tiles: int):
+    """({region: word offset} read-only, total words) of the workspace of a
+    pass of ``f`` triangles, ``stride``-float records, ``n_ranges`` ranges
+    and ``n_tiles`` tiles."""
+    sizes = (f * stride, cdiv(f, 4), 6 * f, 3 * f, 3 * f, 4 * f, 4 * f, n_ranges * n_tiles,
+             n_tiles, n_tiles, n_tiles, n_tiles, n_tiles, 4)
+    offsets, at = {}, 0
+    for name, n in zip(_PRE_REGIONS, sizes):
+        offsets[name] = at
+        at += cdiv(n, 4) * 4
+    return types.MappingProxyType(offsets), at
+
+
+def _corner_args(t) -> tuple:
+    """A corner tensor's pointer and element strides, or a null pointer."""
+    return (t.data_ptr(), *t.stride()) if t is not None else (None, 0, 0, 0)
+
+
+def pre_sparse_kernel(attrs: dict, uniforms: dict, kind: int, width: int, height: int,
+                      tile_h: int = TILE_H, tile_w: int = TILE_W) -> PreSparse:
+    """``pre_sparse`` of a pass ``pre_kind`` gave ``kind``, on the card:
+    the front and offsets launches, the readback of the (pairs, active
+    tiles) word, the place launch (none without pairs; a pass of no
+    triangles makes no launch and no readback).  Every output is
+    a view of one int32 workspace but ``sorted_tri``; ``ids``, ``start``
+    and ``counts`` are cut to the active tiles without a launch.  The
+    kernels get the regions' addresses; views are made only of what the
+    pass returns (the wrapper's host time is most of its time)."""
+    pos = attrs["position"]
+    dev = pos.device
+    f = pos.shape[0]
+    n_tiles_x = cdiv(width, tile_w)
+    n_tiles = n_tiles_x * cdiv(height, tile_h)
+    stride = GEOM + 3 * sum(c for _, c in _PRE_SPECS[kind] or ())
+    n_ranges = cdiv(f, _build.constant("trt_pre_range")) if f else 0
+    at, words = _pre_layout(f, stride, n_ranges, n_tiles)
+    ws = torch.empty(words, dtype=torch.int32, device=dev)
+    base = ws.data_ptr()
+    ptr = {k: base + 4 * o for k, o in at.items()}
+    total = n_active = 0
+    if f:
+        corners = (pos, attrs["normal"], attrs["uv"]) if kind <= 1 else (pos, None, None)
+        mv, persp = uniforms["modelview"].contiguous(), uniforms["perspective"].contiguous()
+        trace.count("launch.pre_front")
+        trace.count("launch.pre_offsets")
+        _build.call("trt_pre_front", dev, kind, f, *(a for t in corners for a in _corner_args(t)),
+                    mv.data_ptr(), persp.data_ptr(), *viewport_scalars(width, height), width,
+                    height, tile_w, tile_h, ptr["rec"], stride,
+                    *(ptr[k] for k in _PRE_REGIONS[1:]))
+        total, n_active = trace.readback(ws[at["word"]:at["word"] + 2])
+    sorted_tri = torch.empty(total, dtype=torch.int32, device=dev)
+    if total:
+        trace.count("launch.pre_place")
+        _build.call("trt_pre_place", dev, ptr["span"], f, ptr["hist"], ptr["tile_start"],
+                    n_tiles, n_tiles_x, sorted_tri.data_ptr())
+    wf = ws.view(torch.float32)
+    setup = {"valid": ws.view(torch.uint8).as_strided((f,), (1,), 4 * at["valid"]).view(
+                 torch.bool),
+             "screen": wf.as_strided((f, 3, 2), (6, 2, 1), at["screen"]),
+             "ndc_z": wf.as_strided((f, 3), (3, 1), at["ndc_z"]),
+             "clip_w": wf.as_strided((f, 3), (3, 1), at["clip_w"]),
+             "bbox": ws.as_strided((f, 4), (4, 1), at["bbox"])}
+    return PreSparse(wf.as_strided((f, stride), (stride, 1), at["rec"]), sorted_tri,
+                     *(ws.as_strided((n_active,), (1,), at[k]) for k in ("ids", "cstart",
+                                                                         "ccount")),
                      total, n_active, setup)
 
 

@@ -57,7 +57,8 @@ the package renders from one thread.
 **Counters** (``count``, ``counts``, ``reset_counts``) are always on,
 one integer add each: ``launch.<entry point>`` (``LAUNCH_KERNELS``),
 ``readback``, ``upload`` and ``upload_bytes`` (``convert.to_torch`` onto
-a card) and ``cache.<name>.hit`` / ``.miss`` (``cull``, ``pass_inputs``,
+a card), ``pre.kernel`` / ``pre.plain`` (each ``raster_sparse.pre_sparse``
+pass, by the pre-stage it took) and ``cache.<name>.hit`` / ``.miss`` (``cull``, ``pass_inputs``,
 ``uniforms``, ``mode``; ``shadows.py``'s ``shadow_cam``, ``shadow_merged``,
 ``shadow_depth``, ``shadow_lit``).  While tracing is on, a count is also added to
 its frame's record, and a launch stamps its host time and the span it
@@ -100,6 +101,9 @@ LAUNCH_KERNELS = {
     "launch.scan_resolve": "scan_prefix_kernel",
     "launch.scan_resolve_stats": "scan_prefix_kernel",
     "launch.post": "post_ssao_kernel",
+    "launch.pre_front": "pre_front_kernel",
+    "launch.pre_offsets": "pre_offsets_kernel",
+    "launch.pre_place": "pre_place_kernel",
 }
 
 #: device intervals that are copies or fills, not kernels
