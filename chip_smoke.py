@@ -3226,8 +3226,9 @@ def main() -> int:
     for name, (sc, w, h) in ab_scenes.items():
         a_attrs, a_shader, a_uniforms, _ = tscene.pass_tensors(sc, DEVICE)[0]
         th_a = rs.pick_tile_h(w, h)
-        probe = rf2.probe_rows(a_attrs, a_uniforms, a_shader, w, h, th_a, TILE_W)
-        rows, pairs = probe.rows, probe.pairs
+        rows = rf.pre_fine(a_attrs, a_uniforms, a_shader, w, h, th_a, TILE_W).row_total
+        grouped = rf2.pre_fine2(a_attrs, a_uniforms, a_shader, w, h, th_a, TILE_W).row_total
+        pairs = rs.pre_sparse(a_attrs, a_uniforms, a_shader, w, h, th_a, TILE_W).total
         outs, st = {}, {}
         for mode in MODES:
             with fine_mode(mode):
@@ -3240,15 +3241,13 @@ def main() -> int:
         for mode in MODES[1:]:
             if not torch.equal(outs["coarse"], outs[mode]):
                 fail(f"{name}: the {mode} image differs from the coarse image")
-        rs._FINE_DECISION.clear()
-        auto = rs.decide_mode(a_attrs, a_uniforms, a_shader, w, h, th_a, TILE_W)
         say(f"[5 a/b] {name}: faces {a_attrs['position'].shape[0]}, th {th_a}, strip rows "
-            f"{rows}, grouped rows {probe.grouped_rows}, coarse pairs {pairs}, rows/pairs "
-            f"{rows / max(pairs, 1):.3f}, grouped/rows {probe.grouped_rows / max(rows, 1):.3f}; "
+            f"{rows}, grouped rows {grouped}, coarse pairs {pairs}, rows/pairs "
+            f"{rows / max(pairs, 1):.3f}, grouped/rows {grouped / max(rows, 1):.3f}; "
             f"ms/frame in turns {ab_text(ms)}; raster ms "
             + " ".join(f"{m} {st[m]['raster']:.3f}" for m in MODES) + "; pre ms "
             + " ".join(f"{m} {st[m]['pre']:.3f}" for m in MODES)
-            + f"; images equal; auto picks {auto} | {smi}")
+            + f"; images equal | {smi}")
 
     # ---- 6. the tiled frame with exact stats, against the oracle ----
     frames = {"multimesh": tscene.multimesh_scene(REF_W, REF_H),
@@ -3439,9 +3438,9 @@ def main() -> int:
                                                              False, False, m), frame_stages)
               for mode in MODES}
         p_attrs, p_shader, p_uniforms, _ = passes[0]
-        probe = rf2.probe_rows(p_attrs, p_uniforms, p_shader, WALL_W, WALL_H, th_w, TILE_W)
-        rs._FINE_DECISION.clear()
-        auto = rs.decide_mode(p_attrs, p_uniforms, p_shader, WALL_W, WALL_H, th_w, TILE_W)
+        pf = rf.pre_fine(p_attrs, p_uniforms, p_shader, WALL_W, WALL_H, th_w, TILE_W)
+        pf2 = rf2.pre_fine2(p_attrs, p_uniforms, p_shader, WALL_W, WALL_H, th_w, TILE_W)
+        pairs = rs.pre_sparse(p_attrs, p_uniforms, p_shader, WALL_W, WALL_H, th_w, TILE_W).total
         for mode in MODES:
             say(f"[10 timing] {name}_{WALL_W}x{WALL_H} {mode} kernel route: "
                 f"{frame_ms[mode]:.3f} ms/frame, {WALL_W * WALL_H / frame_ms[mode] / 1e3:.1f} "
@@ -3452,10 +3451,10 @@ def main() -> int:
             + placement_ab(lambda m, c: staged_multipass(passes, WALL_W, WALL_H, "coarse",
                                                          False, False, m, composed=c),
                            frame_stages, "untile") + f" | {smi}")
-        say(f"[10 a/b] {name}_{WALL_W}x{WALL_H}: per-tile rows {probe.rows}, grouped rows "
-            f"{probe.grouped_rows} ({probe.grouped_rows / probe.rows:.3f}), groups "
-            f"{probe.groups}, active {probe.active}, coarse pairs {probe.pairs}; kernel route "
-            f"ms/frame in turns, {ab_text(frame_ms)}; auto picks {auto} | {smi}")
+        say(f"[10 a/b] {name}_{WALL_W}x{WALL_H}: per-tile rows {pf.row_total}, grouped rows "
+            f"{pf2.row_total} ({pf2.row_total / pf.row_total:.3f}), groups "
+            f"{pf2.n_groups}, active {pf2.n_active}, coarse pairs {pairs}; kernel route "
+            f"ms/frame in turns, {ab_text(frame_ms)} | {smi}")
 
     # ---- 12. shadow_phong_800: the shadowed frame against the oracle ----
     t0 = time.perf_counter()

@@ -22,9 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_bits, multimesh_scene
+from torch_parity import assert_bits, fine_mode, multimesh_scene
 from tinyrenderder_tpu_torch import animation
 from tinyrenderder_tpu_torch import scene as tscene
+from tinyrenderder_tpu_torch.ops import raster_sparse
 from tinyrenderder_tpu_torch.models import obj
 from tinyrenderder_tpu_torch.utils import native, tga
 
@@ -126,8 +127,7 @@ def test_failed_frame_restores_the_camera_and_resumes(orbit, tmp_path, monkeypat
     the checkpoint names the next unwritten frame, the camera is back at
     its base eye, and the resumed run completes the same files."""
     d, _ = orbit
-    cfg = animation.AnimationConfig(frames=FRAMES, device="cpu", outdir=str(tmp_path),
-                                    fine_mode="fine")
+    cfg = animation.AnimationConfig(frames=FRAMES, device="cpu", outdir=str(tmp_path))
     real, calls = tscene.render_scene, []
 
     def failing(*args, **kw):
@@ -139,14 +139,14 @@ def test_failed_frame_restores_the_camera_and_resumes(orbit, tmp_path, monkeypat
     sc = _scene()
     eye = sc.camera.params.eye.copy()
     monkeypatch.setattr(tscene, "render_scene", failing)     # Scene.render's tiled frame
-    with pytest.raises(RuntimeError, match="device lost"):
-        animation.render_animation(sc, cfg)
-    assert_bits(sc.camera.params.eye, eye, "camera restored")
-    from tinyrenderder_tpu_torch.ops import raster_sparse
-    assert raster_sparse.FINE_MODE == "auto"
-    assert sorted(os.listdir(tmp_path)) == ["checkpoint.json", "frame_0000.tga"]
-    monkeypatch.setattr(tscene, "render_scene", real)
-    assert animation.render_animation(sc, cfg)["resumed_at"] == 1
+    with fine_mode("fine"):
+        with pytest.raises(RuntimeError, match="device lost"):
+            animation.render_animation(sc, cfg)
+        assert_bits(sc.camera.params.eye, eye, "camera restored")
+        assert sorted(os.listdir(tmp_path)) == ["checkpoint.json", "frame_0000.tga"]
+        monkeypatch.setattr(tscene, "render_scene", real)
+        assert animation.render_animation(sc, cfg)["resumed_at"] == 1
+    assert raster_sparse.FINE_MODE == "coarse"
     assert _files(tmp_path) == _files(d)          # the strip raster: the same frames
 
 

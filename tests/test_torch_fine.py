@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (FRAMES, assert_bits, frame_scene, launches, reset_launches,
-                          run_jax, scene_pass, stats_vector)
+from torch_parity import (FRAMES, assert_bits, fine_mode, frame_scene, launches,
+                          reset_launches, run_jax, scene_pass, stats_vector)
 from tinyrenderder_tpu_torch import convert
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.ops import raster_coarse, raster_fine, raster_fine2, raster_sparse
@@ -88,22 +88,9 @@ def split_prepared(prepared):
     return out
 
 
-class _mode:
-    """``raster_sparse.FINE_MODE`` set inside the block."""
-
-    def __init__(self, mode):
-        self.mode = mode
-
-    def __enter__(self):
-        self.old, raster_sparse.FINE_MODE = raster_sparse.FINE_MODE, self.mode
-
-    def __exit__(self, *exc):
-        raster_sparse.FINE_MODE = self.old
-
-
 def _port_image(scene, th, mode):
     attrs, shader, uniforms, w, h = _pass(scene)
-    with _mode(mode):
+    with fine_mode(mode):
         return raster_sparse.render_frame_fused_image(
             [(attrs, shader, uniforms, False)], w, h, tile_h=th).numpy()
 
@@ -111,7 +98,7 @@ def _port_image(scene, th, mode):
 def _port_frame(name, mode):
     """(planes, RenderStats, winner plane) of a FRAMES scene on one route."""
     w, h = FRAMES[name]
-    with _mode(mode):
+    with fine_mode(mode):
         r = tscene.render_scene(frame_scene(name), "cpu")
         ft, _, _ = raster_sparse.render_frame_fused(
             tscene.pass_tensors(frame_scene(name), "cpu"), w, h, "cpu")
@@ -283,36 +270,46 @@ def test_pre_stage_max_rows(split_prepared, case):
     assert pre.max_rows == int(pre.rows.max()) > 0
 
 
-def test_mode_dispatch(monkeypatch):
-    """Forced modes apply to every pass ("fine2" included); "auto" probes
-    rows against pairs once per key when a ratio is set, and routes
-    coarse otherwise."""
-    attrs, shader, uniforms, w, h = _pass("head_phong")
-    decide = lambda: raster_sparse.decide_mode(attrs, uniforms, shader, w, h, 16, 128)  # noqa: E731
-    for mode in ("coarse", "fine", "fine2"):
+#: each forced mode's pre-stage: (module, function)
+ROUTES = {"coarse": (raster_sparse, "pre_sparse"), "fine": (raster_fine, "pre_fine"),
+          "fine2": (raster_fine2, "pre_fine2")}
+
+
+@pytest.mark.parametrize("mode", [*ROUTES, "unknown"])
+def test_mode_dispatch(monkeypatch, mode):
+    """``FINE_MODE`` is "coarse" by default; a forced "coarse", "fine" or
+    "fine2" takes every pass of both entry points through that route's
+    pre-stage; any other value, "auto" among them, raises."""
+    assert raster_sparse.FINE_MODE == "coarse"
+    attrs, shader, uniforms, w, h = _pass("cube_gouraud")
+    taken = []
+
+    def spy(route, real):
+        def call(*args, **kw):
+            taken.append(route)
+            return real(*args, **kw)
+        return call
+
+    for route, (module, name) in ROUTES.items():
+        monkeypatch.setattr(module, name, spy(route, getattr(module, name)))
+    p = (attrs, shader, uniforms, False)
+
+    def render():
+        raster_sparse.render_frame_fused_image([p], w, h)
+        raster_sparse.render_frame_fused([p, p], w, h, "cpu", collect_stats=True)
+
+    if mode in ROUTES:
         monkeypatch.setattr(raster_sparse, "FINE_MODE", mode)
-        assert decide() == mode
-    monkeypatch.setattr(raster_sparse, "FINE_MODE", "strips")
-    with pytest.raises(ValueError):
-        decide()
-    monkeypatch.setattr(raster_sparse, "FINE_MODE", "auto")
-    monkeypatch.setattr(raster_sparse, "_FINE_DECISION", {})
-    assert raster_sparse.FINE_RATIO is None and decide() == "coarse"
-    probe = raster_fine2.probe_rows(attrs, uniforms, shader, w, h, 16, 128)
-    rows, pairs = probe.rows, probe.pairs
-    pre = raster_fine.pre_fine(attrs, uniforms, shader, w, h, 16)
-    assert (rows, pairs) == (pre.row_total, raster_sparse.pre_sparse(
-        attrs, uniforms, shader, w, h, 16).total)
-    monkeypatch.setattr(raster_sparse, "FINE_MIN_FACES", 0)
-    for ratio, mode in ((rows / pairs + 1e-9, "fine"), (0.99 * rows / pairs, "coarse")):
-        monkeypatch.setattr(raster_sparse, "FINE_RATIO", ratio)
-        monkeypatch.setattr(raster_sparse, "_FINE_DECISION", {})
-        assert decide() == mode
-        monkeypatch.setattr(raster_sparse, "FINE_RATIO", 1.0)
-        assert decide() == mode                       # cached per key
-    monkeypatch.setattr(raster_sparse, "FINE_MIN_FACES", 10**6)
-    monkeypatch.setattr(raster_sparse, "_FINE_DECISION", {})
-    assert decide() == "coarse"
+        assert raster_sparse.decide_mode() == mode
+        render()
+        assert taken == [mode] * 3
+        return
+    for bad in ("auto", "strips"):
+        monkeypatch.setattr(raster_sparse, "FINE_MODE", bad)
+        for call in (raster_sparse.decide_mode, render):
+            with pytest.raises(ValueError, match="FINE_MODE"):
+                call()
+    assert taken == []
 
 
 def test_wrapper_validates_inputs(prepared):
@@ -435,7 +432,7 @@ def test_cuda_fine_raster_one_launch(split_prepared, cuda_device, stats):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(FRAMES))
 def test_cuda_fine_frame_matches_cpu_frame(port_frames, cuda_device, name):
-    with _mode("fine"):
+    with fine_mode("fine"):
         reset_launches()
         r = tscene.render_scene(frame_scene(name), cuda_device)
         torch.cuda.synchronize()

@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (FRAMES, assert_bits, frame_scene, launches, reset_launches,
-                          run_jax, scene_pass, stats_vector)
+from torch_parity import (FRAMES, assert_bits, fine_mode, frame_scene, launches,
+                          reset_launches, run_jax, scene_pass, stats_vector)
 from tinyrenderder_tpu_torch import convert
 from tinyrenderder_tpu_torch import scene as tscene
 from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2, raster_sparse
@@ -94,22 +94,9 @@ def split_prepared(prepared):
     return out
 
 
-class _mode:
-    """``raster_sparse.FINE_MODE`` set inside the block."""
-
-    def __init__(self, mode):
-        self.mode = mode
-
-    def __enter__(self):
-        self.old, raster_sparse.FINE_MODE = raster_sparse.FINE_MODE, self.mode
-
-    def __exit__(self, *exc):
-        raster_sparse.FINE_MODE = self.old
-
-
 def _port_image(scene, th, mode):
     attrs, shader, uniforms, w, h = _pass(scene)
-    with _mode(mode):
+    with fine_mode(mode):
         image, depth = raster_sparse.render_frame_fused_image(
             [(attrs, shader, uniforms, False)], w, h, tile_h=th, return_depth=True)
     return image.numpy(), depth.numpy()
@@ -119,7 +106,7 @@ def _port_frame(sc, mode):
     """(planes with stats, planes without, RenderStats, winner plane) of a
     scene on one route."""
     w, h = sc.width, sc.height
-    with _mode(mode):
+    with fine_mode(mode):
         r = tscene.render_scene(sc, "cpu")
         r0 = tscene.render_scene(sc, "cpu", collect_stats=False)
         ft, _, _ = raster_sparse.render_frame_fused(tscene.pass_tensors(sc, "cpu"), w, h,
@@ -217,13 +204,16 @@ def test_fine2_raster_plain_matches_pallas(prepared, jax_side, case, stats):
 def test_grouping_is_the_sorted_stride_sum(prepared, case):
     """Grouped rows = sum(sorted_desc[0::8]) <= the strip raster's
     per-tile rows and <= every random grouping of the strips; every strip
-    with pairs sits in a launched group (src < G * 8 where live)."""
+    with pairs sits in a launched group (src < G * 8 where live).  The
+    three pre-stages agree on the active tiles, the two strip ones on the
+    strip pairs, and a coarse pair holds 1 to 8 strip pairs."""
     pre, _, _, w, h, th = prepared[case]
     attrs, shader, uniforms, _, _ = _pass(CASES[case][0])
     per_tile = raster_fine.pre_fine(attrs, uniforms, shader, w, h, th)
-    probe = raster_fine2.probe_rows(attrs, uniforms, shader, w, h, th)
-    assert probe == (per_tile.row_total, pre.row_total, pre.n_groups, pre.n_active,
-                     raster_sparse.pre_sparse(attrs, uniforms, shader, w, h, th).total)
+    coarse = raster_sparse.pre_sparse(attrs, uniforms, shader, w, h, th)
+    assert pre.n_active == per_tile.n_active == coarse.n_active
+    assert pre.pairs == per_tile.pairs and coarse.total <= pre.pairs <= 8 * coarse.total
+    assert pre.n_groups == -(-int(pre.live.sum()) // 8) > 0      # strips with pairs, 8 a group
     assert (pre.tri8.numpy() >= 0).sum() == pre.pairs
     src, live = pre.src.numpy(), pre.live.numpy()
     assert (src[live] < pre.n_groups * 8).all()
@@ -290,7 +280,7 @@ def test_wall_scenes_match_the_oracle(name):
     points under "fine2" against the port's f32 oracle."""
     sc = WALLS[name](**WALL_SIZE)
     ref = tscene.oracle_render(sc)
-    with _mode("fine2"):
+    with fine_mode("fine2"):
         r = tscene.render_scene(sc, "cpu")
         image = tscene.render_scene_image(sc, "cpu")
     for k in PLANES:
@@ -336,39 +326,6 @@ def test_split_walk_equals_the_serial_walk(split_prepared, case, range_len, stat
     if case == "soup_ties_16":                     # every tie goes to the first copy
         f = pre.tri_rec.shape[0] // 2
         assert (want[1] >= 0).any() and int(want[1].max()) < f
-
-
-def test_mode_dispatch(monkeypatch):
-    """"fine2" forced applies to every pass; "auto" takes fine2 where
-    grouped rows <= FINE2_RATIO x per-tile rows and <= 0.45 x coarse pairs
-    (else coarse), and never while FINE2_RATIO is None.  The head's grouped
-    rows are under 0.45 of its pairs, the cube's over."""
-    def decide(a):
-        return raster_sparse.decide_mode(a[0], a[2], a[1], a[3], a[4], 16, 128)
-
-    head, cube = _pass("head_phong"), _pass("cube_gouraud")
-    monkeypatch.setattr(raster_sparse, "FINE_MODE", "fine2")
-    assert decide(head) == "fine2" and decide(cube) == "fine2"
-    monkeypatch.setattr(raster_sparse, "FINE_MODE", "auto")
-    monkeypatch.setattr(raster_sparse, "FINE_MIN_FACES", 0)
-    for a, share_side in ((head, "fine2"), (cube, "coarse")):
-        attrs, shader, uniforms, w, h = a
-        p = raster_fine2.probe_rows(attrs, uniforms, shader, w, h, 16, 128)
-        assert 0 < p.grouped_rows <= p.rows
-        assert (p.grouped_rows <= 0.45 * p.pairs) == (share_side == "fine2"), p
-        for ratio, mode in ((None, "coarse"),
-                            (p.grouped_rows / p.rows + 1e-9, share_side),
-                            (0.99 * p.grouped_rows / p.rows, "coarse")):
-            monkeypatch.setattr(raster_sparse, "FINE2_RATIO", ratio)
-            monkeypatch.setattr(raster_sparse, "_FINE_DECISION", {})
-            assert decide(a) == mode, (ratio, p)
-    attrs, shader, uniforms, w, h = head
-    p = raster_fine2.probe_rows(attrs, uniforms, shader, w, h, 16, 128)
-    monkeypatch.setattr(raster_sparse, "FINE2_RATIO", 0.99 * p.grouped_rows / p.rows)
-    # where fine2 does not apply, the strip raster's own rule still does
-    monkeypatch.setattr(raster_sparse, "FINE_RATIO", p.rows / p.pairs + 1e-9)
-    monkeypatch.setattr(raster_sparse, "_FINE_DECISION", {})
-    assert decide(head) == "fine"
 
 
 def test_wrapper_validates_inputs(prepared):
@@ -442,7 +399,7 @@ def test_cuda_fine2_raster_matches_plain(split_prepared, cuda_device, case, stat
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(FRAMES))
 def test_cuda_fine2_frame_matches_cpu_frame(port_frames, cuda_device, name):
-    with _mode("fine2"):
+    with fine_mode("fine2"):
         reset_launches()
         r = tscene.render_scene(frame_scene(name), cuda_device)
         torch.cuda.synchronize()

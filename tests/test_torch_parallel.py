@@ -34,7 +34,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from torch_parity import (assert_bits, multimesh_scene, run_jax, scene_pass,
+from torch_parity import (assert_bits, fine_mode, multimesh_scene, run_jax, scene_pass,
                           sharded_scene, spawn_ranks)
 from tinyrenderder_tpu_torch import convert
 from tinyrenderder_tpu_torch import scene as tscene
@@ -70,19 +70,6 @@ LAYOUTS = {
 }
 IMAGE_LAYOUTS = ("interleaved_4", "contiguous_2", "even_unequal_4", "measured_4")
 MODES = ("coarse", "fine", "fine2")
-
-
-class _mode:
-    """``raster_sparse.FINE_MODE`` set inside the block."""
-
-    def __init__(self, mode):
-        self.mode = mode
-
-    def __enter__(self):
-        self.old, raster_sparse.FINE_MODE = raster_sparse.FINE_MODE, self.mode
-
-    def __exit__(self, *exc):
-        raster_sparse.FINE_MODE = self.old
 
 
 def _head():
@@ -440,7 +427,7 @@ def port_frames():
         mesh = dist.emulated_mesh(n // n_cols, n_cols, "cpu")
         passes = _frame_passes(w, h)
         for mode in MODES:
-            with _mode(mode):
+            with fine_mode(mode):
                 ft, od, _ = dist.render_frame_fused_sharded(mesh, passes, w, h,
                                                             interleave=inter, bands=bands)
                 ranks = [dist.render_rank(mesh, r, passes, w, h, interleave=inter,
@@ -492,7 +479,7 @@ def test_sharded_frame_equals_the_one_rank_frame(port_frames):
     """Every layout and raster gives the tiled route's frame."""
     for (name, mode), (_, _, _, fb, _, _) in port_frames.items():
         w, h = LAYOUTS[name][:2]
-        with _mode(mode):
+        with fine_mode(mode):
             ft, od, _ = raster_sparse.render_frame_fused(_frame_passes(w, h), w, h, "cpu")
         want = raster_sparse.tiles_to_buffers(ft, w, h)
         for plane in ("color", "depth", "winner"):

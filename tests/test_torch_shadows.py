@@ -18,7 +18,7 @@ and the shaders it needs) against the JAX package.
     "fine2", and against the JAX package's
     ``render_with_shadows(backend="tiled")`` (coarse, Pallas in interpret
     mode, one subprocess for the module): bitwise, stats equal;
-plus the dispatch of depth-only passes and (``cuda``) the shadowed frame
+plus the default route of the light pass and (``cuda``) the shadowed frame
 on the GPU against the oracle."""
 
 import numpy as np
@@ -31,7 +31,7 @@ from torch_parity import (SHADOW_KEY, assert_bits, blocker_scene, launches, run_
                           stats_vector)
 from tinyrenderder_tpu import shadows as j_shadows
 from tinyrenderder_tpu_torch import convert, shaders, shadows
-from tinyrenderder_tpu_torch.ops import raster_sparse
+from tinyrenderder_tpu_torch.ops import raster_fine, raster_fine2, raster_sparse
 
 W, H, S = 96, 72, 128
 MODES = ("coarse", "fine", "fine2")
@@ -307,25 +307,31 @@ def test_frame_without_stats_and_culled(port_frames):
         assert torch.equal(getattr(r0, k), getattr(result, k)), k
 
 
-def test_depth_only_dispatch(monkeypatch):
-    """"auto" keeps a depth-only pass coarse while DEPTH_ONLY_MODE is
-    "coarse" and weighs it like a colour pass under "probe"; the decision
-    key tells the two apart."""
-    sc = shadows.depth_scene(blocker_scene("port", W, H), shadows.light_camera_for_scene(
-        blocker_scene("port", W, H), _lights("port")[0]), shadows.ShadowSettings(size=S))
-    big = tp.side_modules("port")["procedural"].bumpy_head(24, 32)
-    sc.passes[0].mesh = big
-    attrs, shader, uniforms, _ = tp.side_modules("port")["scene"].pass_tensors(sc, "cpu")[0]
-    assert attrs["position"].shape[0] >= raster_sparse.FINE_MIN_FACES
-    monkeypatch.setattr(raster_sparse, "FINE_RATIO", 1e9)
-    monkeypatch.setattr(raster_sparse, "_FINE_DECISION", {})
-    assert raster_sparse.decide_mode(attrs, uniforms, shader, S, S) == "coarse"
-    monkeypatch.setattr(raster_sparse, "DEPTH_ONLY_MODE", "probe")
-    assert raster_sparse.decide_mode(attrs, uniforms, shader, S, S) == "fine"
-    assert len(raster_sparse._FINE_DECISION) == 2
-    monkeypatch.setattr(raster_sparse, "DEPTH_ONLY_MODE", "strips")
-    with pytest.raises(ValueError, match="DEPTH_ONLY_MODE"):
-        raster_sparse.decide_mode(attrs, uniforms, shader, S, S)
+def test_default_mode_renders_every_pass_coarse(monkeypatch):
+    """Under the default ``FINE_MODE`` the shadow map's depth-only light
+    pass, the lit passes and each pass of the three-pass frame take the
+    coarse route: the strip pre-stages are never called."""
+    assert raster_sparse.FINE_MODE == "coarse"
+
+    def strip_route(*args, **kw):
+        raise AssertionError("a pass took a strip route")
+
+    monkeypatch.setattr(raster_fine, "pre_fine", strip_route)
+    monkeypatch.setattr(raster_fine2, "pre_fine2", strip_route)
+    real, shaded = raster_sparse.pre_sparse, []
+
+    def coarse(attrs, uniforms, shader, *args, **kw):
+        shaded.append(type(shader).__name__)
+        return real(attrs, uniforms, shader, *args, **kw)
+
+    monkeypatch.setattr(raster_sparse, "pre_sparse", coarse)
+    shadows.render_with_shadows(blocker_scene("port", W, H), _lights("port")[0],
+                                shadows.ShadowSettings(size=S), "cpu", collect_stats=False)
+    assert shaded == ["DepthShader", "ShadowMappedShader", "ShadowMappedShader"]
+    shaded.clear()
+    sc = tp.frame_scene("multimesh")
+    tp.side_modules("port")["scene"].render_scene(sc, "cpu", collect_stats=False)
+    assert len(shaded) == len(sc.passes) == 3
 
 
 # ---------------------------------------------------------------------------

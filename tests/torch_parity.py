@@ -21,6 +21,7 @@ Requests and results are flat ``.npz`` files with keys ``case/name``;
 
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -281,6 +282,18 @@ def reset_launches() -> None:
     """Set the port's counters, its launch counters among them, to 0."""
     from tinyrenderder_tpu_torch import trace
     trace.reset_counts()
+
+
+@contextlib.contextmanager
+def fine_mode(mode: str):
+    """The port's ``raster_sparse.FINE_MODE`` set to ``mode`` inside the
+    block and restored after it."""
+    from tinyrenderder_tpu_torch.ops import raster_sparse
+    old, raster_sparse.FINE_MODE = raster_sparse.FINE_MODE, mode
+    try:
+        yield
+    finally:
+        raster_sparse.FINE_MODE = old
 
 
 def spawn_ranks(fn, args: tuple, nprocs: int, timeout: float = 180.0) -> None:

@@ -41,7 +41,6 @@ import torch
 
 from tinyrenderder_tpu_torch import math3d, trace
 from tinyrenderder_tpu_torch import scene as tscene
-from tinyrenderder_tpu_torch.ops import raster_sparse
 from tinyrenderder_tpu_torch.parallel import dist
 from tinyrenderder_tpu_torch.scene import Scene
 from tinyrenderder_tpu_torch.utils import tga
@@ -64,8 +63,6 @@ class AnimationConfig:
     #: the ranks of a sharded backend (``parallel.dist.Mesh``); None:
     #: ``dist.make_mesh(device=device)``, the process group's ranks or one
     mesh: object = None
-    #: ``raster_sparse.FINE_MODE`` for the frames; None keeps the module's
-    fine_mode: str | None = None
     outdir: str = "frames"
     frame_pattern: str = "frame_%04d.tga"
     frustum_cull: bool = True
@@ -158,10 +155,7 @@ def render_animation(scene: Scene, cfg: AnimationConfig,
             tga.TGAImage.from_rgb(rgb).write_tga_file(path)
             _save_checkpoint(cfg, idx + 1)
 
-    old_mode = raster_sparse.FINE_MODE
     try:
-        if cfg.fine_mode is not None:
-            raster_sparse.FINE_MODE = cfg.fine_mode
         for i in range(start_frame, end_frame):
             event = None
             with trace.frame("animation.frame"):
@@ -190,7 +184,6 @@ def render_animation(scene: Scene, cfg: AnimationConfig,
         if pending is not None:
             write(*pending)
     finally:
-        raster_sparse.FINE_MODE = old_mode
         # a same-process retry must not orbit around a mid-orbit base eye
         scene.camera.set_eye(base_eye)
     if mesh is not None:

@@ -63,8 +63,7 @@ __all__ = ["STRIP_W", "STRIPS", "MAX_VARY", "PreFine",
 
 STRIP_W = 16
 STRIPS = TILE_W // STRIP_W       # 8 strips per 128-px tile
-#: the JAX package's strip-record limit, (64 - 17) // 3: ``"auto"`` routes
-#: a pass with more varying channels to the coarse raster, as there
+#: the JAX package's strip-record limit, (64 - 17) // 3
 MAX_VARY = 15
 SUB_ROWS = 8                     # slot rows per step of the plain version
 TILE_CHUNK = 64                  # tiles per step of the plain version (bounds memory)

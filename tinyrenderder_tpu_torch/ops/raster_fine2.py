@@ -5,7 +5,7 @@ that merges its outputs into the frame.
 Counterpart of ``tinyrenderder_tpu/ops/raster_fine2.py``: ``_pre_fine2_jit``,
 ``_fine2_kernel`` as launched by ``_fine2_call_jit`` (pass-local, and
 init-seeded with ``collect_stats``), ``_init_strips_jit``,
-``_post_fine2_jit``, ``_post_fine2_image_jit`` and ``_probe_both_jit``.
+``_post_fine2_jit`` and ``_post_fine2_image_jit``.
 ``_reduce_events2_jit`` is ``raster_sparse.reduce_events`` on the group
 planes.
 
@@ -73,11 +73,10 @@ from tinyrenderder_tpu_torch.ops.raster_fine import (STRIP_W, STRIPS, strip_rast
 from tinyrenderder_tpu_torch.ops.raster_tiled import (TILE_H, TILE_W, Band, active_ids,
                                                       band_spans, build_bins,
                                                       shader_varyings, tile_pair_counts,
-                                                      tile_spans, vertex_stage)
+                                                      vertex_stage)
 
-__all__ = ["PreFine2", "pre_fine2", "probe_rows",
-           "fine2_raster", "fine2_raster_plain", "fine2_raster_split_plain", "init_strips",
-           "post_fine2", "post_fine2_image"]
+__all__ = ["PreFine2", "pre_fine2", "fine2_raster", "fine2_raster_plain",
+           "fine2_raster_split_plain", "init_strips", "post_fine2", "post_fine2_image"]
 
 # user calls that launch the kernels are counted (``trace.count``, the CPU
 # path does not count) as launch.fine2_raster and launch.fine2_raster_stats,
@@ -165,29 +164,6 @@ def pre_fine2(attrs: dict, uniforms: dict, shader, width: int, height: int,
                     x0y0.contiguous(), sid_of.to(torch.int32), ids,
                     rank_of.view(n_tiles, STRIPS)[idl].to(torch.int32), counts8[idl] > 0,
                     pairs, row_total, n_groups, n_active, setup)
-
-
-class ProbeRows(NamedTuple):
-    rows: int           # per-tile rows of the strip raster: sum of each tile's largest bin
-    grouped_rows: int   # rows of the grouped strip raster: sum(sorted[0::8])
-    groups: int         # groups with rows
-    active: int         # tiles with a non-empty strip
-    pairs: int          # the coarse raster's (tile, triangle) pairs
-
-
-def probe_rows(attrs: dict, uniforms: dict, shader, width: int, height: int,
-               tile_h: int = TILE_H, tile_w: int = TILE_W) -> ProbeRows:
-    """The counts ``raster_sparse.decide_mode`` weighs, from one strip
-    binning and one readback (``_probe_both_jit`` and the coarse
-    ``_tile_spans`` total)."""
-    setup, _ = vertex_stage(attrs, uniforms, shader, width, height)
-    _, counts, _ = _strip_counts(setup, width, height, tile_h)
-    rows_t = counts.view(-1, STRIPS).amax(dim=1)
-    group_rows = torch.sort(counts, descending=True).values[0::STRIPS]
-    pairs = tile_spans(setup, tile_w, tile_h)[4].sum()
-    return ProbeRows(*trace.readback(torch.stack([rows_t.sum(), group_rows.sum(),
-                                                  (group_rows > 0).sum(), (rows_t > 0).sum(),
-                                                  pairs.to(torch.int64)])))
 
 
 def _check(tri_rec, tri8, group_start, group_rows, x0y0, init_depth, tile_h: int,

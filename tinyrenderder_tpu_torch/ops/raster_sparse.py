@@ -19,9 +19,9 @@ Counterpart of the coarse and fine branches of
     ``_untile_call_jit``).  The JAX package has a fused XLA program and a
     per-pass loop because of XLA's dispatch cost; eager PyTorch has one
     loop with a ``collect_stats`` flag;
-  * ``FINE_MODE`` and ``_decide_mode`` (``decide_mode``): which raster a
-    pass takes.  Both rasters give the same outputs, so the merge, the
-    shading and the event reduction are shared.
+  * ``FINE_MODE`` (``decide_mode``), the forced modes of ``_decide_mode``:
+    which raster every pass takes.  Both rasters give the same outputs,
+    so the merge, the shading and the event reduction are shared.
 
 Each pass reads back its totals once: the coarse route the (tile,
 triangle) pair total and the active-tile count, the strip route the
@@ -57,8 +57,8 @@ __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
            "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
            "pre_sparse_plain", "pre_sparse_kernel", "pre_kind", "viewport_scalars",
            "shade_compact_fresh", "compact_to_image", "post_sparse",
-           "PassEvents", "reduce_events", "FINE_MODE", "DEPTH_ONLY_MODE", "decide_mode",
-           "raster_pass", "grouped_pass", "render_frame_fused", "render_frame_fused_image"]
+           "PassEvents", "reduce_events", "FINE_MODE", "decide_mode", "raster_pass",
+           "grouped_pass", "walk_passes", "render_frame_fused", "render_frame_fused_image"]
 
 # untile launches are counted by entry point (``trace.count``, the CPU path
 # does not count): launch.untile_one and launch.untile_image launch the
@@ -547,75 +547,19 @@ def reduce_events(ev, depth_c, winner_c):
 # coarse/fine dispatch
 # ---------------------------------------------------------------------------
 
-#: which raster a pass takes: "auto" (``decide_mode``), or "coarse",
-#: "fine" (strips per tile) or "fine2" (grouped strips) for every pass
-FINE_MODE = "auto"
-#: "auto" takes the strip raster when its rows (the sum over tiles of
-#: the largest strip bin) are at most this share of the coarse pairs.
-#: None: never.  On the H100 the strip kernel beats the coarse one on
-#: passes with rows <= ~0.46 x pairs, but its pre-stage costs more than
-#: the kernel saves on every pass measured (PERF.md, Findings), so "auto"
-#: routes coarse until the strip pre-stage is cheaper
-FINE_RATIO: float | None = None
-#: "auto" takes the grouped strip raster when its grouped rows are at most
-#: this share of the strip raster's per-tile rows (and at most 0.45 of
-#: the coarse pairs).  None: never.  The H100 A/B on the 246k-triangle
-#: stress scene showed no gain beyond the noise (PERF.md, Findings)
-FINE2_RATIO: float | None = None
-#: passes below this many faces stay coarse (the reference's floor)
-FINE_MIN_FACES = 512
-#: which raster "auto" gives a depth-only pass (the shadow light pass):
-#: "coarse", or "probe" to weigh it as a colour pass is weighed (the strip
-#: rasters take depth-only passes too, with no varyings)
-DEPTH_ONLY_MODE = "coarse"
-#: "auto" decisions, per (faces, grid, shader kind)
-_FINE_DECISION: dict = {}
+#: which raster every pass takes: "coarse", "fine" (strips per tile) or
+#: "fine2" (grouped strips).  On the H100 neither strip route beat the
+#: coarse one end to end: the strip kernel is faster on passes with few
+#: rows a pair, but its pre-stage costs more than the kernel saves
+#: (PERF.md, Findings)
+FINE_MODE = "coarse"
 
 
-def decide_mode(attrs: dict, uniforms: dict, shader, width: int, height: int,
-                tile_h: int = TILE_H, tile_w: int = TILE_W) -> str:
-    """The raster a pass takes, "coarse", "fine" or "fine2"
-    (``_decide_mode``).  A forced ``FINE_MODE`` applies to every pass.
-    "auto" probes the pass's per-tile strip rows, grouped rows and coarse
-    pairs once per (faces, grid, shader kind) and caches the answer:
-    "fine2" where grouped rows <= FINE2_RATIO x rows (and <= 0.45 x
-    pairs, else coarse), otherwise "fine" where rows <=
-    FINE_RATIO x pairs.  Passes under ``FINE_MIN_FACES`` faces or with more
-    than ``raster_fine.MAX_VARY`` varying channels stay coarse, and so do
-    depth-only passes while ``DEPTH_ONLY_MODE`` is "coarse".  The
-    reference's TPU-only clause and its 2^21 strip-pair cap (a workaround
-    of the TPU's exact-f32 divmod) have no counterpart here."""
-    if FINE_MODE in ("coarse", "fine", "fine2"):
-        return FINE_MODE
-    if FINE_MODE != "auto":
-        raise ValueError(f"FINE_MODE must be 'auto', 'coarse', 'fine' or 'fine2', "
-                         f"not {FINE_MODE!r}")
-    if DEPTH_ONLY_MODE not in ("coarse", "probe"):
-        raise ValueError(f"DEPTH_ONLY_MODE must be 'coarse' or 'probe', not "
-                         f"{DEPTH_ONLY_MODE!r}")
-    f = attrs["position"].shape[0]
-    n_tiles_x, n_tiles_y = cdiv(width, tile_w), cdiv(height, tile_h)
-    n_vary = n_vary_of(shader)
-    depth_only = not shader.writes_color
-    key = (f, n_tiles_x, n_tiles_y, tile_h, tile_w, shader.writes_color, n_vary,
-           DEPTH_ONLY_MODE if depth_only else "")
-    mode = _FINE_DECISION.get(key)
-    trace.count("cache.mode.miss" if mode is None else "cache.mode.hit")
-    if mode is None:
-        mode = "coarse"
-        if ((FINE_RATIO is not None or FINE2_RATIO is not None) and f >= FINE_MIN_FACES
-                and n_vary <= raster_fine.MAX_VARY and tile_w == TILE_W
-                and not (depth_only and DEPTH_ONLY_MODE == "coarse")):
-            with trace.span("pass.pre"):
-                p = raster_fine2.probe_rows(attrs, uniforms, shader, width, height, tile_h,
-                                            tile_w)
-            if FINE2_RATIO is not None and p.grouped_rows <= FINE2_RATIO * p.rows:
-                if p.grouped_rows <= 0.45 * p.pairs:
-                    mode = "fine2"
-            elif FINE_RATIO is not None and p.rows <= FINE_RATIO * p.pairs:
-                mode = "fine"
-        _FINE_DECISION[key] = mode
-    return mode
+def decide_mode() -> str:
+    """The raster ``FINE_MODE`` names; any other value raises."""
+    if FINE_MODE not in ("coarse", "fine", "fine2"):
+        raise ValueError(f"FINE_MODE must be 'coarse', 'fine' or 'fine2', not {FINE_MODE!r}")
+    return FINE_MODE
 
 
 def raster_pass(mode: str, attrs: dict, uniforms: dict, shader, width: int, height: int,
@@ -703,7 +647,7 @@ def render_frame_fused_image(passes, width: int, height: int,
     else:
         n_tiles_x, n_tiles_y = band.grid(width, tile_w)
         crop = (n_tiles_y * tile_h, n_tiles_x * tile_w)
-    mode = decide_mode(attrs, uniforms, shader, width, height, tile_h, tile_w)
+    mode = decide_mode()
     if mode == "fine2":
         pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h, band=band)
         ids = pre.ids
@@ -726,6 +670,52 @@ def render_frame_fused_image(passes, width: int, height: int,
                                    fill=torch.inf)
 
 
+def walk_passes(frame, passes, render, in_place: bool, seconds: list | None = None,
+                names: list | None = None):
+    """Walk a frame's ``passes`` ([(attrs, shader, uniforms,
+    exclude_from_output_depth)]) in order, as every backend's frame walks
+    them: depth is snapshot before the first pass of a run of excluded
+    passes and restored before the next pass that is not excluded
+    (main.cpp:700,730), the winner ids run on over the passes' faces, and
+    a pass with no faces renders nothing.  ``frame`` is a NamedTuple with
+    a ``depth`` field (``FrameTiles``, ``raster.FrameBuffers``) on the
+    passes' device; ``render(frame, attrs, shader, uniforms,
+    winner_offset)`` renders one pass with faces into it and returns the
+    frame.  ``in_place``: ``render`` writes the frame's depth in place, so
+    the snapshot is a copy.  Returns (frame, output depth): the output
+    depth is the snapshot when the frame ends inside an excluded run.
+
+    Each pass runs in a ``pass`` span, its ``names`` entry the argument
+    (the pass's index without ``names``).  ``seconds``, if given,
+    receives each pass's host seconds, every pass in order (one with no
+    faces too): the JAX package's per-pass ``pass_timings``, the host
+    time of the pass's span (its launches issued, not their device work:
+    nothing synchronizes)."""
+    snapshot = None
+    in_excluded = False
+    winner_offset = 0
+    for i, (attrs, shader, uniforms, exclude) in enumerate(passes):
+        if exclude:
+            if not in_excluded:
+                snapshot = frame.depth.clone() if in_place else frame.depth   # main.cpp:700
+                in_excluded = True
+        elif in_excluded:
+            frame = frame._replace(depth=snapshot)                            # main.cpp:730
+            in_excluded = False
+        t0 = time.perf_counter()
+        f = attrs["position"].shape[0]
+        with trace.span("pass", names[i] if names else i):
+            if f:
+                if attrs["position"].device != frame.depth.device:
+                    raise ValueError(f"pass inputs are on {attrs['position'].device}, "
+                                     f"the frame on {frame.depth.device}")
+                frame = render(frame, attrs, shader, uniforms, winner_offset)
+        if seconds is not None:
+            seconds.append(time.perf_counter() - t0)
+        winner_offset += f
+    return frame, (snapshot if in_excluded else frame.depth)
+
+
 def render_frame_fused(passes, width: int, height: int, device,
                        tile_h: int = TILE_H, tile_w: int = TILE_W,
                        collect_stats: bool = False, band: Band | None = None,
@@ -733,81 +723,47 @@ def render_frame_fused(passes, width: int, height: int, device,
     """Render a multi-pass frame in tiled layout on ``device``.
 
     ``passes``: [(attrs, shader, uniforms, exclude_from_output_depth)]
-    with tensor attrs/uniforms on ``device``.  Depth is snapshot before
-    the first pass of a run of excluded passes and restored before the
-    next pass that is not excluded (main.cpp:700,730).  A pass with no
-    faces renders nothing.  Returns (FrameTiles, out_depth_tiles, events):
-    the output depth is the snapshot when the frame ends inside an
-    excluded run; ``events`` is one ``PassEvents`` per pass with faces
-    when ``collect_stats``, else None.  Updates the frame's tiles in
-    place, so the snapshot is a copy.
+    with tensor attrs/uniforms on ``device``, walked by ``walk_passes``
+    (``seconds`` and ``names`` as it takes them).  Returns (FrameTiles,
+    out_depth_tiles, events): the output depth is the snapshot when the
+    frame ends inside an excluded run; ``events`` is one ``PassEvents``
+    per pass with faces when ``collect_stats``, else None.  Updates the
+    frame's tiles in place, so the snapshot is a copy.
 
     With ``band`` the frame is the band's tiles only (``_fused_frame_body``
     with the band arguments, the body a rank of ``parallel/dist.py`` runs):
     binning is clipped to the band's window, tile ids are band-local and
     the rasters draw each tile at its global pixels; a pass's events are
-    the band's, its setup the whole pass's.
-
-    ``seconds``, if given, receives each pass's host seconds, every pass
-    in order (one with no faces too): the JAX package's per-pass
-    ``pass_timings``, the host time of the pass's ``pass`` span (its
-    launches issued, not their device work: nothing synchronizes).
-    ``names`` (one a pass) are the ``pass`` spans' arguments; the pass's
-    index without them."""
+    the band's, its setup the whole pass's."""
     if band is None:
         ft = new_frame_tiles(width, height, device, tile_h, tile_w)
     else:
         ntx, nty = band.grid(width, tile_w)
         ft = new_frame_tiles(ntx * tile_w, nty * tile_h, device, tile_h, tile_w)
     events = [] if collect_stats else None
-    snapshot = None
-    in_excluded = False
-    winner_offset = 0
-    for i, (attrs, shader, uniforms, exclude) in enumerate(passes):
-        if exclude:
-            if not in_excluded:
-                snapshot = ft.depth.clone()            # main.cpp:700
-                in_excluded = True
-        elif in_excluded:
-            ft = ft._replace(depth=snapshot)           # main.cpp:730
-            in_excluded = False
-        t0 = time.perf_counter()
-        f = attrs["position"].shape[0]
-        with trace.span("pass", names[i] if names else i):
-            if f:
-                _render_pass(ft, attrs, shader, uniforms, width, height, tile_h, tile_w,
-                             collect_stats, band, winner_offset, events)
-        if seconds is not None:
-            seconds.append(time.perf_counter() - t0)
-        winner_offset += f
-    return ft, (snapshot if in_excluded else ft.depth), events
 
+    def render(ft, attrs, shader, uniforms, winner_offset):
+        """One pass with faces: its raster route, the merge into ``ft`` and,
+        with ``collect_stats``, its ``PassEvents`` appended to ``events``."""
+        mode = decide_mode()
+        if mode == "fine2":
+            # pass-local, or seeded with the running depth for exact events
+            pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h,
+                                    ft.depth if collect_stats else None, collect_stats, band)
+            setup = pre.setup
+            with trace.span("pass.merge_shade"):
+                raster_fine2.post_fine2(ft, pre, out, winner_offset,
+                                        (lambda v: _shade_packed(v, uniforms, shader))
+                                        if shader.writes_color else None)
+        else:
+            ids, setup, out = raster_pass(mode, attrs, uniforms, shader, width, height,
+                                          tile_h, tile_w, lambda ids: ft.depth[ids.long()],
+                                          collect_stats, band)
+            with trace.span("pass.merge_shade"):
+                post_sparse(ft, ids, *out[:3], uniforms, shader, winner_offset)
+        if collect_stats:
+            with trace.span("pass.stats"):
+                events.append(PassEvents(setup, *reduce_events(out[3], out[0], out[1])))
+        return ft
 
-def _render_pass(ft: FrameTiles, attrs: dict, shader, uniforms: dict, width: int,
-                 height: int, tile_h: int, tile_w: int, collect_stats: bool,
-                 band: Band | None, winner_offset: int, events: list | None) -> None:
-    """One pass with faces of ``render_frame_fused``: its raster route, the
-    merge into ``ft`` and, with ``collect_stats``, its ``PassEvents``
-    appended to ``events``."""
-    if attrs["position"].device != ft.depth.device:
-        raise ValueError(f"pass inputs are on {attrs['position'].device}, "
-                         f"the frame on {ft.depth.device}")
-    mode = decide_mode(attrs, uniforms, shader, width, height, tile_h, tile_w)
-    if mode == "fine2":
-        # pass-local, or seeded with the running depth for exact events
-        pre, out = grouped_pass(attrs, uniforms, shader, width, height, tile_h,
-                                ft.depth if collect_stats else None, collect_stats, band)
-        setup = pre.setup
-        with trace.span("pass.merge_shade"):
-            raster_fine2.post_fine2(ft, pre, out, winner_offset,
-                                    (lambda v: _shade_packed(v, uniforms, shader))
-                                    if shader.writes_color else None)
-    else:
-        ids, setup, out = raster_pass(mode, attrs, uniforms, shader, width, height,
-                                      tile_h, tile_w, lambda ids: ft.depth[ids.long()],
-                                      collect_stats, band)
-        with trace.span("pass.merge_shade"):
-            post_sparse(ft, ids, *out[:3], uniforms, shader, winner_offset)
-    if collect_stats:
-        with trace.span("pass.stats"):
-            events.append(PassEvents(setup, *reduce_events(out[3], out[0], out[1])))
+    return (*walk_passes(ft, passes, render, True, seconds, names), events)

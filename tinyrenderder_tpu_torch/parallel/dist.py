@@ -664,25 +664,13 @@ def render_frame_geometry_tiles(mesh: Mesh, passes, width: int, height: int,
     """Render a multi-pass frame with each pass's faces split over
     ``mesh``'s ranks (``render_pass_geometry_tiles``) -> (FrameTiles,
     output depth tiles), replicated on every rank.  ``passes`` as
-    ``raster_sparse.render_frame_fused`` takes them, on the mesh's device;
-    winner ids run on over the passes.  Depth is snapshot before the first
-    pass of a run of excluded passes and restored before the next pass
-    that is not excluded (main.cpp:700,730); the output depth is the
-    snapshot when the frame ends inside an excluded run.  A frame that is
-    not tile-aligned renders on ``cdiv`` tiles; crop after the untile."""
+    ``raster_sparse.render_frame_fused`` takes them, on the mesh's device,
+    walked by ``raster_sparse.walk_passes`` (winner ids run on over the
+    passes; the excluded passes' snapshot and restore, no copy: a pass
+    makes a new frame); the output depth is the snapshot when the frame
+    ends inside an excluded run.  A frame that is not tile-aligned renders
+    on ``cdiv`` tiles; crop after the untile."""
     ft = raster_sparse.new_frame_tiles(width, height, mesh.device, tile_h, tile_w)
-    offset = 0
-    snapshot = None
-    in_excluded = False
-    for attrs, shader, uniforms, exclude in passes:
-        if exclude:
-            if not in_excluded:
-                snapshot = ft.depth                    # main.cpp:700
-                in_excluded = True
-        elif in_excluded:
-            ft = ft._replace(depth=snapshot)           # main.cpp:730
-            in_excluded = False
-        ft = render_pass_geometry_tiles(mesh, ft, attrs, shader, uniforms, width, height,
-                                        offset, tile_h, tile_w)
-        offset += attrs["position"].shape[0]
-    return ft, (snapshot if in_excluded else ft.depth)
+    return raster_sparse.walk_passes(
+        ft, passes, lambda ft, attrs, shader, uniforms, offset: render_pass_geometry_tiles(
+            mesh, ft, attrs, shader, uniforms, width, height, offset, tile_h, tile_w), False)

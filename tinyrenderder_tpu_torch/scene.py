@@ -399,12 +399,6 @@ def _add_events(stats: RenderStats, events) -> None:
         stats.fragments_exact = True
 
 
-#: the sharded backends interleave the row bands (rank b owns tile rows b,
-#: b + N, ...), which spreads coverage hot spots over the ranks; False: the
-#: contiguous layout (the same pixels)
-SHARDED_INTERLEAVE = True
-
-
 def _sharded_mesh(device, mesh, backend: str, width: int, height: int):
     """The mesh a sharded backend renders over: ``mesh`` (its device must
     be of ``device``'s type) or ``dist.make_mesh(device=device)``, as row
@@ -442,7 +436,8 @@ def _sharded_layout(scene: Scene, passes, mesh, backend: str):
     """(interleave, bands) of a sharded frame, as the JAX package routes
     it: measured bands for "sharded-measured" on more than one rank,
     ``even_unequal_bands`` when the frame's tile rows do not divide over
-    the row bands, else interleaved rows (``SHARDED_INTERLEAVE``)."""
+    the row bands, else interleaved rows (rank b owns tile rows b, b + N,
+    ...: coverage hot spots spread over the ranks)."""
     from tinyrenderder_tpu_torch.parallel import dist
     n = mesh.size
     nty = cdiv(scene.height, TILE_H)
@@ -451,7 +446,7 @@ def _sharded_layout(scene: Scene, passes, mesh, backend: str):
         bands = _measured_bands_cached(scene, passes, n)
     elif not mesh.two_d and n > 1 and nty % n:
         bands = dist.even_unequal_bands(nty, n)
-    return SHARDED_INTERLEAVE and n > 1 and not mesh.two_d and bands is None, bands
+    return n > 1 and not mesh.two_d and bands is None, bands
 
 
 def _render_sharded(scene: Scene, device, frustum_cull: bool, collect_stats: bool,
@@ -578,43 +573,24 @@ def render_passes_xla(passes, width: int, height: int, device,
                       names: list | None = None):
     """The scan backend's frame (the JAX package's ``_render_device`` with
     ``render_pass_xla``): each pass through ``raster.render_pass_xla`` in
-    image layout, its triangle ids offset by the faces before it, the
-    depth snapshot before the first pass of a run of excluded passes and
-    restored before the next pass that is not excluded (main.cpp:700,730).
-    A pass with no faces renders nothing.  With ``collect_stats`` each
-    pass's one resolve also sums its z-pass events (``PassEvents``).
-    Returns (FrameBuffers, output depth, events or None); ``seconds`` and
-    ``names`` as in ``render_passes``."""
+    image layout, walked by ``raster_sparse.walk_passes`` (its triangle
+    ids offset by the faces before it, the excluded passes' snapshot and
+    restore; the frame is never written in place, so the snapshot is no
+    copy).  With ``collect_stats`` each pass's one resolve also sums its
+    z-pass events (``PassEvents``).  Returns (FrameBuffers, output depth,
+    events or None); ``seconds`` and ``names`` as in ``render_passes``."""
     with trace.frame():
-        fb = raster.new_framebuffers(width, height, device)
         events = [] if collect_stats else None
-        snapshot = None
-        in_excluded = False
-        winner_offset = 0
-        for i, (attrs, shader, uniforms, exclude) in enumerate(passes):
-            if exclude:
-                if not in_excluded:
-                    snapshot = fb.depth             # main.cpp:700 (never written in place)
-                    in_excluded = True
-            elif in_excluded:
-                fb = fb._replace(depth=snapshot)    # main.cpp:730
-                in_excluded = False
-            t0 = time.perf_counter()
-            f = attrs["position"].shape[0]
-            with trace.span("pass", names[i] if names else i):
-                if f:
-                    if attrs["position"].device != fb.depth.device:
-                        raise ValueError(f"pass inputs are on {attrs['position'].device}, "
-                                         f"the frame on {fb.depth.device}")
-                    fb, _, ev = raster.render_pass_xla(fb, attrs, shader, uniforms,
-                                                       winner_offset,
-                                                       collect_stats=collect_stats)
-                    if collect_stats:
-                        events.append(ev)
-            if seconds is not None:
-                seconds.append(time.perf_counter() - t0)
-            winner_offset += f
-        return fb, (snapshot if in_excluded else fb.depth), events
+
+        def render(fb, attrs, shader, uniforms, winner_offset):
+            fb, _, ev = raster.render_pass_xla(fb, attrs, shader, uniforms, winner_offset,
+                                               collect_stats=collect_stats)
+            if collect_stats:
+                events.append(ev)
+            return fb
+
+        return (*raster_sparse.walk_passes(raster.new_framebuffers(width, height, device),
+                                           passes, render, False, seconds, names), events)
 
 
 def _buffers(ft, out_depth_t, passes, width: int, height: int, tile_h: int):

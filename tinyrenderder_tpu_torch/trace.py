@@ -14,10 +14,10 @@ layer of a frame, at the boundary where the layer's work happens:
   ``shadow.lit``      ``shadows.render_with_shadows``: ``shadowed_scene``  ``frame``
   ``frame.cull``      ``scene._cull_passes``                               ``frame``
   ``frame.inputs``    ``scene._device_pass_inputs``                        ``frame``
-  ``pass``            each pass of ``raster_sparse.render_frame_fused``    ``frame``
-                      and ``scene.render_passes_xla`` (its name the arg)
-  ``pass.pre``        ``pre_sparse``, ``pre_fine``, ``pre_fine2``,         ``pass``
-                      ``probe_rows``, the scan pass's vertex stage
+  ``pass``            each pass of ``raster_sparse.walk_passes``: the      ``frame``
+                      tiled, scan and geometry frames (its name the arg)
+  ``pass.pre``        ``pre_sparse``, ``pre_fine``, ``pre_fine2``, the     ``pass``
+                      scan pass's vertex stage
   ``pass.raster``     the hand-written raster or resolve call              ``pass``
   ``pass.merge_shade``  ``post_sparse``, ``post_fine2``,                   ``pass``
                       ``shade_compact_fresh``, the scan pass's shading
@@ -59,7 +59,7 @@ one integer add each: ``launch.<entry point>`` (``LAUNCH_KERNELS``),
 ``readback``, ``upload`` and ``upload_bytes`` (``convert.to_torch`` onto
 a card), ``pre.kernel`` / ``pre.plain`` (each ``raster_sparse.pre_sparse``
 pass, by the pre-stage it took) and ``cache.<name>.hit`` / ``.miss`` (``cull``, ``pass_inputs``,
-``uniforms``, ``mode``; ``shadows.py``'s ``shadow_cam``, ``shadow_merged``,
+``uniforms``; ``shadows.py``'s ``shadow_cam``, ``shadow_merged``,
 ``shadow_depth``, ``shadow_lit``).  While tracing is on, a count is also added to
 its frame's record, and a launch stamps its host time and the span it
 was made in: ``attribute`` uses the stamps to put the spans on a device
