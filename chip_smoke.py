@@ -176,6 +176,14 @@ Phases, one line each (any failure exits non-zero before the last line):
      Phong passes (``rasterbench``'s scenes at their first view), each
      entry's launches a pass, and each pass's kernel and plain pre-stage
      timed in turns, their profiler device times and the bound.
+ 23. the merge + shade (``csrc/shade.cu``, ``raster_sparse.post_sparse``
+     on CUDA tensors) == ``post_sparse_plain`` bitwise on the frame's
+     colour, depth and winner, on every pass of the walk's frame and of the
+     sun walk's (the 2048² light pass, then the lit passes over its map),
+     one launch a pass, and each pass's kernel and plain merge + shade
+     timed in turns (warm and cold L2), their profiler device times and
+     the bound.  Alone: ``python3 -c "import chip_smoke as c;
+     c.shade_phase(c.nvidia_smi(), {})"``.
 
 Before those, ``[profiler]`` names each phase whose profiler trace was
 read without its first call (``per_call``'s marker split).  The line
@@ -2768,6 +2776,129 @@ def pre_phase(smi: str, record: dict) -> dict:
     return totals
 
 
+def shade_cases() -> list:
+    """[(name, frame, ids, (depth_c, winner_c, vary_c), uniforms, shader,
+    winner_offset)]: the merge + shade inputs of every pass of the walk's
+    frame (``reference_main_1200x800``, full size, culled as the cell
+    culls) and of the sun walk's light pass (2048², 16-row tiles) and lit
+    passes, whose shadow map is that light pass's depth, at the first view
+    of ``PRE_SEED``: the coarse route's raster outputs and a copy of the
+    running frame before the pass's merge."""
+    import importlib
+
+    from rasterbench import catalog, scenes
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch import shadows
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_H, TILE_W, cdiv
+
+    out = []
+
+    def frame_cases(prefix, sc, w, h, th, cull):
+        ft = rs.new_frame_tiles(w, h, DEVICE, th)
+        offset = 0
+        for p, (a, sh, u, _) in zip(sc.passes, tscene.pass_tensors(sc, DEVICE, cull)):
+            f = a["position"].shape[0]
+            if f:
+                ids, _, o = rs.raster_pass("coarse", a, u, sh, w, h, th, TILE_W,
+                                           lambda ids: ft.depth[ids.long()])
+                out.append((f"{prefix}{p.name}", rs.FrameTiles(*(x.clone() for x in ft)), ids,
+                            o[:3], u, sh, offset))
+                rs.post_sparse(ft, ids, *o[:3], u, sh, offset)
+            offset += f
+        return ft
+
+    bench = catalog.Benchmark(Path(__file__).resolve().parent)
+    for config, traffic in (("reference_main_1200x800", "walk"),
+                            ("reference_main_shadows_1200x800", "sun_walk")):
+        plan = scenes.make_plan(bench.config(config), bench.traffic(traffic), PRE_SEED)
+        sc = scenes.port_scene(plan)
+        sc.camera.set_eye(plan.orbit.eye_at(plan.orbit.first))
+        th = rs.pick_tile_h(plan.width, plan.height)
+        if traffic == "walk":
+            frame_cases("", sc, plan.width, plan.height, th, plan.frustum_cull)
+            continue
+        ref = importlib.import_module(f"rasterbench.references.{plan.options['reference']}")
+        sun = ref.sun(plan, sc.camera.params.eye)
+        o = plan.options["shadows"]
+        settings = shadows.ShadowSettings(size=int(o["size"]), fov_margin=float(o["fov_margin"]),
+                                          distance_factor=float(o["distance_factor"]))
+        s = settings.size
+        cam = shadows.light_camera_for_scene(sc, sun, settings)
+        light = frame_cases("", shadows.depth_scene(sc, cam, settings), s, s, TILE_H, False)
+        smap = rs.untile_one(light.depth, cdiv(s, TILE_W), cdiv(s, TILE_H), TILE_H,
+                             TILE_W)[:s, :s].contiguous()
+        frame_cases("lit ", shadows.shadowed_scene(sc, sun, smap, cam, settings), plan.width,
+                    plan.height, th, plan.frustum_cull)
+    return out
+
+
+def shade_phase(smi: str, record: dict) -> dict:
+    """[23 shade]: ``csrc/shade.cu`` (``raster_sparse.post_sparse`` on the
+    card) against ``post_sparse_plain`` on ``shade_cases()``: colour, depth
+    and winner bitwise on copies of the running frame, one launch a pass,
+    then per pass the kernel and the plain merge + shade timed in turns
+    (CUDA events around the call, median of 20: warm, and after a 128 MB
+    write, cold L2), each one's profiler device time and device events a
+    call (a consistent trace; "not measured" if none is), and the
+    kernel's bound: 12 B an active pixel (its depth and winner read, its
+    depth written) and 4V + 8 B a won pixel (its varyings read, winner and
+    colour written; 4 B, the winner, in a depth-only pass).  -> main-path
+    launches."""
+    import torch
+
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+
+    t_phase = time.perf_counter()
+    cases = shade_cases()
+    totals = dict.fromkeys(launch_counts(), 0)
+    flush = cold_l2()
+    k_sum = p_sum = b_sum = 0.0
+    dev_text = lambda d: (  # noqa: E731
+        "not measured: the profiler recorded no consistent trace" if d is None else
+        f"{device_text(d[0])}, {d[1]} device events a call")
+    for name, ft, ids, planes, u, sh, offset in cases:
+        kind = rs.shade_kind(u, sh, (*ft, *planes))
+        if kind is None:
+            fail(f"shade {name}: {type(sh).__name__} takes the plain merge + shade")
+        got, want = (rs.FrameTiles(*(x.clone() for x in ft)) for _ in range(2))
+        _, counts = counted(partial(rs.post_sparse, got, ids, *planes, u, sh, offset))
+        for k, v in counts.items():
+            totals[k] += v
+        if nonzero(counts) != {"merge_shade": 1}:
+            fail(f"shade {name}: launches {nonzero(counts)}, not one merge_shade")
+        rs.post_sparse_plain(want, ids, *planes, u, sh, offset)
+        same_planes(f"merge + shade kernel vs plain, {name}", rs.FrameTiles._fields, got, want)
+        kernel = partial(rs.post_sparse, got, ids, *planes, u, sh, offset)
+        plain = partial(rs.post_sparse_plain, want, ids, *planes, u, sh, offset)
+        k_ms, p_ms = in_turns(kernel, plain)
+        k_cold, p_cold = in_turns(kernel, plain, before=flush)
+        k_dev = consistent_device_ms(kernel, ("merge_shade_kernel",))
+        p_dev = consistent_device_ms(plain)
+        depth_c, winner_c, vary_c = planes
+        won = int((winner_c >= 0).sum())
+        n_vary = vary_c.shape[1]
+        moved = depth_c.numel() * 12 + won * (4 * n_vary + (8 if sh.writes_color else 4))
+        b = bound(moved, 0)
+        k_sum, p_sum, b_sum = k_sum + k_ms, p_sum + p_ms, b_sum + b[0]
+        say(f"[23 shade] {name} ({type(sh).__name__}, kind {kind}, {ids.numel()} active tiles, "
+            f"{depth_c.numel()} px, {won} won, V {n_vary}): kernel == post_sparse_plain bitwise "
+            f"on colour, depth, winner; launches {nonzero(counts)}; in turns kernel "
+            f"{k_ms:.4f} ms (cold L2 {k_cold:.4f}; device {dev_text(k_dev)}), plain "
+            f"{p_ms:.4f} ms (cold L2 {p_cold:.4f}; device {dev_text(p_dev)}); kernel/plain "
+            f"{k_ms / p_ms:.4f}; bound {b[0]:.4f} ms ({moved / 1e6:.2f} MB) | {smi}")
+    record["merge_shade"] = {"name": "merge_shade", "route": "cuda",
+                             "source": "tinyrenderder_tpu_torch/csrc/shade.cu",
+                             "replaces": "none: tinyrenderder_tpu/ops/raster_sparse.py::"
+                                         "_post_sparse_jit is XLA", "max_abs_err": 0.0,
+                             "ms": k_sum, "plain_ms": p_sum, "bound_ms": b_sum,
+                             "bound_by": "bytes", "library_ms": None}
+    say(f"[23 shade] {len(cases)} passes: kernel {k_sum:.4f} ms, plain {p_sum:.4f} ms, bound "
+        f"{b_sum:.4f} ms in all")
+    say(f"[23 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
+    return totals
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3567,12 +3698,16 @@ def main() -> int:
     # ---- 22. the pre-stage kernel ----
     add_launches(pre_phase(smi, record))
 
+    # ---- 23. the merge + shade kernel ----
+    add_launches(shade_phase(smi, record))
+
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
     order = ("coarse_raster", "coarse_raster_stats", "dense_raster", "fine_raster",
              "fine_raster_stats", "fine2_raster", "fine2_raster_stats", "untile_one",
              "untile_image", "untile3", "untile3_image", "strip_raster_proto", "rank_pairs",
-             "inplace_blocks", "scan_resolve", "scan_resolve_stats", "post", "pre_front")
+             "inplace_blocks", "scan_resolve", "scan_resolve_stats", "post", "pre_front",
+             "merge_shade")
     # untile_one and untile3 are kernels: their launches include their image stores'
     stores = {"untile_one": "untile_image", "untile3": "untile3_image"}
     kernels = []

@@ -268,6 +268,30 @@ def test_cache_counters_hit_on_a_still_camera_and_miss_on_a_moved_one(scene3):
         scene3.camera.set_eye(eye)
 
 
+def test_cpu_frame_counts_the_plain_merge_shade_per_pass(scene3):
+    """On the CPU every pass with faces takes the plain merge + shade: one
+    ``shade.plain`` each, no ``shade.kernel`` and no launch."""
+    trace.reset_counts()
+    scene3.render(CPU)
+    c = trace.counts()
+    assert (c["shade.plain"], c["shade.kernel"], c["launch.merge_shade"]) == (3, 0, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_frame_counts_one_merge_shade_launch_per_pass():
+    """A tiled frame on the card: every pass with faces takes the kernel,
+    one ``shade.kernel`` and one ``launch.merge_shade`` each, and none the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sc = frame_scene("cli_default")
+    sc.render("cuda")
+    trace.reset_counts()
+    sc.render("cuda")
+    c = trace.counts()
+    assert (c["shade.kernel"], c["launch.merge_shade"], c["shade.plain"]) == (3, 3, 0)
+
+
 def test_counts_is_a_copy_and_resets():
     trace.count("x.test", 2)
     c = trace.counts()

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tinyrenderder_tpu_torch"
 SOURCES = ("raster_coarse.cu", "raster_fine.cu", "raster_fine2.cu", "untile.cu",
            "fine_raster.cu", "rank_kernel.cu", "inplace_blocks.cu", "scan_resolve.cu",
-           "post.cu", "pre.cu")
+           "post.cu", "pre.cu", "shade.cu")
 HEADERS = ("raster_common.cuh", "raster_strip.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -93,6 +93,12 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # span, n_tri, hist, tile_start, n_tiles, n_tiles_x, sorted_tri, stream
     "trt_pre_place": [_P, _I, _P, _P, _I, _I, _P, _P],
+    # kind, ids, n_active, tile_h, tile_w, depth_c, winner_c, vary_c (or
+    # null), n_vary, winner_offset, color, depth, winner, modelview, key,
+    # fill, rim, tex, tex_h, tex_w, shadow_matrix, shadow_map, map_h, map_w
+    # (null / 0 where the kind reads none), the shader's 12 constants, stream
+    "trt_merge_shade": [_I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _I, _I, _P, _P, _I, _I, *[_F] * 12, _P],
 }
 
 #: C functions of no argument that return a kernel's compile-time constant

@@ -4,8 +4,9 @@ to the coarse or the strip raster.  Also the untile kernels
 (``csrc/untile.cu``: one plane, and the frame's three planes in one
 launch), each with a second entry that stores the cropped image
 (``untile_image``: compact tiles gathered by id, the colour unpacked to
-RGB; ``untile3_image``: the frame's buffers), with their plain PyTorch
-versions.
+RGB; ``untile3_image``: the frame's buffers), the hand-written pre-stage
+(``csrc/pre.cu``) and merge + shade (``csrc/shade.cu``), each with its
+plain PyTorch version.
 
 Counterpart of the coarse and fine branches of
 ``tinyrenderder_tpu/ops/raster_sparse.py``:
@@ -56,7 +57,8 @@ __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
            "untile_image_plain", "untile3_image", "untile3_image_plain", "FrameTiles",
            "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
            "pre_sparse_plain", "pre_sparse_kernel", "pre_kind", "viewport_scalars",
-           "shade_compact_fresh", "compact_to_image", "post_sparse",
+           "shade_compact_fresh", "compact_to_image", "post_sparse", "post_sparse_plain",
+           "post_sparse_kernel", "shade_kind",
            "PassEvents", "reduce_events", "FINE_MODE", "decide_mode", "raster_pass",
            "grouped_pass", "walk_passes", "render_frame_fused", "render_frame_fused_image"]
 
@@ -514,10 +516,30 @@ def post_sparse(ft: FrameTiles, ids, depth_c, winner_c, vary_c, uniforms: dict,
     kernel already resolved depth against the running frame, so depth is
     scattered back as is; where the pass won a pixel (winner >= 0) the
     winner becomes ``winner_c + winner_offset`` and the colour its shaded
-    fragment, elsewhere both keep the frame's.  Every active tile is
-    shaded; the TPU's won-tile capacity only chose which tiles to shade,
-    never a pixel's value.  A depth-only pass shades nothing and keeps
-    the frame's colour."""
+    fragment, elsewhere both keep the frame's.  A depth-only pass shades
+    nothing and keeps the frame's colour.
+
+    A pass the hand-written merge + shade takes (``shade_kind``) runs it
+    (``csrc/shade.cu``: one launch, none without active tiles); every
+    other pass runs ``post_sparse_plain``.  Both give the same frame
+    bitwise.  Each call is counted as ``shade.kernel`` or
+    ``shade.plain``."""
+    kind = shade_kind(uniforms, shader, (*ft, depth_c, winner_c, vary_c))
+    if kind is None:
+        trace.count("shade.plain")
+        post_sparse_plain(ft, ids, depth_c, winner_c, vary_c, uniforms, shader, winner_offset)
+        return
+    trace.count("shade.kernel")
+    post_sparse_kernel(ft, ids, depth_c, winner_c, vary_c, uniforms, shader, winner_offset,
+                       kind)
+
+
+def post_sparse_plain(ft: FrameTiles, ids, depth_c, winner_c, vary_c, uniforms: dict,
+                      shader, winner_offset: int) -> None:
+    """``post_sparse`` as eager PyTorch ops, on any device, for every
+    shader.  Every active tile is shaded, and the pixels the pass lost
+    are thrown away; the TPU's won-tile capacity only chose which tiles
+    to shade, never a pixel's value."""
     idl = ids.long()
     won = winner_c >= 0
     ft.depth.index_copy_(0, idl, depth_c)
@@ -527,6 +549,118 @@ def post_sparse(ft: FrameTiles, ids, depth_c, winner_c, vary_c, uniforms: dict,
         return
     out = _shade_packed(vary_c, uniforms, shader)
     ft.color.index_copy_(0, idl, torch.where(won, out, ft.color[idl]))
+
+
+#: shader class -> the hand-written merge + shade's fragment (``csrc/shade.cu``'s
+#: Kind): 0 Phong, 1 Eye, 2 ShadowMappedShader, 3 GrayDepthShader, 4 depth only
+_SHADE_KINDS = {shaders.PhongShader: 0, shaders.EyeShader: 1, shaders.ShadowMappedShader: 2,
+                shaders.GrayDepthShader: 3, shaders.DepthShader: 4}
+#: each kind's varyings in record order (None: a depth-only pass, which shades nothing)
+_SHADE_SPECS = {0: _PRE_SPECS[0], 1: _PRE_SPECS[0], 2: _PRE_SPECS[1], 3: _PRE_SPECS[3], 4: None}
+#: the uniforms each kind's fragment reads, with their shapes (None: any
+#: size above 0): float32, the packed texture uint8
+_TEX, _MAP = {"tex_packed": (None, None, 7)}, {"shadow_matrix": (4, 4), "shadow_map": (None, None)}
+_LIGHTS = {"key_light_eye": (3,), "fill_light_eye": (3,), "rim_light_eye": (3,)}
+_SHADE_UNIFORMS = {0: {"modelview": (4, 4), **_LIGHTS, **_TEX},
+                   1: {"key_light_eye": (3,), "rim_light_eye": (3,), **_TEX},
+                   2: {"modelview": (4, 4), **_LIGHTS, **_TEX, **_MAP}, 3: {}, 4: {}}
+#: the dtypes of the planes ``shade_kind`` takes: the frame's colour, depth and
+#: winner, the raster's depth, winner and varyings
+_SHADE_PLANES = (torch.int32, torch.float32, torch.int32, torch.float32, torch.int32,
+                 torch.float32)
+#: the device type the hand-written merge + shade runs on
+_SHADE_DEVICE = "cuda"
+
+
+def shade_kind(uniforms: dict, shader, planes) -> int | None:
+    """The fragment the hand-written merge + shade computes for this pass
+    (``_SHADE_KINDS``), or None where the pass takes ``post_sparse_plain``:
+    its planes are not on the card, its shader is of another class, a
+    colour kind's ``tex_packed`` is None, or a plane or a uniform the
+    fragment reads is a tensor of another dtype (float32 planes and
+    uniforms, int32 winners and colour, a uint8 texture).  ``planes``:
+    the frame's colour, depth and winner tiles and the raster's depth,
+    winner and varyings.  A pass the kernel takes must be readable by it:
+    a shader whose varyings are not its class's, planes of other shapes
+    or devices or not contiguous, or a uniform that is not a tensor of
+    its shape on the planes' device raises ValueError."""
+    kind = _SHADE_KINDS.get(type(shader))
+    dev = planes[0].device
+    if kind is None or dev.type != _SHADE_DEVICE:
+        return None
+    names = _SHADE_UNIFORMS[kind]
+    if "tex_packed" in names and uniforms.get("tex_packed") is None:
+        return None
+    if any(p.dtype != d for p, d in zip(planes, _SHADE_PLANES)) or any(
+            isinstance(uniforms.get(k), torch.Tensor) and uniforms[k].dtype != (
+                torch.uint8 if k == "tex_packed" else torch.float32) for k in names):
+        return None
+    spec = tuple(shader.varying_spec.items()) if shader.writes_color else None
+    if spec != _SHADE_SPECS[kind]:
+        raise ValueError(f"post_sparse: {type(shader).__name__}'s varyings {spec} are not "
+                         f"its class's {_SHADE_SPECS[kind]}")
+    frame, (depth_c, winner_c, vary_c) = planes[:3], planes[3:]
+    tile = tuple(frame[0].shape[1:])
+    a = depth_c.shape[0]
+    n_vary = sum(c for _, c in spec or ())
+    want = [(p, tuple(frame[0].shape)) for p in frame] + [
+        (depth_c, (a, *tile)), (winner_c, (a, *tile)), (vary_c, (a, n_vary, *tile))]
+    for p, shape in want:
+        if p.device != dev or tuple(p.shape) != shape or not p.is_contiguous():
+            raise ValueError(f"post_sparse: a plane is {tuple(p.shape)} on {p.device}, not a "
+                             f"contiguous {shape} on {dev}")
+    for k, shape in names.items():
+        t = uniforms.get(k)
+        if not (isinstance(t, torch.Tensor) and t.device == dev and t.dim() == len(shape)
+                and all(n > 0 if s is None else n == s for s, n in zip(shape, t.shape))):
+            what = (f"{tuple(t.shape)} on {t.device}" if isinstance(t, torch.Tensor)
+                    else type(t).__name__)
+            raise ValueError(f"post_sparse: {k} is {what}, not a {shape} tensor on {dev}")
+    return kind
+
+
+def _shade_scalars(shader) -> tuple[float, ...]:
+    """``csrc/shade.cu``'s Consts: the shader's constants as Python floats
+    (ctypes rounds each to float32, as PyTorch rounds a Python float
+    operand), 0.0 where the class has none."""
+    g = lambda k: float(getattr(shader, k, 0.0))  # noqa: E731
+    s = g("normal_map_strength")
+    return (g("AMBIENT"), g("KEY_DIFFUSE_INTENSITY"), g("KEY_SPECULAR_INTENSITY"),
+            g("FILL_DIFFUSE_INTENSITY"), g("RIM_DIFFUSE_INTENSITY"), g("SPECULAR_SCALE"),
+            1.0 - s, s, g("SHADOW_EPS"), g("SHADOW_AMBIENT_FACTOR"),
+            float(shaders.EYE_DIFFUSE_BRIGHTNESS_THRESHOLD),
+            float(shaders.EYE_SPECULAR_POWER_THRESHOLD))
+
+
+def post_sparse_kernel(ft: FrameTiles, ids, depth_c, winner_c, vary_c, uniforms: dict,
+                       shader, winner_offset: int, kind: int) -> None:
+    """``post_sparse`` of a pass ``shade_kind`` gave ``kind``, on the card:
+    one launch of ``merge_shade_kernel`` (none without active tiles), no
+    allocation, no readback and no upload: the uniforms are read where
+    ``scene`` put them."""
+    n_active = ids.shape[0]
+    if ids.dtype != torch.int32 or ids.dim() != 1 or not ids.is_contiguous() or (
+            ids.device != depth_c.device or n_active != depth_c.shape[0]):
+        raise ValueError(f"post_sparse: ids must be a contiguous ({depth_c.shape[0]},) int32 "
+                         f"tensor on {depth_c.device}")
+    if not -2**31 <= winner_offset < 2**31:
+        raise ValueError(f"post_sparse: winner offset {winner_offset} is not an int32")
+    if n_active == 0:
+        return
+    u = {k: uniforms[k].contiguous() for k in _SHADE_UNIFORMS[kind]}
+    ptr = lambda k: u[k].data_ptr() if k in u else None  # noqa: E731
+    tex, smap = u.get("tex_packed"), u.get("shadow_map")
+    tile_h, tile_w = depth_c.shape[1:]
+    trace.count("launch.merge_shade")
+    _build.call("trt_merge_shade", depth_c.device, kind, ids.data_ptr(), n_active, tile_h,
+                tile_w, depth_c.data_ptr(), winner_c.data_ptr(),
+                vary_c.data_ptr() if vary_c.shape[1] else None, vary_c.shape[1], winner_offset,
+                ft.color.data_ptr(), ft.depth.data_ptr(), ft.winner.data_ptr(),
+                *(ptr(k) for k in ("modelview", "key_light_eye", "fill_light_eye",
+                                   "rim_light_eye", "tex_packed")),
+                *(tex.shape[:2] if tex is not None else (0, 0)),
+                ptr("shadow_matrix"), ptr("shadow_map"),
+                *(smap.shape if smap is not None else (0, 0)), *_shade_scalars(shader))
 
 
 def reduce_events(ev, depth_c, winner_c):

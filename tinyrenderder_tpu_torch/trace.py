@@ -58,7 +58,8 @@ the package renders from one thread.
 one integer add each: ``launch.<entry point>`` (``LAUNCH_KERNELS``),
 ``readback``, ``upload`` and ``upload_bytes`` (``convert.to_torch`` onto
 a card), ``pre.kernel`` / ``pre.plain`` (each ``raster_sparse.pre_sparse``
-pass, by the pre-stage it took) and ``cache.<name>.hit`` / ``.miss`` (``cull``, ``pass_inputs``,
+pass, by the pre-stage it took), ``shade.kernel`` / ``shade.plain`` (each
+``raster_sparse.post_sparse`` call, by the merge + shade it took) and ``cache.<name>.hit`` / ``.miss`` (``cull``, ``pass_inputs``,
 ``uniforms``; ``shadows.py``'s ``shadow_cam``, ``shadow_merged``,
 ``shadow_depth``, ``shadow_lit``).  While tracing is on, a count is also added to
 its frame's record, and a launch stamps its host time and the span it
@@ -104,6 +105,7 @@ LAUNCH_KERNELS = {
     "launch.pre_front": "pre_front_kernel",
     "launch.pre_offsets": "pre_offsets_kernel",
     "launch.pre_place": "pre_place_kernel",
+    "launch.merge_shade": "merge_shade_kernel",
 }
 
 #: device intervals that are copies or fills, not kernels
