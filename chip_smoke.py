@@ -554,7 +554,8 @@ def staged_frame(attrs, shader, uniforms, w, h, th, mode, plain, marks=None,
         c_img, _ = rf2.post_fine2_image(pre, out,
                                         lambda v: rs._shade_packed(v, uniforms, shader))
     else:
-        c_img = rs.shade_compact_fresh(out[1], out[2], uniforms, shader)
+        shade = rs.shade_compact_fresh_plain if plain else rs.shade_compact_fresh
+        c_img = shade(out[1], out[2], uniforms, shader)
     mark("shade")
     if plain:
         image = rs.untile_image_plain(c_img, pre.ids, ntx, nty, th, TILE_W, h, w, rgb=True)
@@ -2899,6 +2900,122 @@ def shade_phase(smi: str, record: dict) -> dict:
     return totals
 
 
+def fresh_cases() -> list:
+    """[(name, scene, eye, (winner_c, vary_c), uniforms, shader)]: the image
+    route's single pass of ``object_orbit_800`` at full size, as
+    ``rasterbench`` builds it, at three views of ``PRE_SEED``'s orbit
+    (the first and 50 and 100 views on): its Phong pass as configured,
+    and the same pass with an Eye shader on the same texture; the coarse
+    route's raster outputs on a fresh frame."""
+    import torch
+
+    from rasterbench import catalog, scenes
+    from tinyrenderder_tpu_torch import scene as tscene
+    from tinyrenderder_tpu_torch import shaders
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+    from tinyrenderder_tpu_torch.ops.raster_tiled import TILE_W
+
+    bench = catalog.Benchmark(Path(__file__).resolve().parent)
+    plan = scenes.make_plan(bench.config("object_orbit_800"), bench.traffic("host"), PRE_SEED)
+    out = []
+    for eye_shader in (False, True):
+        sc = scenes.port_scene(plan)
+        if eye_shader:
+            key, _, rim = tscene._lights()
+            sc.passes[0].shader = shaders.EyeShader(key, rim)
+        th = rs.pick_tile_h(plan.width, plan.height)
+        for step in (0, 50, 100):
+            eye = plan.orbit.eye_at(plan.orbit.first + step)
+            sc.camera.set_eye(eye)
+            (a, sh, u, _), = tscene.pass_tensors(sc, DEVICE, plan.frustum_cull)
+            _, _, o = rs.raster_pass(
+                "coarse", a, u, sh, plan.width, plan.height, th, TILE_W,
+                lambda ids: torch.full((ids.shape[0], th, TILE_W), torch.inf, device=DEVICE))
+            out.append((f"{type(sh).__name__} view +{step}", sc, eye, o[1:3], u, sh))
+    return out
+
+
+def fresh_phase(smi: str, record: dict) -> dict:
+    """[24 fresh]: ``csrc/shade.cu``'s fresh-frame entry
+    (``raster_sparse.shade_compact_fresh`` on the card) against
+    ``shade_compact_fresh_plain`` on ``fresh_cases()``: the packed tiles
+    bitwise, one launch a pass, then per pass both timed in turns (CUDA
+    events around the call, median of 20: warm and cold L2), each one's
+    profiler device time, and the kernel's bound as
+    ``rasterbench/metrics/image_shade_roofline_pct`` counts it (4V + 8 B
+    and its Phong operations a won pixel).  Then each case's frame through
+    ``Scene.render_image`` == the frame of the plain shading, with the
+    image route's launches counted (one ``shade_fresh``).  -> main-path
+    launches."""
+    import torch
+
+    from rasterbench.metrics import image_shade_roofline_pct as roof
+    from tinyrenderder_tpu_torch.ops import raster_sparse as rs
+
+    t_phase = time.perf_counter()
+    cases = fresh_cases()
+    totals = dict.fromkeys(launch_counts(), 0)
+    flush = cold_l2()
+    k_sum = p_sum = b_sum = 0.0
+    dev_text = lambda d: (  # noqa: E731
+        "not measured: the profiler recorded no consistent trace" if d is None else
+        f"{device_text(d[0])}, {d[1]} device events a call")
+    for name, sc, eye, (winner_c, vary_c), u, sh in cases:
+        kind = rs.shade_kind(u, sh, (winner_c, vary_c))
+        if kind is None:
+            fail(f"fresh {name}: {type(sh).__name__} takes the plain fresh shading")
+        got, counts = counted(partial(rs.shade_compact_fresh, winner_c, vary_c, u, sh))
+        for k, v in counts.items():
+            totals[k] += v
+        if nonzero(counts) != {"shade_fresh": 1}:
+            fail(f"fresh {name}: launches {nonzero(counts)}, not one shade_fresh")
+        want = rs.shade_compact_fresh_plain(winner_c, vary_c, u, sh)
+        same_planes(f"fresh shading kernel vs plain, {name}", ("colour",), (got,), (want,))
+        kernel = partial(rs.shade_compact_fresh, winner_c, vary_c, u, sh)
+        plain = partial(rs.shade_compact_fresh_plain, winner_c, vary_c, u, sh)
+        k_ms, p_ms = in_turns(kernel, plain)
+        k_cold, p_cold = in_turns(kernel, plain, before=flush)
+        k_dev = consistent_device_ms(kernel, ("shade_fresh_kernel",))
+        p_dev = consistent_device_ms(plain)
+        won = int((winner_c >= 0).sum())
+        b_ms = roof.pass_bound_s({"won": won, "varyings": vary_c.shape[1]}) * 1e3
+        k_sum, p_sum, b_sum = k_sum + k_ms, p_sum + p_ms, b_sum + b_ms
+        dev_ms = k_dev[0].get("shade_fresh_kernel") if k_dev else None
+        share = ("not measured" if not dev_ms else f"{100 * b_ms / dev_ms:.2f}% of its device "
+                 "time")
+        sc.camera.set_eye(eye)
+        image, frame_counts = counted(lambda: sc.render_image(DEVICE, frustum_cull=True,
+                                                              backend="tiled"))
+        for k, v in frame_counts.items():
+            totals[k] += v
+        old, rs._SHADE_DEVICE = rs._SHADE_DEVICE, "none"
+        try:
+            plain_image = sc.render_image(DEVICE, frustum_cull=True, backend="tiled")
+        finally:
+            rs._SHADE_DEVICE = old
+        same_planes(f"render_image with the fresh kernel vs plain, {name}", ("image",),
+                    (image,), (plain_image,))
+        if frame_counts["shade_fresh"] != 1:
+            fail(f"fresh {name}: render_image launched {nonzero(frame_counts)}")
+        say(f"[24 fresh] {name} ({type(sh).__name__}, kind {kind}, {winner_c.shape[0]} tiles, "
+            f"{winner_c.numel()} px, {won} won, V {vary_c.shape[1]}): kernel == "
+            f"shade_compact_fresh_plain bitwise; launches {nonzero(counts)}; in turns kernel "
+            f"{k_ms:.4f} ms (cold L2 {k_cold:.4f}; device {dev_text(k_dev)}), plain "
+            f"{p_ms:.4f} ms (cold L2 {p_cold:.4f}; device {dev_text(p_dev)}); kernel/plain "
+            f"{k_ms / p_ms:.4f}; bound {b_ms:.4f} ms, {share}; render_image == the plain "
+            f"shading's frame, launches {nonzero(frame_counts)} | {smi}")
+    record["shade_fresh"] = {"name": "shade_fresh", "route": "cuda",
+                             "source": "tinyrenderder_tpu_torch/csrc/shade.cu",
+                             "replaces": "none: tinyrenderder_tpu/ops/raster_sparse.py::"
+                                         "_shade_compact_fresh is XLA", "max_abs_err": 0.0,
+                             "ms": k_sum, "plain_ms": p_sum, "bound_ms": b_sum,
+                             "bound_by": "bytes", "library_ms": None}
+    say(f"[24 fresh] {len(cases)} passes: kernel {k_sum:.4f} ms, plain {p_sum:.4f} ms, bound "
+        f"{b_sum:.4f} ms in all")
+    say(f"[24 done] {time.perf_counter() - t_phase:.1f} s; launches {nonzero(totals)}")
+    return totals
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3701,13 +3818,16 @@ def main() -> int:
     # ---- 23. the merge + shade kernel ----
     add_launches(shade_phase(smi, record))
 
+    # ---- 24. the fresh-frame shading kernel ----
+    add_launches(fresh_phase(smi, record))
+
     if "jax" in sys.modules or any(m.split(".")[0] == "tinyrenderder_tpu" for m in sys.modules):
         fail("jax or the JAX package was imported")
     order = ("coarse_raster", "coarse_raster_stats", "dense_raster", "fine_raster",
              "fine_raster_stats", "fine2_raster", "fine2_raster_stats", "untile_one",
              "untile_image", "untile3", "untile3_image", "strip_raster_proto", "rank_pairs",
              "inplace_blocks", "scan_resolve", "scan_resolve_stats", "post", "pre_front",
-             "merge_shade")
+             "merge_shade", "shade_fresh")
     # untile_one and untile3 are kernels: their launches include their image stores'
     stores = {"untile_one": "untile_image", "untile3": "untile3_image"}
     kernels = []

@@ -22,11 +22,23 @@ colour and winners, with a large winner offset; a stress set (NaN and
 vectors, eye-pixel texels on both sides of both thresholds, light-space
 w <= 0 and off-map shadow coordinates); one active tile with no won
 pixel; and a pass makes exactly one device operation, a pass with no
-active tile none."""
+active tile none.
+
+The fresh-frame entry (``shade_compact_fresh``, the image route's
+shading) likewise: on the CPU its routing (the same predicate on the
+winner and varyings alone), the plain chain and its ``shade.plain``
+count, no launch without tiles, the source's signature and anchor, and
+the benchmark's ``image_shade_roofline_pct`` on a synthetic run; on the
+card the kernel against ``shade_compact_fresh_plain`` bitwise on the
+stress set and on every pass of the ``object_orbit_800`` orbit at its
+tiny size (Phong, and the same frames with an Eye shader), and the
+image route's frames equal to the plain route's with one launch a
+frame."""
 
 from __future__ import annotations
 
 import ctypes
+import json
 import re
 from pathlib import Path
 
@@ -427,6 +439,187 @@ def test_cpu_frames_are_the_eager_chain_pass_by_pass(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# CPU: the fresh-frame entry
+# ---------------------------------------------------------------------------
+
+COLOUR_KERNEL_SHADERS = [k for k in KERNEL_SHADERS if k != "depth"]
+COLOUR_SHADERS = [k for k in SHADERS if k != "depth"]
+
+
+def _meta_fresh(name="phong", device="meta", **kw):
+    """(uniforms, shader, (winner_c, vary_c)) of a fresh pass as meta tensors."""
+    uniforms, shader, planes = _meta_pass(name, device, **kw)
+    return uniforms, shader, planes[4:]
+
+
+def eager_fresh(winner_c, vary_c, uniforms, shader):
+    """The fresh shading as the eager chain was written before the kernel."""
+    vary, i = {}, 0
+    for k, c in shader.varying_spec.items():
+        vary[k] = vary_c[:, i:i + c].movedim(1, -1)
+        i += c
+    out = raster_sparse.pack_rgb(shaders.finalize_color(shaders.fragment(shader, uniforms,
+                                                                          vary)))
+    return torch.where(winner_c >= 0, out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("name", list(SHADERS))
+def test_fresh_route_by_shader_class(meta_is_a_card, name):
+    """The winner and varyings alone route as the six planes do."""
+    assert raster_sparse.shade_kind(*_meta_fresh(name)) == SHADERS[name][1]
+
+
+@pytest.mark.parametrize("name", COLOUR_KERNEL_SHADERS)
+def test_fresh_route_cpu_planes_take_the_plain_version(name):
+    assert raster_sparse.shade_kind(*_meta_fresh(name, device="cpu")) is None
+
+
+@pytest.mark.parametrize("name", TEXTURED)
+def test_fresh_route_without_a_packed_texture_takes_the_plain_version(meta_is_a_card, name):
+    uniforms, shader, planes = _meta_fresh(name)
+    uniforms["tex_packed"] = None
+    assert raster_sparse.shade_kind(uniforms, shader, planes) is None
+
+
+@pytest.mark.parametrize("case", ["vary_f64", "modelview_f64", "key_f16", "map_f64",
+                                  "texture_i16", "winner_i64"])
+def test_fresh_route_other_dtypes_take_the_plain_version(meta_is_a_card, case):
+    name = "shadow_phong"
+    if case == "vary_f64":
+        uniforms, shader, planes = _meta_fresh(name, vary_dtype=torch.float64)
+    elif case == "winner_i64":
+        uniforms, shader, planes = _meta_fresh(name)
+        planes = (planes[0].long(), planes[1])
+    else:
+        key, dtype = {"modelview_f64": ("modelview", torch.float64),
+                      "key_f16": ("key_light_eye", torch.float16),
+                      "map_f64": ("shadow_map", torch.float64),
+                      "texture_i16": ("tex_packed", torch.int16)}[case]
+        uniforms, shader, planes = _meta_fresh(name, **{key: dtype})
+    assert raster_sparse.shade_kind(uniforms, shader, planes) is None
+
+
+@pytest.mark.parametrize("case", ["texture_elsewhere", "matrix_3x4", "map_numpy",
+                                  "light_missing", "spec_changed", "vary_channels",
+                                  "vary_elsewhere", "winner_strided", "tile_shape",
+                                  "winner_2d"])
+def test_fresh_route_raises_on_inputs_the_kernel_cannot_read(meta_is_a_card, case):
+    """A fresh pass on the card that the kernel takes by its class and
+    dtypes, but whose planes or uniforms it cannot read, raises under
+    the fresh entry's name."""
+    uniforms, shader, (winner_c, vary_c) = _meta_fresh("shadow_phong")
+    if case == "texture_elsewhere":
+        uniforms["tex_packed"] = torch.empty((*TEX_HW, 7), dtype=torch.uint8)
+    elif case == "matrix_3x4":
+        uniforms["modelview"] = torch.empty((3, 4), device="meta")
+    elif case == "map_numpy":
+        uniforms["shadow_map"] = np.zeros(MAP_HW, dtype=np.float32)
+    elif case == "light_missing":
+        del uniforms["fill_light_eye"]
+    elif case == "spec_changed":
+        shader.varying_spec = {"uv": 2, "normal_eye": 3, "position_eye": 3,
+                               "position_model": 3}
+    elif case == "vary_channels":
+        vary_c = torch.empty((N_ACTIVE, 8, *TILE), device="meta")
+    elif case == "vary_elsewhere":
+        vary_c = torch.empty((N_ACTIVE, 11, *TILE))
+    elif case == "winner_strided":
+        winner_c = torch.empty((N_ACTIVE, TILE[1], TILE[0]), dtype=torch.int32,
+                               device="meta").transpose(1, 2)
+    elif case == "tile_shape":
+        vary_c = torch.empty((N_ACTIVE, 11, 32, 128), device="meta")
+    elif case == "winner_2d":
+        winner_c = torch.empty((N_ACTIVE, TILE[0] * TILE[1]), dtype=torch.int32,
+                               device="meta")
+    with pytest.raises(ValueError, match="shade_compact_fresh"):
+        raster_sparse.shade_kind(uniforms, shader, (winner_c, vary_c))
+
+
+@pytest.mark.parametrize("name", COLOUR_SHADERS)
+def test_cpu_shade_compact_fresh_is_the_eager_chain_and_counts_plain(name):
+    """On CPU tensors ``shade_compact_fresh`` is the eager chain as it
+    always was, on the stress set, and counts one ``shade.plain`` and no
+    launch."""
+    _, _, _, winner_c, vary_c = stress_planes(name, "cpu", seed=4)
+    shader = SHADERS[name][0]()
+    uniforms = uniforms_of(name, shader, "cpu", seed=4)
+    before = trace.counts()
+    got = raster_sparse.shade_compact_fresh(winner_c, vary_c, uniforms, shader)
+    c = trace.counts()
+    assert (c["shade.plain"] - before["shade.plain"], c["shade.kernel"] - before["shade.kernel"],
+            c["launch.shade_fresh"] - before["launch.shade_fresh"]) == (1, 0, 0)
+    want = eager_fresh(winner_c, vary_c, uniforms, shader)
+    assert_bits(got.numpy(), want.numpy(), name)
+    assert_bits(raster_sparse.shade_compact_fresh_plain(winner_c, vary_c, uniforms,
+                                                        shader).numpy(), want.numpy(), name)
+
+
+@pytest.mark.parametrize("name", COLOUR_KERNEL_SHADERS)
+def test_fresh_kernel_route_of_no_tile_makes_no_launch(name):
+    """No tiles: the fresh entry returns its empty output before its
+    launch (so it runs here, on CPU tensors)."""
+    _, _, _, winner_c, vary_c = stress_planes(name, "cpu")
+    shader = SHADERS[name][0]()
+    uniforms = uniforms_of(name, shader, "cpu")
+    before = trace.counts()
+    out = raster_sparse.shade_compact_fresh_kernel(winner_c[:0], vary_c[:0], uniforms, shader,
+                                                   SHADERS[name][1])
+    assert trace.counts() == before
+    assert out.dtype == torch.int32 and tuple(out.shape) == (0, *TILE)
+
+
+def test_fresh_source_agrees_with_the_wrapper():
+    """The fresh entry's parameter count is its signature's, its uniform
+    block is the merge entry's parameter for parameter, it takes the
+    colour kinds alone, and its launch counter is anchored on its own
+    kernel."""
+    src = SHADE_CU.read_text()
+
+    def params(entry):
+        body = src.split(f'extern "C" int {entry}(')[1].split(") {")[0]
+        return [" ".join(p.split()) for p in body.split(",")]
+    fresh, merge = params("trt_shade_fresh"), params("trt_merge_shade")
+    assert len(fresh) == len(_build.SIGNATURES["trt_shade_fresh"])
+    n_block = 12 + 11 + 1                   # uniforms and sizes, constants, stream
+    assert fresh[-n_block:] == merge[-n_block:]
+    assert _build.SIGNATURES["trt_shade_fresh"][-n_block:] == \
+        _build.SIGNATURES["trt_merge_shade"][-n_block:]
+    assert "kind > kGrayDepth" in src.split('extern "C" int trt_shade_fresh(')[1]
+    assert trace.LAUNCH_KERNELS["launch.shade_fresh"] == "shade_fresh_kernel"
+    assert src.count("shade_fresh_kernel<K><<<") == 1
+
+
+def test_fresh_kernel_name_is_not_a_raster_kernel():
+    """The raster's and the merge's device time match kernel names by
+    substring: the fresh kernel is none of them, nor they it."""
+    from rasterbench.metrics import image_shade_roofline_pct, raster_roofline_pct
+    assert not any(k in "shade_fresh_kernel" for k in raster_roofline_pct.KERNELS)
+    assert image_shade_roofline_pct.KERNEL not in "merge_shade_kernel"
+
+
+def test_image_shade_roofline_reader():
+    """``image_shade_roofline_pct``: the reference's won pixels' bound
+    over the fresh kernel's device time; None without that kernel."""
+    from types import SimpleNamespace
+
+    from rasterbench.metrics import image_shade_roofline_pct as m
+    from rasterbench.metrics import raster_roofline_pct as raster
+    work = [[{"pass": "object", "won": 200_000, "varyings": 8, "valid": 1, "tests": 1,
+              "winning_triangles": 1, "pixels": 640_000}]] * 2
+    device = [("void (anonymous namespace)::shade_fresh_kernel<0>(ShadeArgs)", 0.0, 12.0),
+              ("void (anonymous namespace)::merge_shade_kernel<0>(ShadeArgs)", 20.0, 50.0),
+              ("void (anonymous namespace)::shade_fresh_kernel<0>(ShadeArgs)", 100.0, 108.0)]
+    data = SimpleNamespace(window=SimpleNamespace(trace=SimpleNamespace(device=device)),
+                           work=work)
+    bound = max(200_000 * 40 / raster.PEAK_BYTES_S, 200_000 * m.OPS_PHONG / raster.PEAK_FLOPS)
+    assert m.read(data) == pytest.approx(100.0 * 2 * bound / 20e-6)
+    assert 0 < m.read(data) < 100
+    data.window.trace.device = device[1:2]
+    assert m.read(data) is None
+    assert m.read(SimpleNamespace(window=SimpleNamespace(trace=None), work=work)) is None
+
+
+# ---------------------------------------------------------------------------
 # the card
 # ---------------------------------------------------------------------------
 
@@ -554,3 +747,112 @@ def test_cuda_device_operations(cuda_device, active):
         assert len(names) in (2, 3, 4) and all("merge_shade_kernel" in n for n in names), names
     else:
         assert names == [], names
+
+
+def check_fresh(winner_c, vary_c, uniforms, shader, what: str, fresh=None) -> None:
+    """Fresh kernel == ``shade_compact_fresh_plain`` on the card, bitwise,
+    one ``shade.kernel``, one launch (none without tiles), no
+    ``shade.plain``.  ``fresh``: the routed entry
+    (``raster_sparse.shade_compact_fresh``)."""
+    before = trace.counts()
+    got = (fresh or raster_sparse.shade_compact_fresh)(winner_c, vary_c, uniforms, shader)
+    c = trace.counts()
+    assert c["shade.kernel"] - before["shade.kernel"] == 1, what
+    assert c["shade.plain"] == before["shade.plain"], what
+    assert c["launch.shade_fresh"] - before["launch.shade_fresh"] == int(winner_c.shape[0] > 0)
+    want = raster_sparse.shade_compact_fresh_plain(winner_c, vary_c, uniforms, shader)
+    assert_bits(got.cpu().numpy(), want.cpu().numpy(), what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresholds", ["as_set", "spec_below", "bright_zero"])
+@pytest.mark.parametrize("name", COLOUR_KERNEL_SHADERS)
+@pytest.mark.parametrize("seed", [1, 2])
+def test_cuda_fresh_stress(cuda_device, monkeypatch, name, thresholds, seed):
+    """The stress set through the fresh entry, thresholds as in
+    ``test_cuda_stress``; every tile, then one tile and no tile."""
+    if thresholds == "spec_below":
+        monkeypatch.setattr(shaders, "EYE_SPECULAR_POWER_THRESHOLD", 0.5)
+    elif thresholds == "bright_zero":
+        monkeypatch.setattr(shaders, "EYE_DIFFUSE_BRIGHTNESS_THRESHOLD", 0.0)
+    shader = SHADERS[name][0]()
+    uniforms = uniforms_of(name, shader, cuda_device, seed)
+    _, _, _, winner_c, vary_c = stress_planes(name, cuda_device, seed)
+    what = f"{name} {thresholds} {seed}"
+    check_fresh(winner_c, vary_c, uniforms, shader, what)
+    check_fresh(winner_c[2:3], vary_c[2:3].contiguous(), uniforms, shader, what + " one tile")
+    check_fresh(winner_c[:0], vary_c[:0], uniforms, shader, what + " no tile")
+
+
+def _orbit_scene(device, eye_shader: bool):
+    """(scene, plan) of ``object_orbit_800`` at its tiny size, its pass
+    Phong as configured or an Eye shader with the same texture."""
+    from rasterbench import catalog, scenes
+    from rasterbench.tests.tiny_checkout import tiny_config
+    from tinyrenderder_tpu_torch import scene as tscene
+    config = tiny_config(json.loads((ROOT / "rasterbench/configs/object_orbit_800.json")
+                                    .read_text()))
+    plan = scenes.make_plan(config, catalog.Benchmark(ROOT).traffic("host"), 2**31 + 29)
+    sc = scenes.port_scene(plan)
+    if eye_shader:
+        key, _, rim = tscene._lights()
+        sc.passes[0].shader = shaders.EyeShader(key, rim)
+    return sc, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eye_shader", [False, True], ids=["phong", "eye"])
+def test_cuda_fresh_object_orbit_frames(cuda_device, monkeypatch, eye_shader):
+    """Every fresh pass of eight views of the ``object_orbit_800`` orbit
+    at its tiny size through the kernel == the plain chain on the same
+    inputs; each frame of ``render_frame_fused_image`` (``Scene.render_image``)
+    equals the frame the plain route renders, with one
+    ``launch.shade_fresh`` and one ``shade.kernel`` and no ``shade.plain``."""
+    sc, plan = _orbit_scene(cuda_device, eye_shader)
+    real = raster_sparse.shade_compact_fresh
+    seen = []
+
+    def checked(winner_c, vary_c, uniforms, shader):
+        check_fresh(winner_c, vary_c, uniforms, shader, type(shader).__name__, fresh=real)
+        seen.append(type(shader).__name__)
+        return real(winner_c, vary_c, uniforms, shader)
+
+    for f in range(0, plan.orbit.views, plan.orbit.views // 8):
+        sc.camera.set_eye(plan.orbit.eye_at(f))
+        with monkeypatch.context() as m:
+            m.setattr(raster_sparse, "shade_compact_fresh", checked)
+            sc.render_image(cuda_device, frustum_cull=True, backend="tiled")
+        trace.reset_counts()
+        got = sc.render_image(cuda_device, frustum_cull=True, backend="tiled")
+        c = trace.counts()
+        assert (c["launch.shade_fresh"], c["shade.kernel"], c["shade.plain"]) == (1, 1, 0), c
+        with monkeypatch.context() as m:
+            m.setattr(raster_sparse, "_SHADE_DEVICE", "none")
+            want = sc.render_image(cuda_device, frustum_cull=True, backend="tiled")
+        assert_bits(got.cpu().numpy(), want.cpu().numpy(), f"frame {f}")
+    assert seen == ["EyeShader" if eye_shader else "PhongShader"] * 8
+
+
+@pytest.mark.cuda
+def test_cuda_fresh_device_operations(cuda_device):
+    """A fresh pass makes exactly one device operation,
+    ``shade_fresh_kernel`` (its output is allocated, not filled)."""
+    from torch.profiler import ProfilerActivity, profile
+    name = "phong"
+    shader = SHADERS[name][0]()
+    uniforms = uniforms_of(name, shader, cuda_device)
+    _, _, _, winner_c, vary_c = stress_planes(name, cuda_device)
+    args = (winner_c, vary_c, uniforms, shader)
+    raster_sparse.shade_compact_fresh(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                raster_sparse.shade_compact_fresh(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        if len(names) >= 2:
+            break
+    assert len(names) in (2, 3, 4) and all("shade_fresh_kernel" in n for n in names), names

@@ -194,6 +194,19 @@ def test_image_route_spans():
                        "pass.merge_shade": "frame", "frame.untile": "frame"}
 
 
+def test_image_frame_counts_the_plain_fresh_shading_in_its_span():
+    """A traced image frame on the CPU: its one pass shades in
+    ``pass.merge_shade`` on the plain fresh chain, counted ``shade.plain``
+    once in the frame's record, with no ``shade.kernel`` and no launch."""
+    sc = tscene.headline_scene(96, 64, n_lat=12, n_lon=16)
+    sc.render_image(CPU)
+    _traced(lambda: sc.render_image(CPU))
+    (rec,) = trace.frames()
+    assert [s.name for s in rec.spans].count("pass.merge_shade") == 1
+    assert (rec.counts["shade.plain"], rec.counts["shade.kernel"],
+            rec.counts["launch.shade_fresh"]) == (1, 0, 0)
+
+
 def test_animation_spans(tmp_path):
     sc = tscene.headline_scene(64, 64, n_lat=8, n_lon=12)
     cfg = animation.AnimationConfig(frames=3, device=CPU, outdir=str(tmp_path))
@@ -485,8 +498,9 @@ def test_reader_entry_in_the_benchmark(name):
     reader = _reader(name)
     assert (reader.UNIT, reader.LAYER, reader.MOVES) == (entry["unit"], entry["layer"],
                                                          entry["moves"])
+    image = [] if name == "stats_host_ms" else ["object_orbit_800.host"]   # no stats there
     assert entry["workloads"] == ["reference_main_1200x800.walk",
-                                  "reference_main_shadows_1200x800.sun_walk"]
+                                  "reference_main_shadows_1200x800.sun_walk", *image]
 
 
 def test_readers_on_a_profiled_cpu_frame(scene3):

@@ -99,6 +99,10 @@ SIGNATURES = {
     # (null / 0 where the kind reads none), the shader's 12 constants, stream
     "trt_merge_shade": [_I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                         _P, _I, _I, _P, _P, _I, _I, *[_F] * 12, _P],
+    # kind, n_active, tile_h, tile_w, winner_c, vary_c, n_vary, out, then
+    # trt_merge_shade's uniform block and constants
+    "trt_shade_fresh": [_I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                        _I, *[_F] * 12, _P],
 }
 
 #: C functions of no argument that return a kernel's compile-time constant

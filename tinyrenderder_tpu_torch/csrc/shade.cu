@@ -1,6 +1,6 @@
 // Merge + shade for Hopper (sm_90a): one pass's compact raster outputs
 // merged into the frame's tiles, and the fragment of every pixel the pass
-// won, in one launch.
+// won, in one launch; and the same fragment on a fresh frame.
 //
 //   merge_shade_kernel<K> (one thread a pixel of an active tile; tile a of
 //     the pass is frame tile ids[a]): writes the pass's depth at every
@@ -15,6 +15,12 @@
 //     position_model, the clamped gather from the shadow map and the
 //     0.3 / 1.0 gate on all but the ambient term), GrayDepthShader, and
 //     depth only (a shader that writes no colour).
+//   shade_fresh_kernel<K> (one thread a pixel of the compact tiles; the
+//     image route's single pass on a fresh frame, where a pixel's winner
+//     >= 0 is already the merge's outcome): the packed fragment of K, one
+//     of the colour kinds, where the winner is >= 0, and 0 elsewhere,
+//     written into compact (A, th, tw) tiles.  It calls the same uniform
+//     load and fragment as merge_shade_kernel.
 //
 // It replaces no Pallas kernel: the JAX package merges and shades as XLA
 // ops (tinyrenderder_tpu/ops/raster_sparse.py::_post_sparse_jit).  On the
@@ -22,7 +28,8 @@
 // (tinyrenderder_tpu_torch/ops/raster_sparse.py::post_sparse_plain, its
 // plain version) makes some 170 launches a colour pass, shades every
 // active pixel and throws away the ones the pass lost, and the frame
-// waits on the host between the launches.
+// waits on the host between the launches; the fresh entry replaces
+// shade_compact_fresh_plain, the same chain and a torch.where.
 //
 // Exactness: every float op is the plain version's (shaders.py), in its
 // order and in float32 (-fmad=false; __fmul_rn / __fadd_rn / __fdiv_rn /
@@ -40,7 +47,8 @@
 // What bounds it: the bytes.  A thread reads its tile id, depth and winner
 // (12 B) and writes the depth (4 B); a won pixel reads its V varyings (4V
 // B, neighbouring threads at neighbouring addresses) and writes winner and
-// colour (8 B).  Only won pixels gather a texel or a shadow-map texel; the
+// colour (8 B).  On a fresh frame a thread reads its winner and writes its
+// colour (8 B), a won pixel reads its varyings besides.  Only won pixels gather a texel or a shadow-map texel; the
 // texture (7 B a texel) and the map stay in the 50 MB L2 across a pass.
 // The uniforms (matrices, lights) are read once a block into shared
 // memory.
@@ -68,14 +76,14 @@ struct Consts {
 };
 
 struct ShadeArgs {
-  const int* ids;                 // (A,) frame tile of each compact tile
+  const int* ids;                 // (A,) frame tile of each compact tile (merge only)
   const float* depth_c;           // (A, th, tw)
   const int* winner_c;            // (A, th, tw)
   const float* vary_c;            // (A, V, th, tw)
   long long n_px;                 // A * th * tw
   int area, n_vary, winner_offset;
-  int* color;                     // (T, th, tw) frame planes
-  float* depth;
+  int* color;                     // (T, th, tw) frame planes; fresh: (A, th, tw) output
+  float* depth;                   // merge only
   int* winner;
   const float* modelview;         // (4, 4) row-major
   const float* key;               // (3,) light directions in eye space
@@ -247,12 +255,12 @@ __device__ __forceinline__ float shadow_factor(const ShadeArgs& a, const float* 
   return lit ? 1.0f : a.c.shadow_factor;
 }
 
+// the uniforms, once a block, into shared memory: modelview, shadow
+// matrix, key / fill / rim (an Eye pass reads no modelview and no fill
+// light); every thread of the block reaches the barrier
 template <int K>
-__global__ void __launch_bounds__(kBlock)
-merge_shade_kernel(ShadeArgs a) {
-  // the uniforms, once a block: modelview, shadow matrix, key / fill / rim
-  // (an Eye pass reads no modelview and no fill light)
-  __shared__ float s_mv[16], s_sm[16], s_l[9];
+__device__ __forceinline__ void load_uniforms(const ShadeArgs& a, float* s_mv, float* s_sm,
+                                              float* s_l) {
   if (K <= kShadow) {
     const int i = threadIdx.x;
     if (i < 16) {
@@ -265,6 +273,45 @@ merge_shade_kernel(ShadeArgs a) {
     }
     __syncthreads();
   }
+}
+
+// the packed fragment of a colour kind K at the pixel whose varyings
+// start at src (channel stride a.area)
+template <int K>
+__device__ __forceinline__ int shade_pixel(const ShadeArgs& a, const float* s_mv,
+                                           const float* s_sm, const float* s_l,
+                                           const float* src) {
+  constexpr int V = vary_of(K);
+  float v[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = __ldg(src + static_cast<long long>(k) * a.area);
+
+  float rgb[3];
+  if constexpr (K == kPhong) {
+    float base[3];
+    phong(a, s_mv, s_l, v, rgb, base);
+  } else if constexpr (K == kShadow) {
+    float base[3], lit[3];
+    phong(a, s_mv, s_l, v, lit, base);
+    const float f = shadow_factor(a, s_sm, v);
+    for (int k = 0; k < 3; ++k) {
+      const float amb = mul(base[k], a.c.ambient);
+      rgb[k] = add(amb, mul(sub(lit[k], amb), f));
+    }
+  } else if constexpr (K == kEye) {
+    eye(a, s_l, v, rgb);
+  } else {   // kGrayDepth: (ndc_z * 0.5 + 0.5) * 255
+    const float g = mul(add(mul(v[0], 0.5f), 0.5f), 255.0f);
+    rgb[0] = rgb[1] = rgb[2] = g;
+  }
+  return pack(rgb);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kBlock)
+merge_shade_kernel(ShadeArgs a) {
+  __shared__ float s_mv[16], s_sm[16], s_l[9];
+  load_uniforms<K>(a, s_mv, s_sm, s_l);
 
   const long long p = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
   if (p >= a.n_px) return;
@@ -276,39 +323,63 @@ merge_shade_kernel(ShadeArgs a) {
   if (w < 0) return;
   a.winner[dst] = static_cast<int>(static_cast<unsigned>(w) +
                                    static_cast<unsigned>(a.winner_offset));
-  if (K == kDepthOnly) return;
+  if constexpr (K != kDepthOnly)
+    a.color[dst] = shade_pixel<K>(a, s_mv, s_sm, s_l, a.vary_c + t * vary_of(K) * a.area + q);
+}
 
-  constexpr int V = vary_of(K);
-  float v[V > 0 ? V : 1];
-  const float* src = a.vary_c + t * V * a.area + q;
-#pragma unroll
-  for (int k = 0; k < V; ++k) v[k] = __ldg(src + static_cast<long long>(k) * a.area);
+template <int K>
+__global__ void __launch_bounds__(kBlock)
+shade_fresh_kernel(ShadeArgs a) {
+  __shared__ float s_mv[16], s_sm[16], s_l[9];
+  load_uniforms<K>(a, s_mv, s_sm, s_l);
 
-  float rgb[3];
-  if (K == kPhong) {
-    float base[3];
-    phong(a, s_mv, s_l, v, rgb, base);
-  } else if (K == kShadow) {
-    float base[3], lit[3];
-    phong(a, s_mv, s_l, v, lit, base);
-    const float f = shadow_factor(a, s_sm, v);
-    for (int k = 0; k < 3; ++k) {
-      const float amb = mul(base[k], a.c.ambient);
-      rgb[k] = add(amb, mul(sub(lit[k], amb), f));
-    }
-  } else if (K == kEye) {
-    eye(a, s_l, v, rgb);
-  } else {   // kGrayDepth: (ndc_z * 0.5 + 0.5) * 255
-    const float g = mul(add(mul(v[0], 0.5f), 0.5f), 255.0f);
-    rgb[0] = rgb[1] = rgb[2] = g;
+  const long long p = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (p >= a.n_px) return;
+  if (__ldg(a.winner_c + p) < 0) {
+    a.color[p] = 0;
+    return;
   }
-  a.color[dst] = pack(rgb);
+  const long long t = p / a.area;
+  const int q = static_cast<int>(p - t * a.area);
+  a.color[p] = shade_pixel<K>(a, s_mv, s_sm, s_l, a.vary_c + t * vary_of(K) * a.area + q);
 }
 
 template <int K>
 void launch(const ShadeArgs& a, cudaStream_t s) {
   const long long blocks = (a.n_px + kBlock - 1) / kBlock;
   merge_shade_kernel<K><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(a);
+}
+
+template <int K>
+void launch_fresh(const ShadeArgs& a, cudaStream_t s) {
+  const long long blocks = (a.n_px + kBlock - 1) / kBlock;
+  shade_fresh_kernel<K><<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(a);
+}
+
+// The uniform block both entries take, checked and stored into a: false
+// where a uniform the kind reads is missing or empty
+bool set_uniforms(ShadeArgs& a, int kind, const float* modelview, const float* key,
+                  const float* fill, const float* rim, const unsigned char* tex, int tex_h,
+                  int tex_w, const float* shadow_matrix, const float* shadow_map, int map_h,
+                  int map_w, const Consts& c) {
+  const bool textured = kind == kPhong || kind == kEye || kind == kShadow;
+  if ((textured && (!key || !rim || !tex || tex_h <= 0 || tex_w <= 0)) ||
+      ((kind == kPhong || kind == kShadow) && (!modelview || !fill)) ||
+      (kind == kShadow && (!shadow_matrix || !shadow_map || map_h <= 0 || map_w <= 0)))
+    return false;
+  a.modelview = modelview;
+  a.key = key;
+  a.fill = fill;
+  a.rim = rim;
+  a.tex = tex;
+  a.tex_h = tex_h;
+  a.tex_w = tex_w;
+  a.shadow_matrix = shadow_matrix;
+  a.shadow_map = shadow_map;
+  a.map_h = map_h;
+  a.map_w = map_w;
+  a.c = c;
+  return true;
 }
 
 }  // namespace
@@ -332,15 +403,16 @@ extern "C" int trt_merge_shade(int kind, const int* ids, int n_active, int tile_
                                float rim_diffuse, float specular_scale, float one_minus_s,
                                float s, float shadow_eps, float shadow_factor,
                                float eye_brightness, float eye_specular, void* stream) {
-  const bool textured = kind == kPhong || kind == kEye || kind == kShadow;
+  ShadeArgs a;
   if (kind < kPhong || kind > kDepthOnly || n_active <= 0 || tile_h <= 0 || tile_w <= 0 ||
       n_vary != vary_of(kind) || !ids || !depth_c || !winner_c || !depth || !winner ||
       (n_vary > 0 && !vary_c) || (kind != kDepthOnly && !color) ||
-      (textured && (!key || !rim || !tex || tex_h <= 0 || tex_w <= 0)) ||
-      ((kind == kPhong || kind == kShadow) && (!modelview || !fill)) ||
-      (kind == kShadow && (!shadow_matrix || !shadow_map || map_h <= 0 || map_w <= 0)))
+      !set_uniforms(a, kind, modelview, key, fill, rim, tex, tex_h, tex_w, shadow_matrix,
+                    shadow_map, map_h, map_w,
+                    {ambient, key_diffuse, key_specular, fill_diffuse, rim_diffuse,
+                     specular_scale, one_minus_s, s, shadow_eps, shadow_factor, eye_brightness,
+                     eye_specular}))
     return static_cast<int>(cudaErrorInvalidValue);
-  ShadeArgs a;
   a.ids = ids;
   a.depth_c = depth_c;
   a.winner_c = winner_c;
@@ -352,19 +424,6 @@ extern "C" int trt_merge_shade(int kind, const int* ids, int n_active, int tile_
   a.color = color;
   a.depth = depth;
   a.winner = winner;
-  a.modelview = modelview;
-  a.key = key;
-  a.fill = fill;
-  a.rim = rim;
-  a.tex = tex;
-  a.tex_h = tex_h;
-  a.tex_w = tex_w;
-  a.shadow_matrix = shadow_matrix;
-  a.shadow_map = shadow_map;
-  a.map_h = map_h;
-  a.map_w = map_w;
-  a.c = {ambient,     key_diffuse, key_specular, fill_diffuse,  rim_diffuse,    specular_scale,
-         one_minus_s, s,           shadow_eps,   shadow_factor, eye_brightness, eye_specular};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case kPhong: launch<kPhong>(a, st); break;
@@ -372,6 +431,46 @@ extern "C" int trt_merge_shade(int kind, const int* ids, int n_active, int tile_
     case kShadow: launch<kShadow>(a, st); break;
     case kGrayDepth: launch<kGrayDepth>(a, st); break;
     default: launch<kDepthOnly>(a, st); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One pass's fragment on a fresh frame.  kind: a colour kind (kPhong,
+// kEye, kShadow, kGrayDepth); winner_c (A, th, tw) int32 and vary_c (A,
+// n_vary, th, tw) float32, the raster's outputs; out (A, th, tw) int32,
+// the packed colour where winner_c >= 0, 0 elsewhere.  Then the uniform
+// block and the shader's constants, as trt_merge_shade takes them.
+extern "C" int trt_shade_fresh(int kind, int n_active, int tile_h, int tile_w,
+                               const int* winner_c, const float* vary_c, int n_vary, int* out,
+                               const float* modelview, const float* key, const float* fill,
+                               const float* rim, const unsigned char* tex, int tex_h, int tex_w,
+                               const float* shadow_matrix, const float* shadow_map, int map_h,
+                               int map_w, float ambient, float key_diffuse, float key_specular,
+                               float fill_diffuse, float rim_diffuse, float specular_scale,
+                               float one_minus_s, float s, float shadow_eps,
+                               float shadow_factor, float eye_brightness, float eye_specular,
+                               void* stream) {
+  ShadeArgs a = {};
+  if (kind < kPhong || kind > kGrayDepth || n_active <= 0 || tile_h <= 0 || tile_w <= 0 ||
+      n_vary != vary_of(kind) || !winner_c || !vary_c || !out ||
+      !set_uniforms(a, kind, modelview, key, fill, rim, tex, tex_h, tex_w, shadow_matrix,
+                    shadow_map, map_h, map_w,
+                    {ambient, key_diffuse, key_specular, fill_diffuse, rim_diffuse,
+                     specular_scale, one_minus_s, s, shadow_eps, shadow_factor, eye_brightness,
+                     eye_specular}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.winner_c = winner_c;
+  a.vary_c = vary_c;
+  a.area = tile_h * tile_w;
+  a.n_px = static_cast<long long>(n_active) * a.area;
+  a.n_vary = n_vary;
+  a.color = out;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case kPhong: launch_fresh<kPhong>(a, st); break;
+    case kEye: launch_fresh<kEye>(a, st); break;
+    case kShadow: launch_fresh<kShadow>(a, st); break;
+    default: launch_fresh<kGrayDepth>(a, st); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

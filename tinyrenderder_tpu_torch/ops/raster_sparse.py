@@ -5,8 +5,9 @@ to the coarse or the strip raster.  Also the untile kernels
 launch), each with a second entry that stores the cropped image
 (``untile_image``: compact tiles gathered by id, the colour unpacked to
 RGB; ``untile3_image``: the frame's buffers), the hand-written pre-stage
-(``csrc/pre.cu``) and merge + shade (``csrc/shade.cu``), each with its
-plain PyTorch version.
+(``csrc/pre.cu``) and merge + shade (``csrc/shade.cu``; its fresh-frame
+entry shades the image route's pass), each with its plain PyTorch
+version.
 
 Counterpart of the coarse and fine branches of
 ``tinyrenderder_tpu/ops/raster_sparse.py``:
@@ -57,8 +58,9 @@ __all__ = ["pack_rgb", "unpack_rgb", "pick_tile_h", "untile_one",
            "untile_image_plain", "untile3_image", "untile3_image_plain", "FrameTiles",
            "new_frame_tiles", "tiles_to_buffers", "PreSparse", "pre_sparse",
            "pre_sparse_plain", "pre_sparse_kernel", "pre_kind", "viewport_scalars",
-           "shade_compact_fresh", "compact_to_image", "post_sparse", "post_sparse_plain",
-           "post_sparse_kernel", "shade_kind",
+           "shade_compact_fresh", "shade_compact_fresh_plain", "shade_compact_fresh_kernel",
+           "compact_to_image", "post_sparse", "post_sparse_plain", "post_sparse_kernel",
+           "shade_kind",
            "PassEvents", "reduce_events", "FINE_MODE", "decide_mode", "raster_pass",
            "grouped_pass", "walk_passes", "render_frame_fused", "render_frame_fused_image"]
 
@@ -505,7 +507,26 @@ def _shade_packed(vary_c, uniforms: dict, shader):
 def shade_compact_fresh(winner_c, vary_c, uniforms: dict, shader):
     """Fragment-shade the compact tiles of a single pass on a fresh frame:
     a pixel's winner >= 0 is already the merge outcome.  Returns packed
-    colors (A, th, tw) int32, background 0."""
+    colors (A, th, tw) int32, background 0.
+
+    A pass the hand-written shading takes (``shade_kind`` of its winner
+    and varyings) runs ``csrc/shade.cu``'s fresh entry
+    (``shade_compact_fresh_kernel``: one launch, none without tiles);
+    every other pass runs ``shade_compact_fresh_plain``.  Both give the
+    same tiles bitwise.  Each call is counted as ``shade.kernel`` or
+    ``shade.plain``."""
+    kind = shade_kind(uniforms, shader, (winner_c, vary_c))
+    if kind is None:
+        trace.count("shade.plain")
+        return shade_compact_fresh_plain(winner_c, vary_c, uniforms, shader)
+    trace.count("shade.kernel")
+    return shade_compact_fresh_kernel(winner_c, vary_c, uniforms, shader, kind)
+
+
+def shade_compact_fresh_plain(winner_c, vary_c, uniforms: dict, shader):
+    """``shade_compact_fresh`` as eager PyTorch ops, on any device, for
+    every shader: every pixel of the tiles is shaded, and those no
+    triangle won are set to 0."""
     out = _shade_packed(vary_c, uniforms, shader)
     return torch.where(winner_c >= 0, out, torch.zeros_like(out))
 
@@ -574,16 +595,20 @@ _SHADE_DEVICE = "cuda"
 
 def shade_kind(uniforms: dict, shader, planes) -> int | None:
     """The fragment the hand-written merge + shade computes for this pass
-    (``_SHADE_KINDS``), or None where the pass takes ``post_sparse_plain``:
-    its planes are not on the card, its shader is of another class, a
-    colour kind's ``tex_packed`` is None, or a plane or a uniform the
-    fragment reads is a tensor of another dtype (float32 planes and
-    uniforms, int32 winners and colour, a uint8 texture).  ``planes``:
-    the frame's colour, depth and winner tiles and the raster's depth,
-    winner and varyings.  A pass the kernel takes must be readable by it:
-    a shader whose varyings are not its class's, planes of other shapes
-    or devices or not contiguous, or a uniform that is not a tensor of
-    its shape on the planes' device raises ValueError."""
+    (``_SHADE_KINDS``), or None where the pass takes the plain version
+    (``post_sparse_plain``, ``shade_compact_fresh_plain``): its planes
+    are not on the card, its shader is of another class, a colour kind's
+    ``tex_packed`` is None, or a plane or a uniform the fragment reads is
+    a tensor of another dtype (float32 planes and uniforms, int32 winners
+    and colour, a uint8 texture).  ``planes``: the frame's colour, depth
+    and winner tiles and the raster's depth, winner and varyings
+    (``post_sparse``), or the raster's winner and varyings alone, on a
+    fresh frame (``shade_compact_fresh``).  A pass the kernel takes must
+    be readable by it: a shader whose varyings are not its class's,
+    planes of other shapes or devices or not contiguous, or a uniform
+    that is not a tensor of its shape on the planes' device raises
+    ValueError."""
+    who = "shade_compact_fresh" if len(planes) == 2 else "post_sparse"
     kind = _SHADE_KINDS.get(type(shader))
     dev = planes[0].device
     if kind is None or dev.type != _SHADE_DEVICE:
@@ -591,23 +616,24 @@ def shade_kind(uniforms: dict, shader, planes) -> int | None:
     names = _SHADE_UNIFORMS[kind]
     if "tex_packed" in names and uniforms.get("tex_packed") is None:
         return None
-    if any(p.dtype != d for p, d in zip(planes, _SHADE_PLANES)) or any(
+    if any(p.dtype != d for p, d in zip(planes, _SHADE_PLANES[-len(planes):])) or any(
             isinstance(uniforms.get(k), torch.Tensor) and uniforms[k].dtype != (
                 torch.uint8 if k == "tex_packed" else torch.float32) for k in names):
         return None
     spec = tuple(shader.varying_spec.items()) if shader.writes_color else None
     if spec != _SHADE_SPECS[kind]:
-        raise ValueError(f"post_sparse: {type(shader).__name__}'s varyings {spec} are not "
+        raise ValueError(f"{who}: {type(shader).__name__}'s varyings {spec} are not "
                          f"its class's {_SHADE_SPECS[kind]}")
-    frame, (depth_c, winner_c, vary_c) = planes[:3], planes[3:]
-    tile = tuple(frame[0].shape[1:])
-    a = depth_c.shape[0]
+    frame = planes[:-3]            # the frame's tiles: none on a fresh frame
+    tile = tuple(planes[0].shape[1:])
+    a = planes[-2].shape[0]
     n_vary = sum(c for _, c in spec or ())
-    want = [(p, tuple(frame[0].shape)) for p in frame] + [
-        (depth_c, (a, *tile)), (winner_c, (a, *tile)), (vary_c, (a, n_vary, *tile))]
+    want = [(p, tuple(planes[0].shape)) for p in frame] + [
+        (p, (a, *tile)) for p in planes[len(frame):-1]] + [(planes[-1], (a, n_vary, *tile))]
     for p, shape in want:
-        if p.device != dev or tuple(p.shape) != shape or not p.is_contiguous():
-            raise ValueError(f"post_sparse: a plane is {tuple(p.shape)} on {p.device}, not a "
+        if (len(tile) != 2 or p.device != dev or tuple(p.shape) != shape
+                or not p.is_contiguous()):
+            raise ValueError(f"{who}: a plane is {tuple(p.shape)} on {p.device}, not a "
                              f"contiguous {shape} on {dev}")
     for k, shape in names.items():
         t = uniforms.get(k)
@@ -615,7 +641,7 @@ def shade_kind(uniforms: dict, shader, planes) -> int | None:
                 and all(n > 0 if s is None else n == s for s, n in zip(shape, t.shape))):
             what = (f"{tuple(t.shape)} on {t.device}" if isinstance(t, torch.Tensor)
                     else type(t).__name__)
-            raise ValueError(f"post_sparse: {k} is {what}, not a {shape} tensor on {dev}")
+            raise ValueError(f"{who}: {k} is {what}, not a {shape} tensor on {dev}")
     return kind
 
 
@@ -630,6 +656,23 @@ def _shade_scalars(shader) -> tuple[float, ...]:
             1.0 - s, s, g("SHADOW_EPS"), g("SHADOW_AMBIENT_FACTOR"),
             float(shaders.EYE_DIFFUSE_BRIGHTNESS_THRESHOLD),
             float(shaders.EYE_SPECULAR_POWER_THRESHOLD))
+
+
+def _call_shade(entry: str, dev, head: tuple, uniforms: dict, shader, kind: int) -> None:
+    """Call ``csrc/shade.cu``'s ``entry`` with its own arguments ``head``,
+    then the uniform block both entries take: the uniforms ``kind``
+    reads where ``scene`` put them (contiguous, kept alive over the
+    launch; null where the kind reads none), their sizes and the
+    shader's constants."""
+    u = {k: uniforms[k].contiguous() for k in _SHADE_UNIFORMS[kind]}
+    ptr = lambda k: u[k].data_ptr() if k in u else None  # noqa: E731
+    tex, smap = u.get("tex_packed"), u.get("shadow_map")
+    _build.call(entry, dev, *head,
+                *(ptr(k) for k in ("modelview", "key_light_eye", "fill_light_eye",
+                                   "rim_light_eye", "tex_packed")),
+                *(tex.shape[:2] if tex is not None else (0, 0)),
+                ptr("shadow_matrix"), ptr("shadow_map"),
+                *(smap.shape if smap is not None else (0, 0)), *_shade_scalars(shader))
 
 
 def post_sparse_kernel(ft: FrameTiles, ids, depth_c, winner_c, vary_c, uniforms: dict,
@@ -647,20 +690,28 @@ def post_sparse_kernel(ft: FrameTiles, ids, depth_c, winner_c, vary_c, uniforms:
         raise ValueError(f"post_sparse: winner offset {winner_offset} is not an int32")
     if n_active == 0:
         return
-    u = {k: uniforms[k].contiguous() for k in _SHADE_UNIFORMS[kind]}
-    ptr = lambda k: u[k].data_ptr() if k in u else None  # noqa: E731
-    tex, smap = u.get("tex_packed"), u.get("shadow_map")
     tile_h, tile_w = depth_c.shape[1:]
     trace.count("launch.merge_shade")
-    _build.call("trt_merge_shade", depth_c.device, kind, ids.data_ptr(), n_active, tile_h,
-                tile_w, depth_c.data_ptr(), winner_c.data_ptr(),
-                vary_c.data_ptr() if vary_c.shape[1] else None, vary_c.shape[1], winner_offset,
-                ft.color.data_ptr(), ft.depth.data_ptr(), ft.winner.data_ptr(),
-                *(ptr(k) for k in ("modelview", "key_light_eye", "fill_light_eye",
-                                   "rim_light_eye", "tex_packed")),
-                *(tex.shape[:2] if tex is not None else (0, 0)),
-                ptr("shadow_matrix"), ptr("shadow_map"),
-                *(smap.shape if smap is not None else (0, 0)), *_shade_scalars(shader))
+    _call_shade("trt_merge_shade", depth_c.device,
+                (kind, ids.data_ptr(), n_active, tile_h, tile_w, depth_c.data_ptr(),
+                 winner_c.data_ptr(), vary_c.data_ptr() if vary_c.shape[1] else None,
+                 vary_c.shape[1], winner_offset, ft.color.data_ptr(), ft.depth.data_ptr(),
+                 ft.winner.data_ptr()), uniforms, shader, kind)
+
+
+def shade_compact_fresh_kernel(winner_c, vary_c, uniforms: dict, shader, kind: int):
+    """``shade_compact_fresh`` of a pass ``shade_kind`` gave ``kind``, on
+    the card: one launch of ``shade_fresh_kernel`` into
+    one new (A, th, tw) int32 tensor (none without tiles), no readback
+    and no upload."""
+    out = torch.empty(winner_c.shape, dtype=torch.int32, device=winner_c.device)
+    n_active, tile_h, tile_w = winner_c.shape
+    if n_active:
+        trace.count("launch.shade_fresh")
+        _call_shade("trt_shade_fresh", winner_c.device,
+                    (kind, n_active, tile_h, tile_w, winner_c.data_ptr(), vary_c.data_ptr(),
+                     vary_c.shape[1], out.data_ptr()), uniforms, shader, kind)
+    return out
 
 
 def reduce_events(ev, depth_c, winner_c):

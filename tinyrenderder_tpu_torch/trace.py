@@ -59,7 +59,8 @@ one integer add each: ``launch.<entry point>`` (``LAUNCH_KERNELS``),
 ``readback``, ``upload`` and ``upload_bytes`` (``convert.to_torch`` onto
 a card), ``pre.kernel`` / ``pre.plain`` (each ``raster_sparse.pre_sparse``
 pass, by the pre-stage it took), ``shade.kernel`` / ``shade.plain`` (each
-``raster_sparse.post_sparse`` call, by the merge + shade it took) and ``cache.<name>.hit`` / ``.miss`` (``cull``, ``pass_inputs``,
+``raster_sparse.post_sparse`` and ``shade_compact_fresh`` call, by the
+merge + shade it took) and ``cache.<name>.hit`` / ``.miss`` (``cull``, ``pass_inputs``,
 ``uniforms``; ``shadows.py``'s ``shadow_cam``, ``shadow_merged``,
 ``shadow_depth``, ``shadow_lit``).  While tracing is on, a count is also added to
 its frame's record, and a launch stamps its host time and the span it
@@ -106,6 +107,7 @@ LAUNCH_KERNELS = {
     "launch.pre_offsets": "pre_offsets_kernel",
     "launch.pre_place": "pre_place_kernel",
     "launch.merge_shade": "merge_shade_kernel",
+    "launch.shade_fresh": "shade_fresh_kernel",
 }
 
 #: device intervals that are copies or fills, not kernels
